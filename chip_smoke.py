@@ -1,0 +1,327 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA card: build, kernels, main path, parity.
+
+    python3 chip_smoke.py
+
+Phase 0  the card (nvidia-smi name and power limit), torch and CUDA versions; exits
+         non-zero when no CUDA card is available.
+Phase 1  builds the CUDA kernels from csrc/ with nvcc (sm_90a).
+Phase 2  each kernel against its plain PyTorch version on the card, on seeded random
+         inputs at the main path's shapes, at float32 and float64 (both fills
+         bitwise, the others within the bands of tests/test_torch_cuda.py), with median
+         kernel and plain times from CUDA events.
+Phase 3  the main path: the Bickley jet on the 1/4-degree tripolar grid (1440 x 680,
+         halo 5, float32, substeps=30), 20 steps at dt = 60 s through multi_step;
+         checks the launch counts, finite fields and the tracer range; ms/step.
+Phase 4  parity on the card: the 180 x 90 float64 Bickley jet, 20 steps through the
+         kernels, against tests/data/bickley_oracle_180x90.npz with the tolerances
+         of tests/test_parity.py.
+
+Prints the kernel table as one JSON line, then the nvidia-smi line, then
+``{"ok": true, "device": {...}}`` as the last line. Any failed check raises, and the
+script exits non-zero.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+FILL_SHAPES = {"base": (690, 1450), "ext": (724, 1484)}
+BANDS = {"float32": 1e-5, "float64": 1e-12}
+REPLACES = {
+    "halo_fill": "orthogonalsphericalshellgrids_tpu/ops/pallas_fill.py:238",
+    "halo_fill_copy": "orthogonalsphericalshellgrids_tpu/ops/pallas_fill.py:292",
+    "barotropic": "orthogonalsphericalshellgrids_tpu/ops/pallas_baro.py:242",
+    "momentum": "orthogonalsphericalshellgrids_tpu/ops/pallas_mom.py:281",
+    "tracer_adv": "orthogonalsphericalshellgrids_tpu/ops/pallas_adv.py:258",
+}
+
+SOURCES = {name: "orthogonalsphericalshellgrids_tpu_torch/csrc/{}.cu".format(
+    "halo_fill" if name == "halo_fill_copy" else name) for name in REPLACES}
+
+
+def check(ok, what):
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def smi_line():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, n=20, reps=5, warm=3):
+    """Milliseconds per call: CUDA events around ``n`` back-to-back calls, median of
+    ``reps`` such windows, after ``warm`` calls. A call whose host-side enqueue takes
+    longer than its device work (a small kernel) is timed at the enqueue rate."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def rel_err(got, want, sl):
+    g, w = got[..., sl[0], sl[1]], want[..., sl[0], sl[1]]
+    return float((g - w).abs().max()), float((g - w).abs().max() / w.abs().max())
+
+
+def phase2_kernels(card):
+    """Each kernel against its plain version at the main path's shapes; returns
+    {name: (max_abs_err at float32, kernel ms, plain ms)}."""
+    import numpy as np
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import (barotropic, halo_fill,
+                                                                 momentum, tracer_adv)
+    from orthogonalsphericalshellgrids_tpu_torch.models.split_explicit import (
+        averaging_weights)
+    from orthogonalsphericalshellgrids_tpu_torch.ops.location import CC, CF, FC
+
+    results = {}
+    for name in ("float32", "float64"):
+        dt = getattr(torch, name)
+        rng = np.random.default_rng(2024)
+
+        def rnd(shape, scale=1.0, lo=None):
+            a = rng.random(shape) + lo if lo is not None else scale * rng.standard_normal(shape)
+            return torch.as_tensor(a, dtype=dt, device="cuda")
+
+        # halo fill: every (plane, location) of the main path, bitwise
+        for plane, (Yb, Xb) in FILL_SHAPES.items():
+            H = 5 if plane == "base" else 22
+            Nx, Ny = Xb - 2 * H, Yb - 2 * H
+            for loc, sign in ((CC, 1), (FC, -1), (CF, -1)):
+                A = rnd((Yb, Xb))
+                A0 = A.clone()
+                want = halo_fill.fill_halos_plain(A.clone(), loc, sign, Nx, Ny, H, H)
+                got = halo_fill.fill_halos(A.clone(), loc, sign, Nx, Ny, H, H)
+                copy = halo_fill.fill_halos(A, loc, sign, Nx, Ny, H, H, inplace=False)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"fill {plane} {loc} {name} bitwise")
+                check(torch.equal(copy, want) and torch.equal(A, A0),
+                      f"out-of-place fill {plane} {loc} {name} bitwise, input kept")
+        A = rnd(FILL_SHAPES["ext"])
+        Nx, Ny = 1440, 680
+        t_k = time_ms(lambda: halo_fill.fill_halos(A, FC, -1, Nx, Ny, 22, 22))
+        t_p = time_ms(lambda: halo_fill.fill_halos_plain(A, FC, -1, Nx, Ny, 22, 22))
+        t_kc = time_ms(lambda: halo_fill.fill_halos(A, FC, -1, Nx, Ny, 22, 22,
+                                                    inplace=False))
+        t_pc = time_ms(lambda: halo_fill.fill_halos_plain(A.clone(), FC, -1, Nx, Ny, 22,
+                                                          22))
+        log(f"phase 2: halo_fill {name}: in place and out of place bitwise equal on 6 "
+            f"main-path planes; ext-plane (724, 1484) FC fill in place {t_k:.4f} ms "
+            f"kernel, {t_p:.4f} ms plain; out of place {t_kc:.4f} ms kernel, "
+            f"{t_pc:.4f} ms plain (clone + fill) [{card}]")
+        if name == "float32":
+            results["halo_fill"] = (0.0, t_k, t_p)
+            results["halo_fill_copy"] = (0.0, t_kc, t_pc)
+
+        # barotropic subcycle on the extended plane, 21 SM05 weights
+        Ye, Xe = FILL_SHAPES["ext"]
+        static = rnd((9, Ye, Xe), lo=0.5)
+        static[7:] = (static[7:] > 0.6).to(dt)  # masks
+        eta, U, V = (rnd((Ye, Xe), 0.01) for _ in range(3))
+        GU, GV = (rnd((Ye, Xe), 1e-3) for _ in range(2))
+        dtau = torch.tensor(0.01, dtype=dt, device="cuda")
+        weights = torch.as_tensor(averaging_weights(30)[1], dtype=dt, device="cuda")
+        I = (slice(22, Ye - 22), slice(22, Xe - 22))
+        errs = []
+        for wrap in (False, True):
+            args = (static, eta, U, V, GU, GV, dtau, weights, 1440, 22, wrap)
+            for g, w in zip(barotropic.barotropic_substeps(*args),
+                            barotropic.barotropic_substeps_plain(*args)):
+                ea, er = rel_err(g, w, I)
+                check(er <= BANDS[name] and bool(torch.isfinite(g).all()),
+                      f"barotropic {name} wrap={wrap}: rel err {er:.3e}")
+                errs.append((ea, er))
+        args = (static, eta, U, V, GU, GV, dtau, weights, 1440, 22, False)
+        t_k = time_ms(lambda: barotropic.barotropic_substeps(*args), n=10)
+        t_p = time_ms(lambda: barotropic.barotropic_substeps_plain(*args), n=10)
+        ea = max(e[0] for e in errs)
+        log(f"phase 2: barotropic {name}: max abs err {ea:.3e}, max rel err "
+            f"{max(e[1] for e in errs):.3e} (band {BANDS[name]:g}); 21 substeps on "
+            f"(724, 1484) {t_k:.4f} ms kernel, {t_p:.4f} ms plain [{card}]")
+        if name == "float32":
+            results["barotropic"] = (ea, t_k, t_p)
+
+        # momentum and tracer advection on the base plane
+        Yb, Xb = FILL_SHAPES["base"]
+        u, v = rnd((Yb, Xb)), rnd((Yb, Xb))
+        st = rnd((10, Yb, Xb), lo=1.0)
+        st[3] = 0.1 * rnd((Yb, Xb))
+        st[8:] = (st[8:] > 1.15).to(dt)
+        R = momentum.REACH
+        I = (slice(R, -R), slice(R, -R))
+        errs = [rel_err(g, w, I) for g, w in zip(momentum.momentum(u, v, st),
+                                                  momentum.momentum_plain(u, v, st))]
+        er = max(e[1] for e in errs)
+        check(er <= BANDS[name], f"momentum {name}: rel err {er:.3e}")
+        t_k = time_ms(lambda: momentum.momentum(u, v, st))
+        t_p = time_ms(lambda: momentum.momentum_plain(u, v, st))
+        ea = max(e[0] for e in errs)
+        log(f"phase 2: momentum {name}: max abs err {ea:.3e}, max rel err {er:.3e} "
+            f"(band {BANDS[name]:g}); (690, 1450) {t_k:.4f} ms kernel, {t_p:.4f} ms "
+            f"plain [{card}]")
+        if name == "float32":
+            results["momentum"] = (ea, t_k, t_p)
+
+        c = rnd((Yb, Xb))
+        sa = rnd((5, Yb, Xb), lo=1.0)
+        R = tracer_adv.REACH
+        ea, er = rel_err(tracer_adv.tracer_adv(c, u, v, sa),
+                         tracer_adv.tracer_adv_plain(c, u, v, sa),
+                         (slice(R, -R), slice(R, -R)))
+        check(er <= BANDS[name], f"tracer_adv {name}: rel err {er:.3e}")
+        t_k = time_ms(lambda: tracer_adv.tracer_adv(c, u, v, sa))
+        t_p = time_ms(lambda: tracer_adv.tracer_adv_plain(c, u, v, sa))
+        log(f"phase 2: tracer_adv {name}: max abs err {ea:.3e}, max rel err {er:.3e} "
+            f"(band {BANDS[name]:g}); (690, 1450) {t_k:.4f} ms kernel, {t_p:.4f} ms "
+            f"plain [{card}]")
+        if name == "float32":
+            results["tracer_adv"] = (ea, t_k, t_p)
+    return results
+
+
+def phase3_main_path(card, n_steps=20, warm=3):
+    """The 1/4-degree Bickley jet through the kernels; returns the launch counts."""
+    import torch
+
+    from examples.bickley_jet_torch import build
+    from orthogonalsphericalshellgrids_tpu_torch import kernels
+    from orthogonalsphericalshellgrids_tpu_torch.models import multi_step
+
+    t0 = time.perf_counter()
+    model, state = build(1440, 680, dtype=torch.float32, substeps=30, device="cuda")
+    torch.cuda.synchronize()
+    log(f"phase 3: built the 1440 x 680 model in {time.perf_counter() - t0:.1f} s "
+        f"(base {tuple(state.u.shape)}, free surface {tuple(state.eta.shape)}, "
+        f"{model.weights.shape[0]} substeps)")
+    state = multi_step(model, state, 60.0, warm)
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state = multi_step(model, state, 60.0, n_steps)
+    end.record()
+    end.synchronize()
+    counts = kernels.launch_counts()
+    ms = start.elapsed_time(end) / n_steps
+    expected = dict(halo_fill=2 * n_steps, halo_fill_copy=6 * n_steps, momentum=n_steps,
+                    tracer_adv=n_steps, barotropic=n_steps)
+    check(counts == expected, f"launch counts {counts} != {expected}")
+    check(tuple(state.u.shape) == (690, 1450) and tuple(state.eta.shape) == (724, 1484),
+          "state shapes")
+    for name in ("u", "v", "c", "eta", "U", "V"):
+        check(bool(torch.isfinite(getattr(state, name)).all()), f"{name} finite")
+    cmin, cmax = float(state.c.min()), float(state.c.max())
+    check(-1 - 1e-3 <= cmin and cmax <= 1 + 1e-3, f"c in [-1, 1]: [{cmin}, {cmax}]")
+    umax = float(state.u.abs().max())
+    log(f"phase 3: {n_steps} steps after {warm} warm-up: {ms:.4f} ms/step "
+        f"({1440 * 680 / ms / 1e6:.4f} G grid-points/s), launches {counts}, "
+        f"max|u| {umax:.4f}, c in [{cmin:.6f}, {cmax:.6f}] [{card}]")
+    return counts, ms
+
+
+def phase4_parity(card):
+    import numpy as np
+    import torch
+
+    from examples.bickley_jet_torch import build, diagnostics
+    from orthogonalsphericalshellgrids_tpu_torch import kernels
+    from orthogonalsphericalshellgrids_tpu_torch.models import step
+
+    with np.load(os.path.join(ROOT, "tests", "data", "bickley_oracle_180x90.npz")) as d:
+        nx, ny, dt, _, _ = d["meta"]
+        ref = {k: d[k] for k in ("u.020", "v.020", "c.020", "eta.020")}
+        curves = {k: d[k][:20] for k in ("ke", "ens", "cvar")}
+    model, s = build(int(nx), int(ny), dtype=torch.float64, substeps=30, device="cuda")
+    kernels.reset_launch_counts()
+    got = {"ke": [], "ens": [], "cvar": []}
+    for _ in range(20):
+        s = step(model, s, float(dt))
+        for k, val in zip(("ke", "ens", "cvar"), diagnostics(model, s)):
+            got[k].append(val)
+    check(kernels.launch_counts()["barotropic"] == 20, "parity run used the kernels")
+    g, ge = model.grid, model.grid_ext
+    fields = {"u": s.u.cpu().numpy()[g.interior2d], "v": s.v.cpu().numpy()[g.interior2d],
+              "c": s.c.cpu().numpy()[g.interior2d],
+              "eta": ge.interior(s.eta).cpu().numpy()}
+    worst = []
+    for name, a in fields.items():
+        r = ref[f"{name}.020"]
+        diff = float(np.abs(a - r).max())
+        worst.append(f"{name} {diff:.3e}")
+        check(np.allclose(a, r, rtol=1e-9, atol=1e-12), f"oracle {name}: max diff {diff}")
+    for k, ref_curve in curves.items():
+        rel = float(np.max(np.abs(np.asarray(got[k]) / ref_curve - 1.0)))
+        worst.append(f"{k} rel {rel:.3e}")
+        check(np.allclose(got[k], ref_curve, rtol=1e-10, atol=0), f"oracle {k}: rel {rel}")
+    log(f"phase 4: 180 x 90 float64 oracle, 20 steps through the kernels: max |diff| "
+        f"{', '.join(worst)} (rtol 1e-9, atol 1e-12; curves rtol 1e-10) [{card}]")
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available; this smoke runs only on a GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    card = smi_line()
+    log(f"phase 0: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"phase 1: kernels built in {_build.build_seconds():.1f} s (nvcc), loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    kres = phase2_kernels(card)
+    counts, _ = phase3_main_path(card)
+    phase4_parity(card)
+
+    table = [{"name": name, "route": "cuda", "source": SOURCES[name],
+              "replaces": REPLACES[name], "launches": counts[name],
+              "max_abs_err": kres[name][0], "ms": kres[name][1], "plain_ms": kres[name][2]}
+             for name in REPLACES]
+    print(json.dumps({"kernels": table}), flush=True)
+    print(smi_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,141 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a CUDA card.
+
+Every test here needs the card and skips elsewhere with the reason. The file imports
+no jax, so it runs on a machine without the JAX package:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Bands (``max |kernel - plain| / max |plain|`` over the valid cells; the kernels follow
+the plain versions' arithmetic order and differ only where nvcc contracts a multiply
+and an add into one FMA): float32 1e-5, float64 1e-12. The halo fill moves data and
+multiplies by ±1, so both its modes are held bitwise.
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+from orthogonalsphericalshellgrids_tpu_torch import kernels  # noqa: E402
+from orthogonalsphericalshellgrids_tpu_torch.kernels import (  # noqa: E402
+    barotropic, halo_fill, momentum, tracer_adv)
+from orthogonalsphericalshellgrids_tpu_torch.models import hydrostatic as TH  # noqa: E402
+from orthogonalsphericalshellgrids_tpu_torch.ops.location import CC, CF, FC, FF  # noqa: E402
+
+torch.set_num_threads(1)
+
+needs_cuda = pytest.mark.skipif("not torch.cuda.is_available()",
+                                reason="needs a CUDA card: the kernel has no CPU mode")
+
+BANDS = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _rel_err(got, want, sl):
+    got, want = got[..., sl[0], sl[1]], want[..., sl[0], sl[1]]
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _mom_inputs(dtype, Yb=60, Xb=76, seed=0):
+    r = np.random.default_rng(seed)
+    u, v = r.standard_normal((2, Yb, Xb))
+    static = 1.0 + r.random((10, Yb, Xb))
+    static[3] = 0.1 * r.standard_normal((Yb, Xb))                   # f_ff
+    static[8:] = (r.random((2, Yb, Xb)) > 0.15).astype(np.float64)  # masks
+    return [torch.as_tensor(a, dtype=dtype, device="cuda") for a in (u, v, static)]
+
+
+def _adv_inputs(dtype, Yb=60, Xb=76, seed=3):
+    r = np.random.default_rng(seed)
+    c, u, v = r.standard_normal((3, Yb, Xb))
+    static = 1.0 + r.random((5, Yb, Xb))
+    return [torch.as_tensor(a, dtype=dtype, device="cuda") for a in (c, u, v, static)]
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("loc,sign", [(CC, 1), (FC, -1), (CF, -1), (FF, 1), (FC, 1)])
+def test_cuda_fill_bitwise(dtype, loc, sign):
+    for H in (5, 22):
+        A = torch.as_tensor(np.random.default_rng(H).standard_normal(
+            (3, 40 + 2 * H, 48 + 2 * H)), dtype=dtype, device="cuda")
+        A0 = A.clone()
+        want = halo_fill.fill_halos_plain(A.clone(), loc, sign, 48, 40, H, H)
+        got = halo_fill.fill_halos(A.clone(), loc, sign, 48, 40, H, H)
+        copy = halo_fill.fill_halos(A, loc, sign, 48, 40, H, H, inplace=False)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(copy, want) and torch.equal(A, A0)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_momentum(dtype):
+    u, v, static = _mom_inputs(dtype)
+    R = momentum.REACH
+    got = momentum.momentum(u, v, static)
+    for g, w in zip(got, momentum.momentum_plain(u, v, static)):
+        assert _rel_err(g, w, (slice(R, -R), slice(R, -R))) <= BANDS[dtype]
+        assert torch.isfinite(g).all()
+        assert (g[:R] == 0).all() and (g[:, -R:] == 0).all()
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_tracer_adv(dtype):
+    c, u, v, static = _adv_inputs(dtype)
+    R = tracer_adv.REACH
+    got = tracer_adv.tracer_adv(c, u, v, static)
+    want = tracer_adv.tracer_adv_plain(c, u, v, static)
+    assert _rel_err(got, want, (slice(R, -R), slice(R, -R))) <= BANDS[dtype]
+    assert torch.isfinite(got).all()
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("wrap", [False, True])
+def test_cuda_barotropic(dtype, wrap):
+    from examples.bickley_jet_torch import build
+
+    model, _ = build(48, 40, dtype=dtype, substeps=30, device="cuda")
+    ge = model.grid_ext
+    ext = (ge.Ny + 2 * ge.Hy, ge.Nx + 2 * ge.Hx)
+    r = np.random.default_rng(9)
+    eta, U, V = (halo_fill.fill_halos_plain(
+        torch.as_tensor(0.01 * r.standard_normal(ext), dtype=dtype, device="cuda"),
+        loc, s, ge.Nx, ge.Ny, ge.Hx, ge.Hy) for loc, s in ((CC, 1), (FC, -1), (CF, -1)))
+    GU, GV = (1e-6 * torch.ones(ext, dtype=dtype, device="cuda") for _ in range(2))
+    dtau = model.fractional_dt * torch.as_tensor(120.0, dtype=dtype, device="cuda")
+    args = (model.baro_pack, eta, U, V, GU, GV, dtau, model.weights, ge.Nx, ge.Hx, wrap)
+    I = (slice(ge.Hy, ge.Hy + ge.Ny), slice(ge.Hx, ge.Hx + ge.Nx))
+    inputs = [a.clone() for a in (eta, U, V)]
+    for got, want in zip(barotropic.barotropic_substeps(*args),
+                         barotropic.barotropic_substeps_plain(*args)):
+        assert _rel_err(got, want, I) <= BANDS[dtype]
+        assert torch.isfinite(got).all()
+    for a, a0 in zip((eta, U, V), inputs):  # the kernel reads its inputs in place
+        assert torch.equal(a, a0)
+
+
+@needs_cuda
+def test_cuda_steps_match_cpu_float64():
+    """Five float64 steps through the kernels agree with the CPU plain path."""
+    from examples.bickley_jet_torch import build
+
+    cpu_m, cpu_s = build(48, 40, dtype=torch.float64, substeps=30, device="cpu")
+    gpu_m, gpu_s = build(48, 40, dtype=torch.float64, substeps=30, device="cuda")
+    kernels.reset_launch_counts()
+    gpu_out = TH.multi_step(gpu_m, gpu_s, 120.0, 5)
+    assert kernels.launch_counts() == dict(halo_fill=10, halo_fill_copy=30, barotropic=5,
+                                           momentum=5, tracer_adv=5)
+    cpu_out = TH.multi_step(cpu_m, cpu_s, 120.0, 5)
+    g = cpu_m.grid
+    for name in ("u", "v", "c"):
+        want = getattr(cpu_out, name)[g.interior2d]
+        got = getattr(gpu_out, name).cpu()[g.interior2d]
+        assert float((got - want).abs().max()) <= 1e-11 * float(want.abs().max()), name
