@@ -16,6 +16,18 @@ Phase 3  the main path: the Bickley jet on the 1/4-degree tripolar grid (1440 x 
 Phase 4  parity on the card: the 180 x 90 float64 Bickley jet, 20 steps through the
          kernels, against tests/data/bickley_oracle_180x90.npz with the tolerances
          of tests/test_parity.py.
+Phase 5  the layered path: the baroclinic front on the 1/4-degree tripolar grid with
+         10 layers (1440 x 680 x 10, float32, substeps=30), 10 steps at dt = 40 s
+         after 3 warm-up steps through layered_multi_step; checks the launch counts
+         per step and finite fields; ms/step and G grid-points/s.
+Phase 6  layered parity on the card: the 120 x 60 x 4 float64 front, 15 steps
+         through the kernels, against tests/data/front_oracle_120x60x4.npz with the
+         tolerances of tests/test_parity.py:233-236.
+
+Phase 2 also holds the layered kernels against their plain versions: the vertical
+column kernel at (10, 690, 1450) in its three modes and at Nz = 50, the layered
+momentum kernel at Nz = 10, the layered tracer kernel with 1 and 2 tracers, and the
+halo fill on a 10-plane stack.
 
 Prints the kernel table as one JSON line, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line. Any failed check raises, and the
@@ -39,10 +51,19 @@ REPLACES = {
     "barotropic": "orthogonalsphericalshellgrids_tpu/ops/pallas_baro.py:242",
     "momentum": "orthogonalsphericalshellgrids_tpu/ops/pallas_mom.py:281",
     "tracer_adv": "orthogonalsphericalshellgrids_tpu/ops/pallas_adv.py:258",
+    "vertical": "orthogonalsphericalshellgrids_tpu/ops/pallas_vert.py:309",
+    "momentum_layered": "orthogonalsphericalshellgrids_tpu/ops/pallas_mom.py:281",
+    "tracer_adv_layered": "orthogonalsphericalshellgrids_tpu/ops/pallas_adv.py:258",
 }
-
+SOURCE_FILE = {"halo_fill_copy": "halo_fill", "momentum_layered": "momentum",
+               "tracer_adv_layered": "tracer_adv"}
 SOURCES = {name: "orthogonalsphericalshellgrids_tpu_torch/csrc/{}.cu".format(
-    "halo_fill" if name == "halo_fill_copy" else name) for name in REPLACES}
+    SOURCE_FILE.get(name, name)) for name in REPLACES}
+# the kernels each main path must launch: the Bickley jet (phase 3) and the
+# baroclinic front (phase 5)
+BICKLEY = ("halo_fill", "halo_fill_copy", "barotropic", "momentum", "tracer_adv")
+FRONT = ("halo_fill", "halo_fill_copy", "barotropic", "vertical", "momentum_layered",
+         "tracer_adv_layered")
 
 
 def check(ok, what):
@@ -206,6 +227,131 @@ def phase2_kernels(card):
     return results
 
 
+def phase2_layered(card):
+    """The layered kernels against their plain versions at the front's shapes;
+    returns {name: (max_abs_err at float32, kernel ms, plain ms)} for the front's
+    own cases (vertical in tracer_b mode with c + b, S = 3; one tracer stack)."""
+    import numpy as np
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import (halo_fill, momentum,
+                                                                 tracer_adv, vertical)
+    from orthogonalsphericalshellgrids_tpu_torch.ops.location import CC, CF, FC
+
+    results = {}
+    Yb, Xb = FILL_SHAPES["base"]
+    eos = (9.81, 1.67e-4, 7.8e-4, 10.0, 35.0)
+    for name in ("float32", "float64"):
+        dt = getattr(torch, name)
+        rng = np.random.default_rng(7)
+
+        def rnd(shape, scale=1.0, lo=None):
+            a = rng.random(shape) + lo if lo is not None else scale * rng.standard_normal(shape)
+            return torch.as_tensor(a, dtype=dt, device="cuda")
+
+        def masks(shape):
+            return torch.as_tensor(rng.random(shape) > 0.15, dtype=dt, device="cuda")
+
+        # the halo fill on a 10-plane stack, bitwise, in place and out of place
+        for loc, sign in ((CC, 1), (FC, -1), (CF, -1)):
+            A = rnd((10, Yb, Xb))
+            A0 = A.clone()
+            want = halo_fill.fill_halos_plain(A.clone(), loc, sign, 1440, 680, 5, 5)
+            got = halo_fill.fill_halos(A.clone(), loc, sign, 1440, 680, 5, 5)
+            copy = halo_fill.fill_halos(A, loc, sign, 1440, 680, 5, 5, inplace=False)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want) and torch.equal(copy, want) and torch.equal(A, A0),
+                  f"10-plane fill {loc} {name} bitwise, input kept")
+        t_k = time_ms(lambda: halo_fill.fill_halos(A, CC, 1, 1440, 680, 5, 5,
+                                                   inplace=False))
+        t_p = time_ms(lambda: halo_fill.fill_halos_plain(A.clone(), CC, 1, 1440, 680, 5, 5))
+        log(f"phase 2: halo_fill {name} on (10, 690, 1450): bitwise in place and out "
+            f"of place (CC, FC, CF); out of place {t_k:.4f} ms kernel, {t_p:.4f} ms "
+            f"plain [{card}]")
+
+        # the vertical column kernel: three modes at the front's shape, and Nz = 50
+        cases = [("none", 10, (Yb, Xb), False, False),
+                 ("tracer_b", 10, (Yb, Xb), True, True),
+                 ("linear_eos", 10, (Yb, Xb), False, False),
+                 ("tracer_b", 50, (200, 300), True, True)]
+        for mode, nz, (ny, nx), mixing, front in cases:
+            S = 3 if mixing else 1
+            mu, mv = masks((nz, ny, nx)), masks((nz, ny, nx))
+            u, v = rnd((nz, ny, nx)) * mu, rnd((nz, ny, nx)) * mv
+            n_c = 2 if mode == "linear_eos" else 1
+            c = rnd((n_c * nz, ny, nx))
+            if mode == "linear_eos":
+                c[:nz] += 10.0
+                c[nz:] = 35.0 + 0.1 * c[nz:]
+            b = rnd((nz, ny, nx)) if mode == "tracer_b" else None
+            mc = masks((nz, ny, nx))
+            sp = torch.stack([mc, mu, mv][:S], dim=1).reshape(S * nz, ny, nx).contiguous()
+            g = rnd((5, ny, nx), lo=0.5)
+            dzs = [100.0] * nz
+            coef = torch.as_tensor(vertical.coefficients(
+                dzs, dzs[1:], 1e-4 if mixing else 0.0, 1e-5 if mixing else 0.0),
+                dtype=dt, device="cuda")
+            kw = dict(mode=mode, eos=eos, it_T=0 if n_c == 2 else -1,
+                      it_S=1 if n_c == 2 else -1, viscous=mixing, diffusive=mixing)
+            args = (u, v, c, b, sp, g, coef)
+            I = (slice(1, -1), slice(1, -1))
+            errs = [rel_err(gk, wp, I) for gk, wp in zip(vertical.vertical(*args, **kw),
+                                                         vertical.vertical_plain(*args, **kw))]
+            ea, er = max(e[0] for e in errs), max(e[1] for e in errs)
+            check(er <= BANDS[name], f"vertical {mode} Nz={nz} {name}: rel err {er:.3e}")
+            t_k = time_ms(lambda: vertical.vertical(*args, **kw))
+            t_p = time_ms(lambda: vertical.vertical_plain(*args, **kw), n=3, reps=3)
+            log(f"phase 2: vertical {mode} S={S} {name} on ({nz}, {ny}, {nx}) with "
+                f"{n_c + (b is not None)} tracer blocks: max abs err {ea:.3e}, max rel "
+                f"err {er:.3e} (band {BANDS[name]:g}); {t_k:.4f} ms kernel, {t_p:.4f} ms "
+                f"plain [{card}]")
+            if name == "float32" and front and nz == 10:
+                results["vertical"] = (ea, t_k, t_p)
+
+        # layered momentum at Nz = 10 (8 shared planes, no masks)
+        u, v = rnd((10, Yb, Xb)), rnd((10, Yb, Xb))
+        st = rnd((8, Yb, Xb), lo=1.0)
+        st[3] = 0.1 * rnd((Yb, Xb))
+        R = momentum.REACH
+        I = (slice(R, -R), slice(R, -R))
+        errs = [rel_err(gk, wp, I) for gk, wp in zip(
+            momentum.momentum(u, v, st, has_mask=False),
+            momentum.momentum_plain(u, v, st, has_mask=False))]
+        ea, er = max(e[0] for e in errs), max(e[1] for e in errs)
+        check(er <= BANDS[name], f"layered momentum {name}: rel err {er:.3e}")
+        t_k = time_ms(lambda: momentum.momentum(u, v, st, has_mask=False))
+        t_p = time_ms(lambda: momentum.momentum_plain(u, v, st, has_mask=False), n=5)
+        log(f"phase 2: momentum_layered {name} on (10, 690, 1450): max abs err {ea:.3e}, "
+            f"max rel err {er:.3e} (band {BANDS[name]:g}); {t_k:.4f} ms kernel, "
+            f"{t_p:.4f} ms plain [{card}]")
+        if name == "float32":
+            results["momentum_layered"] = (ea, t_k, t_p)
+
+        # layered tracer advection, one and two tracer stacks over masked velocities
+        mask = masks((10, Yb, Xb))
+        u, v = u * mask, v * mask
+        iv = rnd((10, Yb, Xb), lo=0.5) * mask
+        g2 = rnd((2, Yb, Xb), lo=0.5)
+        dz = torch.full((10,), 100.0, dtype=dt, device="cuda")
+        R = tracer_adv.REACH
+        for n_tr in (1, 2):
+            c = rnd((n_tr * 10, Yb, Xb))
+            args = (c, u, v, iv, g2, dz)
+            ea, er = rel_err(tracer_adv.tracer_adv(*args), tracer_adv.tracer_adv_plain(*args),
+                             (slice(R, -R), slice(R, -R)))
+            check(er <= BANDS[name], f"layered tracer_adv n_tr={n_tr} {name}: rel err "
+                  f"{er:.3e}")
+            t_k = time_ms(lambda: tracer_adv.tracer_adv(*args))
+            t_p = time_ms(lambda: tracer_adv.tracer_adv_plain(*args), n=5)
+            log(f"phase 2: tracer_adv_layered {name} with {n_tr} tracer stack(s) on "
+                f"({10 * n_tr}, 690, 1450): max abs err {ea:.3e}, max rel err {er:.3e} "
+                f"(band {BANDS[name]:g}); {t_k:.4f} ms kernel, {t_p:.4f} ms plain "
+                f"[{card}]")
+            if name == "float32" and n_tr == 1:
+                results["tracer_adv_layered"] = (ea, t_k, t_p)
+    return results
+
+
 def phase3_main_path(card, n_steps=20, warm=3):
     """The 1/4-degree Bickley jet through the kernels; returns the launch counts."""
     import torch
@@ -232,7 +378,8 @@ def phase3_main_path(card, n_steps=20, warm=3):
     end.synchronize()
     counts = kernels.launch_counts()
     ms = start.elapsed_time(end) / n_steps
-    expected = dict(halo_fill=2 * n_steps, halo_fill_copy=6 * n_steps, momentum=n_steps,
+    expected = {k: 0 for k in counts}
+    expected.update(halo_fill=2 * n_steps, halo_fill_copy=6 * n_steps, momentum=n_steps,
                     tracer_adv=n_steps, barotropic=n_steps)
     check(counts == expected, f"launch counts {counts} != {expected}")
     check(tuple(state.u.shape) == (690, 1450) and tuple(state.eta.shape) == (724, 1484),
@@ -286,6 +433,89 @@ def phase4_parity(card):
         f"{', '.join(worst)} (rtol 1e-9, atol 1e-12; curves rtol 1e-10) [{card}]")
 
 
+def phase5_layered_path(card, n_steps=10, warm=3):
+    """The 1/4-degree x 10 baroclinic front through the kernels; returns the launch
+    counts."""
+    import torch
+
+    from examples.baroclinic_front_torch import build
+    from orthogonalsphericalshellgrids_tpu_torch import kernels
+    from orthogonalsphericalshellgrids_tpu_torch.models import layered_multi_step
+
+    t0 = time.perf_counter()
+    model, state = build(1440, 680, 10, dtype=torch.float32, substeps=30, device="cuda")
+    torch.cuda.synchronize()
+    log(f"phase 5: built the 1440 x 680 x 10 front in {time.perf_counter() - t0:.1f} s "
+        f"(stacks {tuple(state.u.shape)}, free surface {tuple(state.eta.shape)}, "
+        f"{model.baro.weights.shape[0]} substeps)")
+    dt = 40.0
+    state = layered_multi_step(model, state, dt, warm)
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state = layered_multi_step(model, state, dt, n_steps)
+    end.record()
+    end.synchronize()
+    counts = kernels.launch_counts()
+    ms = start.elapsed_time(end) / n_steps
+    expected = {k: 0 for k in counts}
+    expected.update(halo_fill_copy=7 * n_steps, halo_fill=2 * n_steps, vertical=n_steps,
+                    momentum_layered=n_steps, tracer_adv_layered=2 * n_steps,
+                    barotropic=n_steps)
+    check(counts == expected, f"layered launch counts {counts} != {expected}")
+    check(tuple(state.u.shape) == (10, 690, 1450) and tuple(state.eta.shape) == (724, 1484),
+          "layered state shapes")
+    for name in ("u", "v", "c", "b", "eta", "U", "V"):
+        check(bool(torch.isfinite(getattr(state, name)).all()), f"front {name} finite")
+    umax = float(state.u.abs().max())
+    bmin, bmax = float(state.b.min()), float(state.b.max())
+    pts = 1440 * 680 * 10
+    log(f"phase 5: {n_steps} front steps after {warm} warm-up at dt = {dt:g} s: "
+        f"{ms:.4f} ms/step ({pts / ms / 1e6:.4f} G grid-points/s), launches {counts}, "
+        f"max|u| {umax:.6f}, b in [{bmin:.6e}, {bmax:.6e}] [{card}]")
+    return counts, ms
+
+
+def phase6_layered_parity(card):
+    import numpy as np
+    import torch
+
+    from examples.baroclinic_front_torch import build, kinetic_energy
+    from orthogonalsphericalshellgrids_tpu_torch import kernels
+    from orthogonalsphericalshellgrids_tpu_torch.models import layered_step
+
+    with np.load(os.path.join(ROOT, "tests", "data", "front_oracle_120x60x4.npz")) as d:
+        nx, ny, nz, dt, _, _ = d["meta"]
+        ref = {k: d[k] for k in ("u.015", "v.015", "b.015")}
+        ke_ref = d["ke"][:15]
+    model, s = build(int(nx), int(ny), int(nz), dtype=torch.float64, device="cuda")
+    kernels.reset_launch_counts()
+    ke = []
+    for _ in range(15):
+        s = layered_step(model, s, float(dt))
+        ke.append(kinetic_energy(model, s))
+    counts = kernels.launch_counts()
+    check(all(counts[k] == 15 for k in ("vertical", "momentum_layered", "barotropic")),
+          f"layered parity run used the kernels: {counts}")
+    I3 = (slice(None),) + model.grid.interior2d
+    worst = []
+    for name in ("u", "v", "b"):
+        a = getattr(s, name).cpu().numpy()[I3]
+        r = ref[f"{name}.015"]
+        diff = float(np.abs(a - r).max())
+        worst.append(f"{name} {diff:.3e}")
+        check(np.allclose(a, r, rtol=1e-9, atol=1e-14), f"front oracle {name}: max diff "
+              f"{diff}")
+    rel = float(np.max(np.abs(np.asarray(ke) / ke_ref - 1.0)))
+    worst.append(f"ke rel {rel:.3e}")
+    check(np.allclose(ke, ke_ref, rtol=1e-10, atol=0), f"front oracle ke: rel {rel}")
+    log(f"phase 6: 120 x 60 x 4 float64 front oracle, 15 steps through the kernels: max "
+        f"|diff| {', '.join(worst)} (rtol 1e-9, atol 1e-14; ke rtol 1e-10) [{card}]")
+
+
 def main():
     import torch
 
@@ -308,11 +538,20 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
 
     kres = phase2_kernels(card)
+    kres.update(phase2_layered(card))
     counts, _ = phase3_main_path(card)
     phase4_parity(card)
+    front_counts, _ = phase5_layered_path(card)
+    phase6_layered_parity(card)
 
+    # each path must have launched every kernel it runs; a row reports its own path's
+    # count (the Bickley jet's for its five kernels, the front's for the layered three)
+    for path, names, cnt in (("Bickley", BICKLEY, counts), ("front", FRONT, front_counts)):
+        check(all(cnt[n] > 0 for n in names), f"{path} path launched {cnt}")
+    launches = {n: counts[n] for n in BICKLEY}
+    launches.update({n: front_counts[n] for n in FRONT if n not in BICKLEY})
     table = [{"name": name, "route": "cuda", "source": SOURCES[name],
-              "replaces": REPLACES[name], "launches": counts[name],
+              "replaces": REPLACES[name], "launches": launches[name],
               "max_abs_err": kres[name][0], "ms": kres[name][1], "plain_ms": kres[name][2]}
              for name in REPLACES]
     print(json.dumps({"kernels": table}), flush=True)

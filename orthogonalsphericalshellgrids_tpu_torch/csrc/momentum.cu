@@ -1,7 +1,9 @@
-// Vector-invariant horizontal momentum tendencies of one layer, masked.
+// Vector-invariant horizontal momentum tendencies of a stack of layers.
 //
 // Replaces: orthogonalsphericalshellgrids_tpu/ops/pallas_mom.py:momentum_pallas
-// (_kernel), single layer with has_mask and no closures; its math is
+// (_kernel) without closures, in its two uses: one layer with has_mask (the
+// single-layer model) and Nz layers without a lay pack (models/layered.py:704-710,
+// where the tendency is masked after the vertical terms are added). Its math is
 // pallas_mom.py:198-241 and the XLA branch of models/hydrostatic.py:tendencies
 // (lines 664-684), which the port's plain version (kernels/momentum.py) follows:
 //   zeta   = (dxf(dy_cf v) - dyf(dx_fc u)) inv_az_ff,   q = zeta + f_ff
@@ -9,19 +11,25 @@
 //   q_at_u = upwind WENO-5 of q in y at the u point, upwinded on v_hat
 //   q_at_v = upwind WENO-5 of q in x at the v point, upwinded on u_hat
 //   ke     = (ixc(u^2) + iyc(v^2)) / 2
-//   Gu = (q_at_u v_hat - dxf(ke) inv_dx_fc) mask_u
-//   Gv = (-q_at_v u_hat - dyf(ke) inv_dy_cf) mask_v
+//   Gu = (q_at_u v_hat - dxf(ke) inv_dx_fc) [mask_u]
+//   Gv = (-q_at_v u_hat - dyf(ke) inv_dy_cf) [mask_v]
+// The 8 metric planes are shared by every layer; the two mask planes exist only
+// with has_mask.
 //
-// What bounds it on the H100: bytes, if the neighbour reads hit L1/L2. Per cell it
-// reads u, v and 10 static planes and writes Gu, Gv: 14 planes of 690 x 1450 f32
-// (4 MB each), 56 MB per call, 17 us at 3.35 TB/s. It does about 300 flops per cell
-// (two WENO-5 reconstructions plus the 12 vorticity values they need), 0.3 GFLOP
-// per call, 5 us at the 67 TFLOP/s f32 rate; at f64 the flops bound it.
+// What bounds it on the H100: bytes, if the neighbour reads hit L1/L2. Per cell and
+// layer it reads u, v and the static planes and writes Gu, Gv. One masked layer of
+// 690 x 1450 f32 (4 MB a plane): 14 planes, 56 MB, 17 us at 3.35 TB/s. Ten layers
+// of the baroclinic front: u, v, Gu, Gv of every layer (40 planes) plus the 8
+// shared planes, read once if they stay in L2 (32 MB of its 50 MB) and once per
+// layer if not: 0.19 to 0.48 GB, 0.06 to 0.14 ms. About 300 flops per cell and
+// layer (two WENO-5 reconstructions plus the 12 vorticity values they need), 0.3
+// GFLOP per layer, 5 us at the 67 TFLOP/s f32 rate; at f64 the flops bound it.
 //
-// Design: one thread per cell, neighbour reads straight from global memory through
-// L1/L2; each thread recomputes the vorticity at the 11 points its two stencils
-// need. Cells within 5 of the edge (the reach of the Pallas kernel; this stencil
-// reaches 3) are written 0, so the output is finite everywhere.
+// Design: one thread per cell and layer (blockIdx.z is the layer), neighbour reads
+// straight from global memory through L1/L2; each thread recomputes the vorticity
+// at the 11 points its two stencils need. Cells within 5 of the edge (the reach of
+// the Pallas kernel; this stencil reaches 3) are written 0, so the output is finite
+// everywhere.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,13 +62,18 @@ struct Planes {
   }
 };
 
-template <typename T>
+template <typename T, bool HAS_MASK>
 __global__ void momentum_kernel(const T* __restrict__ u, const T* __restrict__ v,
                                 const T* __restrict__ st, T* __restrict__ Gu,
                                 T* __restrict__ Gv, int Yb, int Xb) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= Xb || j >= Yb) return;
+  const int64_t layer = (int64_t)blockIdx.z * Yb * Xb;
+  u += layer;
+  v += layer;
+  Gu += layer;
+  Gv += layer;
   const int64_t k = (int64_t)j * Xb + i;
   if (i < REACH || j < REACH || i >= Xb - REACH || j >= Yb - REACH) {
     Gu[k] = T(0);
@@ -86,28 +99,36 @@ __global__ void momentum_kernel(const T* __restrict__ u, const T* __restrict__ v
                                 p.q(k + 2), p.q(k + 3));
 
   const T kc = p.ke(k);
-  Gu[k] = (q_at_u * v_hat - (kc - p.ke(k - 1)) * p.s(INV_DX_FC, k)) * p.s(MASK_U, k);
-  Gv[k] = (-q_at_v * u_hat - (kc - p.ke(k - X)) * p.s(INV_DY_CF, k)) * p.s(MASK_V, k);
+  const T gu = q_at_u * v_hat - (kc - p.ke(k - 1)) * p.s(INV_DX_FC, k);
+  const T gv = -q_at_v * u_hat - (kc - p.ke(k - X)) * p.s(INV_DY_CF, k);
+  Gu[k] = HAS_MASK ? gu * p.s(MASK_U, k) : gu;
+  Gv[k] = HAS_MASK ? gv * p.s(MASK_V, k) : gv;
 }
 
 template <typename T>
-int launch(const void* u, const void* v, const void* st, void* Gu, void* Gv, int Yb,
-           int Xb, void* stream) {
+int launch(const void* u, const void* v, const void* st, void* Gu, void* Gv, int nz,
+           int Yb, int Xb, int has_mask, void* stream) {
   const dim3 block(32, 8);
-  const dim3 grid((Xb + block.x - 1) / block.x, (Yb + block.y - 1) / block.y);
-  momentum_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const T*)u, (const T*)v, (const T*)st, (T*)Gu, (T*)Gv, Yb, Xb);
+  const dim3 grid((Xb + block.x - 1) / block.x, (Yb + block.y - 1) / block.y, nz);
+  if (has_mask)
+    momentum_kernel<T, true><<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const T*)u, (const T*)v, (const T*)st, (T*)Gu, (T*)Gv, Yb, Xb);
+  else
+    momentum_kernel<T, false><<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const T*)u, (const T*)v, (const T*)st, (T*)Gu, (T*)Gv, Yb, Xb);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int osg_momentum_f32(const void* u, const void* v, const void* st, void* Gu,
-                                void* Gv, int Yb, int Xb, void* stream) {
-  return launch<float>(u, v, st, Gu, Gv, Yb, Xb, stream);
+                                void* Gv, int nz, int Yb, int Xb, int has_mask,
+                                void* stream) {
+  return launch<float>(u, v, st, Gu, Gv, nz, Yb, Xb, has_mask, stream);
 }
 
 extern "C" int osg_momentum_f64(const void* u, const void* v, const void* st, void* Gu,
-                                void* Gv, int Yb, int Xb, void* stream) {
-  return launch<double>(u, v, st, Gu, Gv, Yb, Xb, stream);
+                                void* Gv, int nz, int Yb, int Xb, int has_mask,
+                                void* stream) {
+  return launch<double>(u, v, st, Gu, Gv, nz, Yb, Xb, has_mask, stream);
 }

@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``. The build runs at the first
-CUDA use (never at import), goes into ``_build/`` inside the package, and is redone
-whenever a source, header or flag changes (the library name carries their hash). A
-failed build raises with nvcc's output; nothing falls back.
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process for ``sm_90a``,
+all started together, and the objects are linked into one shared library with a plain
+C interface, loaded with ``ctypes``. The build runs at the first CUDA use (never at
+import), goes into ``_build/`` inside the package, and is redone whenever a source,
+header or flag changes (the library name carries their hash). A failed build raises
+with nvcc's output; nothing falls back.
 """
 
 from __future__ import annotations
@@ -23,17 +24,20 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 # C entry points and their argument types (each returns cudaGetLastError()).
 _SIGNATURES = {
     "osg_halo_fill": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "osg_halo_fill_copy": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "osg_barotropic": [_P] * 10 + [_I] * 6 + [_P],
-    "osg_momentum": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "osg_momentum": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "osg_tracer_adv": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "osg_tracer_adv_layered": [_P] * 7 + [_I] * 4 + [_P],
+    "osg_vertical": [_P] * 11 + [_I] * 11 + [_D] * 5 + [_P],
 }
 
 _lock = threading.Lock()
@@ -63,19 +67,39 @@ def _sources():
     return srcs, h.hexdigest()[:16]
 
 
+def _run(procs):
+    """Wait for every (cmd, Popen); raise with the output of the first that failed."""
+    failed = None
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, err)
+    if failed is not None:
+        cmd, rc, err = failed
+        raise RuntimeError(f"nvcc failed (exit {rc}): {' '.join(cmd)}\n{err}")
+
+
 def _compile(srcs, out):
     import time
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, srcs)]
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
+    tmp = out.with_suffix(f".{tag}")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        compiles = [[_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(srcs, objs)]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True)) for cmd in compiles])
+        link = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        _run([(link, subprocess.Popen(link, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))])
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return time.perf_counter() - t0
 
 

@@ -154,7 +154,9 @@ def _check_supported(tracer_advection, momentum_advection, tracers, forcing,
     if unsupported:
         raise NotImplementedError(
             f"not ported yet: {', '.join(unsupported)} (ROADMAP queue 1, deferred "
-            "slice options); the port supports the Bickley-jet configuration")
+            "slice options; the layered closures, wind and drag are queue 1 item 7's "
+            "gyre slice); the port supports the Bickley-jet and baroclinic-front "
+            "configurations")
 
 
 def make_model(

@@ -24,8 +24,9 @@ if ROOT not in sys.path:
 
 from orthogonalsphericalshellgrids_tpu_torch import kernels  # noqa: E402
 from orthogonalsphericalshellgrids_tpu_torch.kernels import (  # noqa: E402
-    barotropic, halo_fill, momentum, tracer_adv)
+    barotropic, halo_fill, momentum, tracer_adv, vertical)
 from orthogonalsphericalshellgrids_tpu_torch.models import hydrostatic as TH  # noqa: E402
+from orthogonalsphericalshellgrids_tpu_torch.models import layered as TL  # noqa: E402
 from orthogonalsphericalshellgrids_tpu_torch.ops.location import CC, CF, FC, FF  # noqa: E402
 
 torch.set_num_threads(1)
@@ -131,11 +132,111 @@ def test_cuda_steps_match_cpu_float64():
     gpu_m, gpu_s = build(48, 40, dtype=torch.float64, substeps=30, device="cuda")
     kernels.reset_launch_counts()
     gpu_out = TH.multi_step(gpu_m, gpu_s, 120.0, 5)
-    assert kernels.launch_counts() == dict(halo_fill=10, halo_fill_copy=30, barotropic=5,
-                                           momentum=5, tracer_adv=5)
+    want = {k: 0 for k in kernels.LAUNCHES}
+    want.update(halo_fill=10, halo_fill_copy=30, barotropic=5, momentum=5, tracer_adv=5)
+    assert kernels.launch_counts() == want
     cpu_out = TH.multi_step(cpu_m, cpu_s, 120.0, 5)
     g = cpu_m.grid
     for name in ("u", "v", "c"):
         want = getattr(cpu_out, name)[g.interior2d]
         got = getattr(gpu_out, name).cpu()[g.interior2d]
         assert float((got - want).abs().max()) <= 1e-11 * float(want.abs().max()), name
+
+
+# ----------------------------------------------------------------------------------
+# the layered kernels
+# ----------------------------------------------------------------------------------
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode,nz,mixing", [("none", 4, False), ("tracer_b", 4, True),
+                                            ("linear_eos", 4, True), ("linear_eos", 4, False),
+                                            ("tracer_b", 50, True)])
+def test_cuda_vertical(dtype, mode, nz, mixing):
+    r = np.random.default_rng(nz)
+    Yb, Xb = 40, 52
+    mc, mu, mv = (r.random((3, nz, Yb, Xb)) > 0.2).astype(np.float64)
+    n_c = 2 if mode == "linear_eos" else 1
+    c = r.standard_normal((n_c * nz, Yb, Xb))
+    if mode == "linear_eos":
+        c[:nz] += 10.0
+        c[nz:] = 35.0 + 0.1 * c[nz:]
+    S = 3 if mixing else 1
+    sp = np.stack([mc, mu, mv][:S], axis=1).reshape(S * nz, Yb, Xb)
+    dz = [50.0 * 1.05 ** k for k in range(nz)]
+    dzc = [0.5 * (dz[k] + dz[k + 1]) for k in range(nz - 1)]
+    coef = vertical.coefficients(dz, dzc, 1e-3 if mixing else 0.0, 1e-5 if mixing else 0.0)
+    arrays = [r.standard_normal((nz, Yb, Xb)) * mu, r.standard_normal((nz, Yb, Xb)) * mv, c,
+              r.standard_normal((nz, Yb, Xb)) if mode == "tracer_b" else None, sp,
+              0.5 + r.random((5, Yb, Xb)), coef]
+    args = [None if a is None else torch.as_tensor(a, dtype=dtype, device="cuda")
+            for a in arrays]
+    kw = dict(mode=mode, eos=(9.81, 1.67e-4, 7.8e-4, 10.0, 35.0),
+              it_T=0 if n_c == 2 else -1, it_S=1 if n_c == 2 else -1, viscous=mixing,
+              diffusive=mixing)
+    kernels.reset_launch_counts()
+    got = vertical.vertical(*args, **kw)
+    assert kernels.launch_counts()["vertical"] == 1
+    for g, w in zip(got, vertical.vertical_plain(*args, **kw)):
+        assert _rel_err(g, w, (slice(1, -1), slice(1, -1))) <= BANDS[dtype]
+        assert torch.isfinite(g).all()
+        assert (g[:, 0] == 0).all() and (g[:, :, -1] == 0).all()
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_layered_momentum(dtype):
+    r = np.random.default_rng(1)
+    u, v = (torch.as_tensor(a, dtype=dtype, device="cuda")
+            for a in r.standard_normal((2, 3, 60, 76)))
+    static = 1.0 + r.random((8, 60, 76))
+    static[3] = 0.1 * r.standard_normal((60, 76))
+    static = torch.as_tensor(static, dtype=dtype, device="cuda")
+    R = momentum.REACH
+    kernels.reset_launch_counts()
+    got = momentum.momentum(u, v, static, has_mask=False)
+    assert kernels.launch_counts()["momentum_layered"] == 1
+    for g, w in zip(got, momentum.momentum_plain(u, v, static, has_mask=False)):
+        assert _rel_err(g, w, (slice(R, -R), slice(R, -R))) <= BANDS[dtype]
+        assert torch.isfinite(g).all()
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_tr", [1, 2])
+def test_cuda_layered_tracer_adv(dtype, n_tr):
+    r = np.random.default_rng(n_tr)
+    mask = (r.random((3, 60, 76)) > 0.2).astype(np.float64)
+    arrays = (r.standard_normal((3 * n_tr, 60, 76)), r.standard_normal((3, 60, 76)) * mask,
+              r.standard_normal((3, 60, 76)) * mask, mask * (0.5 + r.random((3, 60, 76))),
+              0.5 + r.random((2, 60, 76)), np.array([50.0, 120.0, 300.0]))
+    args = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in arrays]
+    R = tracer_adv.REACH
+    kernels.reset_launch_counts()
+    got = tracer_adv.tracer_adv(*args)
+    assert kernels.launch_counts()["tracer_adv_layered"] == 1
+    want = tracer_adv.tracer_adv_plain(*args)
+    assert _rel_err(got, want, (slice(R, -R), slice(R, -R))) <= BANDS[dtype]
+    assert torch.isfinite(got).all()
+
+
+@needs_cuda
+def test_cuda_layered_steps_match_cpu_float64():
+    """Three float64 steps of the baroclinic front through the kernels agree with the
+    CPU plain path, and each step launches every layered kernel."""
+    from examples.baroclinic_front_torch import build
+
+    cpu_m, cpu_s = build(48, 32, 3, dtype=torch.float64, substeps=12, device="cpu")
+    gpu_m, gpu_s = build(48, 32, 3, dtype=torch.float64, substeps=12, device="cuda")
+    kernels.reset_launch_counts()
+    gpu_out = TL.layered_multi_step(gpu_m, gpu_s, 120.0, 3)
+    want = {k: 0 for k in kernels.LAUNCHES}
+    want.update(halo_fill=6, halo_fill_copy=21, barotropic=3, vertical=3,
+                momentum_layered=3, tracer_adv_layered=6)
+    assert kernels.launch_counts() == want
+    cpu_out = TL.layered_multi_step(cpu_m, cpu_s, 120.0, 3)
+    I3 = (slice(None),) + cpu_m.grid.interior2d
+    for name in ("u", "v", "c", "b"):
+        w = getattr(cpu_out, name)[I3]
+        got = getattr(gpu_out, name).cpu()[I3]
+        assert float((got - w).abs().max()) <= 1e-11 * float(w.abs().max()), name

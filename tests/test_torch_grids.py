@@ -6,6 +6,7 @@ port defers, and that no file of the port imports jax.
 """
 
 import ast
+import glob
 import os
 
 import numpy as np
@@ -31,16 +32,17 @@ PORT = os.path.join(ROOT, "orthogonalsphericalshellgrids_tpu_torch")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "examples", "bickley_jet_torch.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files += sorted(glob.glob(os.path.join(ROOT, "examples", "*_torch.py")))
+    files += sorted(glob.glob(os.path.join(ROOT, "benchmarks", "torch_*.py")))
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return files
 
 
 def test_port_never_imports_jax():
-    """No module of the port, its example or chip_smoke.py imports jax or the JAX
-    package."""
+    """No module of the port, its examples, its benchmark scripts or chip_smoke.py
+    imports jax or the JAX package."""
     bad = []
     files = _port_files()
     assert len(files) > 15, files
