@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Where a step of the PyTorch port's layered engine spends its time, on one CUDA card:
-the baroclinic front at 1/4 degree with 10 layers.
+the baroclinic front or the wind-driven T/S gyre at 1/4 degree with 10 layers.
 
-    python3 benchmarks/torch_profile_layered.py [--steps 10] [--ahead-steps 2]
-                                                [--windows 3] [--out FILE]
+    python3 benchmarks/torch_profile_layered.py [--config front|gyre] [--steps 10]
+                                                [--ahead-steps 2] [--windows 3]
+                                                [--out FILE]
 
-The model is ``examples/baroclinic_front_torch.build(1440, 680, 10, float32,
-substeps=30)`` at dt = 40 s, run through ``models/layered.py:layered_multi_step``.
+The model is ``examples/baroclinic_front_torch.build`` (``--config front``, the
+default) or ``examples/wind_driven_ts_gyre_torch.build`` (``--config gyre``), at
+(1440, 680, 10), float32, substeps=30, dt = 40 s, run through
+``models/layered.py:layered_multi_step``.
 As ``benchmarks/torch_profile_step.py`` does for the Bickley jet, two paths are
 measured with their windows interleaved in one process (kernel, plain, plain,
 kernel, ...): the kernel path, and the plain path with every kernel wrapper replaced
@@ -19,12 +22,12 @@ device time per kernel name, and splits the step's device work in two: the port'
 own CUDA kernels (``csrc/``) and everything else, the plain PyTorch glue between
 them (AB2, the depth sums, the predictor and corrector, the masks, the dG adds,
 embeds, crops and fills of constants). For each it reports launches and device
-time per step: the glue is what a fused corrector kernel would take over.
+time per step.
 
 Last, the layered tracer kernel alone on the step's own operands (the filled u, v
-and the passive tracer c, which the front starts at 0, then b) and on random
-operands of the same shape, each timed with CUDA events over back-to-back calls:
-its time depends on the data it is given.
+and the tracer stack c, which the front starts at 0, then b where it is
+prognostic) and on random operands of the same shape, each timed with CUDA events
+over back-to-back calls: its time depends on the data it is given.
 
 Prints one line per measurement with the card's name and power limit, and as its last
 line one JSON object holding all of them (also written to ``--out``). Imports nothing
@@ -50,21 +53,23 @@ DT = 40.0
 # the device kernels of csrc/ (names as the profiler reports them)
 PORT_KERNELS = ("halo_fill_kernel", "halo_fill_copy_kernel", "eta_kernel", "uv_kernel",
                 "momentum_kernel", "tracer_adv_kernel", "tracer_adv_layered_kernel",
-                "w_kernel", "vertical_kernel")
+                "w_kernel", "vertical_kernel", "corrector_kernel")
 
 
 @contextlib.contextmanager
 def plain_layered():
-    """Every kernel wrapper, the vertical one included, on its plain version."""
-    from orthogonalsphericalshellgrids_tpu_torch.kernels import vertical
+    """Every kernel wrapper, the vertical one and the corrector included, on its plain
+    version."""
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import corrector, vertical
 
-    saved = vertical.vertical
+    saved = vertical.vertical, corrector.corrector
     vertical.vertical = vertical.vertical_plain
+    corrector.corrector = corrector.corrector_plain
     try:
         with plain_kernels():
             yield
     finally:
-        vertical.vertical = saved
+        vertical.vertical, corrector.corrector = saved
 
 
 def window(model, state, n, hold_cycles=0):
@@ -157,10 +162,11 @@ def tracer_operands(model, state, reps=20):
 
     ur = rand_like(u, float(u.abs().max())) * model.mask_u3
     vr = rand_like(v, float(v.abs().max())) * model.mask_v3
-    cases = {"c (the step's passive tracer)": (_fill(g, state.c, CC, 1), u, v),
-             "b (the step's buoyancy)": (_fill(g, state.b, CC, 1), u, v),
-             "random c, the step's u and v": (rand_like(state.c, 1.0), u, v),
-             "random c, u and v": (rand_like(state.c, 1.0), ur, vr)}
+    cases = {"c (the step's tracer stack)": (_fill(g, state.c, CC, 1), u, v)}
+    if model.has_b:
+        cases["b (the step's buoyancy)"] = (_fill(g, state.b, CC, 1), u, v)
+    cases.update({"random c, the step's u and v": (rand_like(state.c, 1.0), u, v),
+                  "random c, u and v": (rand_like(state.c, 1.0), ur, vr)})
     out = {}
     for label, (c, uu, vv) in cases.items():
         args = (c, uu, vv, model.adv_pack, model.vert_g[3:5], model.dz_t)
@@ -181,6 +187,7 @@ def tracer_operands(model, state, reps=20):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=("front", "gyre"), default="front")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--ahead-steps", type=int, default=2,
                     help="steps per host-ahead window; their launches must fit the "
@@ -194,12 +201,15 @@ def main():
     if not torch.cuda.is_available():
         print("torch_profile_layered: no CUDA device available", file=sys.stderr)
         return 1
-    from examples.baroclinic_front_torch import build
+    if args.config == "gyre":
+        from examples.wind_driven_ts_gyre_torch import build
+    else:
+        from examples.baroclinic_front_torch import build
     from orthogonalsphericalshellgrids_tpu_torch import kernels
 
     card = smi_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
-          f"tree {ROOT}", flush=True)
+          f"tree {ROOT}; config {args.config}", flush=True)
     model, state = build(1440, 680, 10, dtype=torch.float32, substeps=30, device="cuda")
     kernels.reset_launch_counts()
     state, *_ = window(model, state, 3)  # builds the kernels, warms the allocator
@@ -209,7 +219,8 @@ def main():
     cyc_ms = spin_cycles_per_ms()
 
     n = args.steps
-    result = {"card": card, "steps": n, "ahead_steps": args.ahead_steps,
+    result = {"card": card, "config": args.config, "steps": n,
+              "ahead_steps": args.ahead_steps,
               "wrapper_calls_per_step": wrapper_calls, "kernel": [], "plain": []}
     order = ["kernel", "plain", "plain", "kernel"] * ((args.windows + 1) // 2)
     for path in order[: 2 * args.windows]:

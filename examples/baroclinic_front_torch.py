@@ -23,7 +23,7 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 
-def build(nx=120, ny=60, nz=8, dtype=torch.float32, substeps=20, device="cpu",
+def build(nx=120, ny=60, nz=8, dtype=torch.float32, substeps=20, *, device,
           depth=1000.0, first_pole_longitude=70.0, north_poles_latitude=55.0):
     """(model, state) of the front on an ``nx`` x ``ny`` x ``nz`` tripolar grid with
     halo 5, on ``device`` in ``dtype``."""

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 
-def build(nx=180, ny=90, dtype=torch.float32, substeps=30, device="cpu",
+def build(nx=180, ny=90, dtype=torch.float32, substeps=30, *, device,
           first_pole_longitude=45.0, north_poles_latitude=25.0, **model_kwargs):
     """(model, state) of the Bickley jet on an ``nx`` x ``ny`` tripolar grid with
     halo 5, on ``device`` in ``dtype``."""

@@ -1,13 +1,19 @@
-// Flux-form upwind WENO-5 tracer advection tendency, in column and layered mode.
+// Flux-form upwind WENO-5 tracer advection tendency, in column and layered mode, with
+// the fused kappa_h Laplacian.
 //
 // Replaces: orthogonalsphericalshellgrids_tpu/ops/pallas_adv.py:tracer_adv_pallas
-// (_kernel) without kappa_h, in its two modes; its math is pallas_adv.py:213-247:
+// (_kernel) without its acc operand, in its two modes; its math is
+// pallas_adv.py:213-247:
 //   cx = upwind WENO-5 of c at the x faces (upwinded on u), cy likewise in y
-//   column  (one tracer plane, S = 3; models/hydrostatic.py:698-702):
-//     G = -(dxc(u h_u dy_fc cx) + dyc(v h_v dx_cf cy)) mask_c / (Az_cc h_c)
-//   layered (n_tr Nz tracer-major planes over Nz velocity layers, S = 1;
-//   models/layered.py:815-822): u and v are masked, so u dzu == u dz_k and
-//     G = -(dxc(u dz_k dy_fc cx) + dyc(v dz_k dx_cf cy)) IV,  IV = mask_c / (Az_cc dz_k)
+//   column  (one tracer plane; models/hydrostatic.py:698-702): the pack is
+//     [h_u, dy_fc, h_v, dx_cf, IV (, K_u, K_v, K_c)], IV = mask_c / (Az_cc h_c), and
+//     G = -(dxc(u h_u dy_fc cx) + dyc(v h_v dx_cf cy)) IV
+//   layered (n_tr Nz tracer-major planes over Nz velocity layers; models/layered.py
+//   :815-822): u and v are masked, so u dzu == u dz_k; the pack holds S = 1 or 4
+//     planes per layer, [IV (, K_u, K_v, K_c)], IV = mask_c / (Az_cc dz_k), and
+//     G = -(dxc(u dz_k dy_fc cx) + dyc(v dz_k dx_cf cy)) IV
+//   with K planes (kappa_h, pallas_adv.py:239-243), in both modes:
+//     G += (dxc((dxf c) K_u) + dyc((dyf c) K_v)) K_c
 // The flux factors are applied in the plain version's order, ((u h) len) cx with
 // h = h_u or dz_k, not through a prefactored A_u, so the kernel differs from the
 // port's plain version (kernels/tracer_adv.py) only where nvcc contracts into an FMA.
@@ -16,14 +22,15 @@
 // reads c, u, v and 5 static planes and writes G: 9 planes of 690 x 1450 f32 (4 MB
 // each), 36 MB per call, 11 us at 3.35 TB/s. Layered mode at the baroclinic front's
 // 1/4-degree x 10 (one tracer stack of 10 planes) reads c, u, v, IV (40 planes) and
-// the 2 shared metric planes and writes G (10 planes): 0.2 GB, 60 us. About
-// 4 x 70 flops per cell and plane (four face reconstructions: each thread
-// recomputes both x faces and both y faces of its cell), 0.3 GFLOP per plane; at
-// f64 the flops bound it.
+// the 2 shared metric planes and writes G (10 planes): 0.2 GB, 60 us; kappa_h adds
+// 3 planes a layer. About 4 x 70 flops per cell and plane (four face
+// reconstructions: each thread recomputes both x faces and both y faces of its
+// cell), 0.3 GFLOP per plane; at f64 the flops bound it.
 //
 // Design: one thread per cell (and plane, blockIdx.z, in layered mode), neighbour
-// reads from global memory through L1/L2. Cells within 4 of the edge (the reach of
-// the Pallas kernel; this stencil reaches 3) are written 0.
+// reads from global memory through L1/L2. Cells within 3 of the edge (the stencil's
+// reach) are written 0. kappa_h is a template
+// switch, so the path without it is the same expression as before.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,8 +39,8 @@
 
 namespace {
 
-enum { H_U, DY_FC, H_V, DX_CF, INV_VOL, N_STATIC };
-constexpr int REACH = 4;
+enum { H_U, DY_FC, H_V, DX_CF, INV_VOL, K_U, K_V, K_C };
+constexpr int REACH = 3;
 
 // flux through the face at k, stencil stride d (1: x faces, Xb: y faces), with the
 // face's thickness h
@@ -47,7 +54,19 @@ __device__ __forceinline__ T face_flux(const T* __restrict__ c, const T* __restr
   return w * h * len[k] * cf;
 }
 
+// the kappa_h Laplacian at k from the face factors ku, kv and the cell factor kc
 template <typename T>
+__device__ __forceinline__ T diffusion(const T* __restrict__ c, const T* __restrict__ ku,
+                                       const T* __restrict__ kv, T kc, int64_t k,
+                                       int64_t X) {
+  const T gx0 = (c[k] - c[k - 1]) * ku[k];
+  const T gx1 = (c[k + 1] - c[k]) * ku[k + 1];
+  const T gy0 = (c[k] - c[k - X]) * kv[k];
+  const T gy1 = (c[k + X] - c[k]) * kv[k + X];
+  return ((gx1 - gx0) + (gy1 - gy0)) * kc;
+}
+
+template <typename T, bool HAS_DIFF>
 __global__ void tracer_adv_kernel(const T* __restrict__ c, const T* __restrict__ u,
                                   const T* __restrict__ v, const T* __restrict__ st,
                                   T* __restrict__ G, int Yb, int Xb) {
@@ -67,11 +86,14 @@ __global__ void tracer_adv_kernel(const T* __restrict__ c, const T* __restrict__
   const T* dx = st + DX_CF * P;
   const T gx = face_flux(c, u, hu[k + 1], dy, k + 1, 1) - face_flux(c, u, hu[k], dy, k, 1);
   const T gy = face_flux(c, v, hv[k + X], dx, k + X, X) - face_flux(c, v, hv[k], dx, k, X);
-  G[k] = -(gx + gy) * st[INV_VOL * P + k];
+  T g = -(gx + gy) * st[INV_VOL * P + k];
+  if (HAS_DIFF) g = g + diffusion(c, st + K_U * P, st + K_V * P, st[K_C * P + k], k, X);
+  G[k] = g;
 }
 
-// Layered mode: blockIdx.z is the tracer plane t Nz + layer; g = [dy_fc, dx_cf].
-template <typename T>
+// Layered mode: blockIdx.z is the tracer plane t Nz + layer; g = [dy_fc, dx_cf]; the
+// pack holds S = 1 + 3 HAS_DIFF planes per layer.
+template <typename T, bool HAS_DIFF>
 __global__ void tracer_adv_layered_kernel(const T* __restrict__ c, const T* __restrict__ u,
                                           const T* __restrict__ v, const T* __restrict__ iv,
                                           const T* __restrict__ g, const T* __restrict__ dz,
@@ -96,53 +118,72 @@ __global__ void tracer_adv_layered_kernel(const T* __restrict__ c, const T* __re
   const T* dx = g + P;
   const T gx = face_flux(c, u, dzk, dy, k + 1, 1) - face_flux(c, u, dzk, dy, k, 1);
   const T gy = face_flux(c, v, dzk, dx, k + X, X) - face_flux(c, v, dzk, dx, k, X);
-  G[k] = -(gx + gy) * iv[layer * P + k];
+  constexpr int S = HAS_DIFF ? 4 : 1;
+  const T* lp = iv + (int64_t)layer * S * P;  // this layer's [IV (, K_u, K_v, K_c)]
+  T out = -(gx + gy) * lp[k];
+  if (HAS_DIFF) out = out + diffusion(c, lp + P, lp + 2 * P, lp[3 * P + k], k, X);
+  G[k] = out;
 }
 
 template <typename T>
 int launch(const void* c, const void* u, const void* v, const void* st, void* G, int Yb,
-           int Xb, void* stream) {
+           int Xb, int has_diff, void* stream) {
   const dim3 block(32, 8);
   const dim3 grid((Xb + block.x - 1) / block.x, (Yb + block.y - 1) / block.y);
-  tracer_adv_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const T*)c, (const T*)u, (const T*)v, (const T*)st, (T*)G, Yb, Xb);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (has_diff)
+    tracer_adv_kernel<T, true><<<grid, block, 0, s>>>(
+        (const T*)c, (const T*)u, (const T*)v, (const T*)st, (T*)G, Yb, Xb);
+  else
+    tracer_adv_kernel<T, false><<<grid, block, 0, s>>>(
+        (const T*)c, (const T*)u, (const T*)v, (const T*)st, (T*)G, Yb, Xb);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_layered(const void* c, const void* u, const void* v, const void* iv,
                    const void* g, const void* dz, void* G, int n_planes, int nz, int Yb,
-                   int Xb, void* stream) {
+                   int Xb, int has_diff, void* stream) {
   const dim3 block(32, 8);
   const dim3 grid((Xb + block.x - 1) / block.x, (Yb + block.y - 1) / block.y, n_planes);
-  tracer_adv_layered_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const T*)c, (const T*)u, (const T*)v, (const T*)iv, (const T*)g, (const T*)dz,
-      (T*)G, nz, Yb, Xb);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (has_diff)
+    tracer_adv_layered_kernel<T, true><<<grid, block, 0, s>>>(
+        (const T*)c, (const T*)u, (const T*)v, (const T*)iv, (const T*)g, (const T*)dz,
+        (T*)G, nz, Yb, Xb);
+  else
+    tracer_adv_layered_kernel<T, false><<<grid, block, 0, s>>>(
+        (const T*)c, (const T*)u, (const T*)v, (const T*)iv, (const T*)g, (const T*)dz,
+        (T*)G, nz, Yb, Xb);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int osg_tracer_adv_f32(const void* c, const void* u, const void* v,
-                                  const void* st, void* G, int Yb, int Xb, void* stream) {
-  return launch<float>(c, u, v, st, G, Yb, Xb, stream);
+                                  const void* st, void* G, int Yb, int Xb, int has_diff,
+                                  void* stream) {
+  return launch<float>(c, u, v, st, G, Yb, Xb, has_diff, stream);
 }
 
 extern "C" int osg_tracer_adv_f64(const void* c, const void* u, const void* v,
-                                  const void* st, void* G, int Yb, int Xb, void* stream) {
-  return launch<double>(c, u, v, st, G, Yb, Xb, stream);
+                                  const void* st, void* G, int Yb, int Xb, int has_diff,
+                                  void* stream) {
+  return launch<double>(c, u, v, st, G, Yb, Xb, has_diff, stream);
 }
 
 extern "C" int osg_tracer_adv_layered_f32(const void* c, const void* u, const void* v,
                                           const void* iv, const void* g, const void* dz,
                                           void* G, int n_planes, int nz, int Yb, int Xb,
-                                          void* stream) {
-  return launch_layered<float>(c, u, v, iv, g, dz, G, n_planes, nz, Yb, Xb, stream);
+                                          int has_diff, void* stream) {
+  return launch_layered<float>(c, u, v, iv, g, dz, G, n_planes, nz, Yb, Xb, has_diff,
+                               stream);
 }
 
 extern "C" int osg_tracer_adv_layered_f64(const void* c, const void* u, const void* v,
                                           const void* iv, const void* g, const void* dz,
                                           void* G, int n_planes, int nz, int Yb, int Xb,
-                                          void* stream) {
-  return launch_layered<double>(c, u, v, iv, g, dz, G, n_planes, nz, Yb, Xb, stream);
+                                          int has_diff, void* stream) {
+  return launch_layered<double>(c, u, v, iv, g, dz, G, n_planes, nz, Yb, Xb, has_diff,
+                                stream);
 }

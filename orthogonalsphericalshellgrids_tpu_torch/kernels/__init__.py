@@ -16,7 +16,8 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "launch_counts"]
 
 LAUNCHES = {"halo_fill": 0, "halo_fill_copy": 0, "barotropic": 0, "momentum": 0,
             "tracer_adv": 0, "vertical": 0, "momentum_layered": 0,
-            "tracer_adv_layered": 0}
+            "tracer_adv_layered": 0, "momentum_closures": 0, "tracer_adv_kappa": 0,
+            "corrector": 0}
 
 
 def reset_launch_counts():

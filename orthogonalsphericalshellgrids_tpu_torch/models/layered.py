@@ -12,9 +12,15 @@ Counterpart: ``orthogonalsphericalshellgrids_tpu/models/layered.py``
   explicit ν_v and κ_v Laplacians, and the hydrostatic pressure gradient of a
   prognostic buoyancy tracer ``b`` or of the linear equation of state in T and S,
 - optionally a backward-Euler vertical solve of ν_v and κ_v (``_implicit_vertical_solve``),
+- the closures ν_h (fused into the momentum kernel) and κ_h (fused into the tracer
+  kernel) with per-layer masks, ν4_h and κ4_h (biharmonic, plain PyTorch), wind
+  stress on the surface layer, linear or quadratic bottom drag on the deepest wet
+  layer (quadratic fused into the momentum kernel) and user forcing per layer,
 - the single-layer model's split-explicit barotropic engine, driven by the
-  thickness-weighted baroclinic forcing, then the corrector that replaces each
-  column's depth-mean velocity by the subcycle average,
+  thickness-weighted baroclinic forcing, then the AB2 predictor, the corrector that
+  replaces each column's depth-mean velocity by the subcycle average, and the
+  tracer update, in one kernel (``kernels/corrector.py``) unless the vertical solve
+  is implicit,
 - grid-fitted 3-D masks from the same bottom (a layer cell is fluid when its centre
   lies above the bottom).
 
@@ -24,11 +30,11 @@ that holds the port's ``HydrostaticModel`` as ``baro``; its arrays are registere
 buffers and the state is a frozen dataclass of tensors. ``layered_step`` never
 mutates the incoming state and makes no host sync.
 
-Not ported yet (``make_layered_model`` raises ``NotImplementedError``): ν_h, κ_h,
-the biharmonic closures, wind stress, bottom drag and user forcing (ROADMAP queue 1
-item 7, the gyre slice), the sharded step and its overlap split (queue 1 item 8).
+Not ported yet: the sharded step and its overlap split (ROADMAP queue 1 item 8).
 The JAX package's ``fill_mode``, ``use_pallas`` and ``block_rows`` are TPU choices
-with no counterpart; its opt-in corrector kernel is queue 2 item 8.
+with no counterpart; its ``OSG_CORR_KERNEL`` and ``OSG_ACC_FOLD`` switches have none
+either: on a card the corrector kernel always runs, and the ``acc``/``mask_out``
+folds are not ported.
 """
 
 from __future__ import annotations
@@ -41,11 +47,13 @@ import torch
 from torch import nn
 
 from ..grids.tripolar import TripolarGrid
-from ..kernels import halo_fill, momentum, tracer_adv, vertical
+from ..kernels import corrector, halo_fill, momentum, tracer_adv, vertical
+from ..ops.closures import _ratio, biharmonic_c, biharmonic_u, biharmonic_v
 from ..ops.location import CC, CF, FC
 from ..ops.operators import dxc, dyc
-from .hydrostatic import (HydrostaticModel, _fill, _inv, barotropic_substeps, crop_ext,
-                          embed_ext, from_jax_arrays, make_model)
+from .hydrostatic import (ForcingFields, HydrostaticModel, _fill, _inv,
+                          barotropic_substeps, crop_ext, embed_ext, from_jax_arrays,
+                          make_model)
 from .split_explicit import SplitExplicitFreeSurface
 
 __all__ = ["LayeredState", "LayeredModel", "make_layered_model", "layered_from_jax_arrays",
@@ -75,8 +83,9 @@ class LayeredState:
     iteration: Any
 
 
-# the layered arrays besides ``baro`` (the JAX model's data fields, less its closure
-# pack ``mom_lay``), and its static metadata
+# the layered arrays besides ``baro`` (the JAX model's data fields, less the closure
+# pack ``mom_lay``, which is None without ν_h and quadratic drag), and its static
+# metadata
 BUFFERS = ("mask_c3", "mask_u3", "mask_v3", "dzu", "dzv", "inv_h_u", "inv_h_v", "bot_u",
            "bot_v", "adv_pack", "mom_static", "vert_pack", "vert_g")
 META = ("nz", "dz", "dzc", "zc", "forcing", "buoyancy", "kappa_v", "nu_v", "vert_impl",
@@ -93,10 +102,13 @@ class LayeredModel(nn.Module):
       ``inv_h_u``/``inv_h_v``: 1 / Σ dzu, 1 / Σ dzv (0 on land);
     - ``bot_u``/``bot_v``: deepest-wet-layer indicators;
     - ``vert_pack`` (Nz·S) and ``vert_g`` (5 planes): the vertical kernel's packs;
-      ``mom_static``: the momentum kernel's 8 metric planes; ``adv_pack``: the
-      tracer kernel's (Nz) IV planes;
-    - ``dz_t``/``dzc_t``: the layer thicknesses and interface spacings, and
-      ``vert_coef``: the vertical kernel's (5, Nz) layer coefficients.
+      ``mom_static``: the momentum kernel's 8 metric planes; ``mom_lay``: its
+      (Nz·L) closure pack (6 ν_h planes, then 2 drag planes, per layer) or None;
+      ``adv_pack``: the tracer kernel's (Nz·S) pack, [IV] or [IV, K_u, K_v, K_c]
+      per layer with κ_h;
+    - ``dz_t``/``dzc_t``/``zc3``: the layer thicknesses, interface spacings and
+      (Nz, 1, 1) layer-centre depths, and ``vert_coef``: the vertical kernel's
+      (5, Nz) layer coefficients.
 
     Static metadata as in the JAX model (``dz``, ``dzc``, ``zc`` are tuples of
     floats, surface first)."""
@@ -106,6 +118,7 @@ class LayeredModel(nn.Module):
         self.baro = baro
         for name in BUFFERS:
             self.register_buffer(name, arrays[name])
+        self.register_buffer("mom_lay", arrays.get("mom_lay"))
         for name in META:
             setattr(self, name, meta[name])
         dt, dev = baro.dtype, baro.device
@@ -115,6 +128,7 @@ class LayeredModel(nn.Module):
 
         self.register_buffer("dz_t", tensor(self.dz))
         self.register_buffer("dzc_t", tensor(self.dzc))
+        self.register_buffer("zc3", tensor(self.zc).view(-1, 1, 1))
         explicit = not self.vert_impl
         self.register_buffer("vert_coef", tensor(vertical.coefficients(
             self.dz, self.dzc, self.nu_v if explicit else 0.0,
@@ -217,7 +231,11 @@ def make_layered_model(
     embedded single-layer model provides the barotropic engine and the column
     immersed boundary; the layers are the grid's own z discretization, k = 0 at the
     surface. ``buoyancy``: False (none), True (prognostic ``b``) or ``"linear_eos"``
-    (b = g (α (T − T0) − β (S − S0)) from the ``"T"``/``"S"`` tracers)."""
+    (b = g (α (T − T0) − β (S − S0)) from the ``"T"``/``"S"`` tracers).
+    ``wind_stress`` acts on layer 0 and ``bottom_drag`` on the deepest wet layer of
+    each column; ``forcing`` is {target: fn}, target "u", "v", "b" (with a
+    prognostic b) or a tracer's name, fn(λ°, φ°, z, t, fields) -> the per-layer
+    tendency term, on tensors (z the (Nz, 1, 1) layer-centre depths)."""
     tracers = tuple(str(t) for t in tracers)
     if len(tracers) == 0 or len(set(tracers)) != len(tracers):
         raise ValueError(f"tracers must be a non-empty tuple of unique names, got {tracers!r}")
@@ -231,10 +249,6 @@ def make_layered_model(
     unknown = set(forcing) - valid_targets
     if unknown:
         raise ValueError(f"forcing targets {sorted(unknown)} not in {sorted(valid_targets)}")
-    if forcing:
-        raise NotImplementedError(
-            "not ported yet: forcing (ROADMAP queue 1 item 7, the gyre slice); the "
-            "layered port supports the baroclinic-front configuration")
     baro = make_model(grid, free_surface=free_surface, bottom_height=bottom_height,
                       coriolis=coriolis, rotation_rate=rotation_rate,
                       tracer_advection=tracer_advection,
@@ -265,24 +279,50 @@ def make_layered_model(
     dz3 = torch.as_tensor(dz_layers).to(device=dev, dtype=dt).reshape(-1, 1, 1)
     dzu = dz3 * mask_u3
     dzv = dz3 * mask_v3
+    bot_u3, bot_v3 = bottom_indicator(mask_u3), bottom_indicator(mask_v3)
+
+    # the kernels' per-layer closure planes (layered.py:326-346 and :375-381 of the
+    # JAX package), layer-major: plane k·L + i is layer k's i-th factor
+    lay_parts = []
+    if nu_h > 0.0:
+        m_ff_u = mask_u3 * torch.roll(mask_u3, 1, dims=-2)
+        m_ff_v = mask_v3 * torch.roll(mask_v3, 1, dims=-1)
+        lay_parts += [nu_h * _ratio(grid.dy_cc, grid.dx_cc) * mask_c3,
+                      nu_h * _ratio(grid.dx_ff, grid.dy_ff) * m_ff_u,
+                      _inv(grid.az_fc) * mask_u3,
+                      nu_h * _ratio(grid.dy_ff, grid.dx_ff) * m_ff_v,
+                      nu_h * _ratio(grid.dx_cc, grid.dy_cc) * mask_c3,
+                      _inv(grid.az_cf) * mask_v3]
+    if baro.drag_type == "quadratic":
+        cd_dz = torch.full_like(dz3, baro.drag_coeff) / dz3  # a true division, as in JAX
+        lay_parts += [cd_dz * bot_u3, cd_dz * bot_v3]
+    adv_parts = [mask_c3 * _inv(grid.az_cc * dz3)]
+    if kappa_h > 0.0:
+        adv_parts += [kappa_h * _ratio(grid.dy_fc, grid.dx_fc) * mask_u3,
+                      kappa_h * _ratio(grid.dx_cf, grid.dy_cf) * mask_v3,
+                      _inv(grid.az_cc) * mask_c3]
+
+    def layer_major(parts):
+        return torch.stack(parts, dim=1).reshape((-1,) + mask_c3.shape[1:])
+
     vert_impl = vertical_time_discretization == "implicit"
     # the u/v mask planes ride only when the explicit ν_v needs them (S = 3)
     vparts = [mask_c3] + ([mask_u3, mask_v3] if nu_v > 0.0 and not vert_impl else [])
     arrays = dict(
         mask_c3=mask_c3, mask_u3=mask_u3, mask_v3=mask_v3, dzu=dzu, dzv=dzv,
         inv_h_u=_inv(torch.sum(dzu, dim=0)), inv_h_v=_inv(torch.sum(dzv, dim=0)),
-        bot_u=bottom_indicator(mask_u3), bot_v=bottom_indicator(mask_v3),
-        adv_pack=mask_c3 * _inv(grid.az_cc * dz3),
+        bot_u=bot_u3, bot_v=bot_v3, adv_pack=layer_major(adv_parts),
+        mom_lay=layer_major(lay_parts) if lay_parts else None,
         mom_static=torch.stack([grid.dy_cf, grid.dx_fc, baro.inv_az_ff, baro.f_ff,
                                 grid.dx_cf, baro.inv_dx_fc, grid.dy_fc, baro.inv_dy_cf]),
-        vert_pack=torch.stack(vparts, dim=1).reshape((-1,) + mask_c3.shape[1:]),
+        vert_pack=layer_major(vparts),
         vert_g=torch.stack([_inv(grid.az_cc), baro.inv_dx_fc, baro.inv_dy_cf,
                             grid.dy_fc, grid.dx_cf]))
     meta = dict(
         nz=nz, dz=tuple(float(x) for x in dz_layers),
         dzc=tuple(float(x) for x in dzc_layers), zc=tuple(float(x) for x in zc),
-        forcing=(), buoyancy=mode, kappa_v=float(kappa_v), nu_v=float(nu_v),
-        vert_impl=vert_impl, tracer_names=tracers,
+        forcing=tuple(forcing.items()), buoyancy=mode, kappa_v=float(kappa_v),
+        nu_v=float(nu_v), vert_impl=vert_impl, tracer_names=tracers,
         g_b=float(gravitational_acceleration), alpha_T=float(thermal_expansion),
         beta_S=float(haline_contraction), T0=float(reference_temperature),
         S0=float(reference_salinity))
@@ -294,15 +334,14 @@ def layered_from_jax_arrays(arrays: dict, meta: dict, device) -> LayeredModel:
 
     ``arrays["baro"]`` and ``meta["baro"]`` are the embedded model's leaves in
     ``from_jax_arrays``'s layout; the other keys of ``arrays`` are the layered data
-    fields (``np.asarray`` of each; ``mom_lay`` must be None, as the port has no
-    closures), and ``meta`` holds the layered metadata fields. Nothing is
-    regenerated, so a step can be compared apart from grid and mask generation."""
-    if arrays.get("mom_lay") is not None or meta["forcing"]:
-        raise NotImplementedError(
-            "not ported yet: the layered closure pack and forcing (ROADMAP queue 1 "
-            "item 7, the gyre slice)")
+    fields (``np.asarray`` of each, ``mom_lay`` None without ν_h and quadratic drag),
+    and ``meta`` holds the layered metadata fields (forcing functions on tensors).
+    Nothing is regenerated, so a step can be compared apart from grid and mask
+    generation."""
     baro = from_jax_arrays(arrays["baro"], meta["baro"], device)
     data = {n: torch.from_numpy(np.array(arrays[n])).to(device) for n in BUFFERS}
+    if arrays.get("mom_lay") is not None:
+        data["mom_lay"] = torch.from_numpy(np.array(arrays["mom_lay"])).to(device)
     return LayeredModel(baro, data, {n: meta[n] for n in META})
 
 
@@ -504,11 +543,15 @@ def _linear_eos_buoyancy(model: LayeredModel, c):
 # Dynamics
 # --------------------------------------------------------------------------------------
 
-def layered_tendencies(model: LayeredModel, u, v, c, b):
+def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
     """(Gu, Gv, Gc, Gb) of halo-filled stacks, in the kernel-path assembly of the
-    JAX package (``layered.py:670-853``): the vertical kernel first, then momentum,
-    ``Gu = (Gu + dGu)·mask_u3``, then tracer advection of c and of b plus dGc. ``b``
-    is ignored (and Gb is zeros) without a prognostic buoyancy."""
+    JAX package (``layered.py:670-873`` with the ``acc`` fold off): the vertical
+    kernel first, then momentum (advection, ν_h and quadratic drag) plus dGu, wind on
+    layer 0, linear drag, −ν4_h·∇⁴u, the mask; the tracer kernel (advection and κ_h)
+    on c and b, −κ4_h·∇⁴c, plus dGc; then the user forcing. ``b`` is ignored (and Gb
+    is zeros) without a prognostic buoyancy; ``t`` is the model time handed to the
+    forcing functions."""
+    g, m = model.grid, model.baro
     names = model.tracer_names
     eos = model.buoyancy == "linear_eos"
     explicit = not model.vert_impl
@@ -519,25 +562,61 @@ def layered_tendencies(model: LayeredModel, u, v, c, b):
         it_T=names.index("T") if eos and "T" in names else -1,
         it_S=names.index("S") if eos and "S" in names else -1,
         viscous=explicit and model.nu_v > 0.0, diffusive=explicit and model.kappa_v > 0.0)
-    Gu, Gv = momentum.momentum(u, v, model.mom_static, has_mask=False)
-    Gu = (Gu + dgu) * model.mask_u3
-    Gv = (Gv + dgv) * model.mask_v3
+    Gu, Gv = momentum.momentum(u, v, model.mom_static, has_mask=False, lay=model.mom_lay,
+                               has_lap=m.nu_h > 0.0, has_drag=m.drag_type == "quadratic")
+    Gu = Gu + dgu
+    Gv = Gv + dgv
+    if m.wind:  # surface stress accelerates the top layer (Gu is a fresh tensor)
+        Gu[0] += m.taux / model.dz[0]
+        Gv[0] += m.tauy / model.dz[0]
+    if m.drag_type == "linear":
+        r_dz = torch.full_like(model.dz3, m.drag_coeff) / model.dz3
+        Gu = Gu - r_dz * u * model.bot_u
+        Gv = Gv - r_dz * v * model.bot_v
+    if m.nu4_h > 0.0:
+        Gu = Gu - m.nu4_h * biharmonic_u(g, u, model.mask_u3, model.mask_c3)
+        Gv = Gv - m.nu4_h * biharmonic_v(g, v, model.mask_v3, model.mask_c3)
+    Gu = Gu * model.mask_u3
+    Gv = Gv * model.mask_v3
 
     g_pack = model.vert_g[3:5]  # [dy_fc, dx_cf]
+
+    def tracer_tendency(q, dg):
+        G = tracer_adv.tracer_adv(q, u, v, model.adv_pack, g_pack, model.dz_t)
+        if m.kappa4_h > 0.0:
+            q4 = q.reshape((-1, model.nz) + q.shape[-2:])
+            G = G - m.kappa4_h * biharmonic_c(g, q4, model.mask_c3, model.mask_u3,
+                                              model.mask_v3).reshape(q.shape)
+        return G + dg
+
     ncp = c.shape[0]
-    Gc = tracer_adv.tracer_adv(c, u, v, model.adv_pack, g_pack, model.dz_t) + dgc[:ncp]
-    if model.has_b:
-        Gb = tracer_adv.tracer_adv(b, u, v, model.adv_pack, g_pack, model.dz_t) + dgc[ncp:]
-    else:
-        Gb = torch.zeros_like(b)
+    Gc = tracer_tendency(c, dgc[:ncp])
+    Gb = tracer_tendency(b, dgc[ncp:]) if model.has_b else torch.zeros_like(b)
+
+    if model.forcing:  # pointwise per layer; Gc and Gb are fresh tensors
+        fields = ForcingFields(u=u, v=v, c=c, b=b if model.has_b else None)
+        z3, nz = model.zc3, model.nz
+        for name, fn in model.forcing:
+            if name == "u":
+                Gu = Gu + fn(g.lam_fc, g.phi_fc, z3, t, fields) * model.mask_u3
+            elif name == "v":
+                Gv = Gv + fn(g.lam_cf, g.phi_cf, z3, t, fields) * model.mask_v3
+            elif name == "b":
+                Gb = Gb + fn(g.lam_cc, g.phi_cc, z3, t, fields) * model.mask_c3
+            else:
+                k = names.index(name)
+                Gc[k * nz:(k + 1) * nz] += fn(g.lam_cc, g.phi_cc, z3, t,
+                                              fields) * model.mask_c3
     return Gu, Gv, Gc, Gb
 
 
 def layered_step(model: LayeredModel, state: LayeredState, dt) -> LayeredState:
     """One layered time step: halo fills, tendencies, quasi-AB2, the barotropic
-    subcycle driven by the thickness-weighted baroclinic forcing, then the
-    split-explicit corrector (and the implicit vertical solve when configured).
-    ``state`` is not modified."""
+    subcycle driven by the thickness-weighted baroclinic forcing, then the AB2
+    predictor, the split-explicit corrector and the tracer update: one corrector
+    kernel on a card, or, when the vertical solve is implicit (it sits between the
+    predictor and the corrector), the torch chain with the solve, as in the JAX
+    package (``layered.py:1128-1176``). ``state`` is not modified."""
     g, ge, m = model.grid, model.grid_ext, model.baro
     # a number becomes a device scalar by a fill launch; copying it from the host
     # would wait for the stream to drain on every step
@@ -552,14 +631,13 @@ def layered_step(model: LayeredModel, state: LayeredState, dt) -> LayeredState:
     U_f = _fill(ge, state.U, FC, -1)
     V_f = _fill(ge, state.V, CF, -1)
 
-    Gu, Gv, Gc, Gb = layered_tendencies(model, u, v, c, b)
+    Gu, Gv, Gc, Gb = layered_tendencies(model, u, v, c, b, t=state.t)
 
     first = state.iteration == 0
     w1 = torch.where(first, m.ab2[0], m.ab2[2])
     w2 = torch.where(first, m.ab2[1], m.ab2[3])
     Gu_s = w1 * Gu - w2 * state.Gu
     Gv_s = w1 * Gv - w2 * state.Gv
-    Gc_s = w1 * Gc - w2 * state.Gc
 
     # the thickness-weighted depth integral of the baroclinic forcing drives the
     # subcycle, valid through the widened halo after its fill
@@ -571,37 +649,49 @@ def layered_step(model: LayeredModel, state: LayeredState, dt) -> LayeredState:
     eta_a, U_a, V_a = barotropic_substeps(m, eta_f, U_f, V_f, GU_f, GV_f, dt,
                                           wrap_x_each_substep=ge.Hx < n_sub + 1)
 
-    # split-explicit corrector: predictor layers, then replace the depth mean
-    u_star = (state.u + dt * Gu_s) * model.mask_u3
-    v_star = (state.v + dt * Gv_s) * model.mask_v3
-    if model.vert_impl and model.nu_v > 0.0:
-        # Σ dz·u is conserved by the solve, so the depth-mean replacement holds
-        r = dt * model.nu_v
-        u_star = _implicit_vertical_solve(u_star, r, model.dz, model.dzc, model.mask_u3)
-        v_star = _implicit_vertical_solve(v_star, r, model.dz, model.dzc, model.mask_v3)
-    ubar = torch.sum(u_star * model.dzu, dim=0) * model.inv_h_u
-    vbar = torch.sum(v_star * model.dzv, dim=0) * model.inv_h_v
-    Ubar = crop_ext(g, ge, U_a) * model.inv_h_u
-    Vbar = crop_ext(g, ge, V_a) * model.inv_h_v
-    u_new = (u_star + (Ubar - ubar)[None]) * model.mask_u3
-    v_new = (v_star + (Vbar - vbar)[None]) * model.mask_v3
-
-    c_new = _mask_tracers(model, state.c + dt * Gc_s)
-    if model.has_b:
-        b_new = (state.b + dt * (w1 * Gb - w2 * state.Gb)) * model.mask_c3
+    if model.vert_impl and (model.nu_v > 0.0 or model.kappa_v > 0.0):
+        u_new, v_new, c_new, b_new = _implicit_update(model, state, Gu, Gv, Gc, Gb,
+                                                      U_a, V_a, w1, w2, dt)
     else:
-        b_new = state.b
-    if model.vert_impl and model.kappa_v > 0.0:
-        r = dt * model.kappa_v
-        c_new = _as_tracer_stack(model, _implicit_vertical_solve(
-            _as_tracer4(model, c_new), r, model.dz, model.dzc, model.mask_c3))
-        if model.has_b:
-            b_new = _implicit_vertical_solve(b_new, r, model.dz, model.dzc, model.mask_c3)
+        u_new, v_new, c_new, b_new = corrector.corrector(
+            state.u, Gu, state.Gu, state.v, Gv, state.Gv, state.c, Gc, state.Gc,
+            model.dzu, model.dzv, model.mask_c3, model.inv_h_u, model.inv_h_v,
+            crop_ext(g, ge, U_a), crop_ext(g, ge, V_a), w1, w2, dt,
+            b=(state.b, Gb, state.Gb) if model.has_b else None)
+        if not model.has_b:
+            b_new = state.b
 
     return LayeredState(
         u=u_new, v=v_new, eta=eta_a, U=U_a, V=V_a, c=c_new, b=b_new, Gu=Gu, Gv=Gv, Gc=Gc,
         Gb=Gb if model.has_b else state.Gb, t=state.t + dt,
         iteration=state.iteration + 1)
+
+
+def _implicit_update(model: LayeredModel, state: LayeredState, Gu, Gv, Gc, Gb, U_a, V_a,
+                     w1, w2, dt):
+    """The corrector's plain pieces with the backward-Euler vertical solves between
+    them (``layered.py:1153-1176`` of the JAX package): (u, v, c, b)."""
+    g, ge = model.grid, model.grid_ext
+    u_star, v_star = corrector.predictor_plain(state.u, Gu, state.Gu, state.v, Gv,
+                                               state.Gv, model.dzu, model.dzv, w1, w2, dt)
+    if model.nu_v > 0.0:
+        # Σ dz·u is conserved by the solve, so the depth-mean replacement holds
+        r = dt * model.nu_v
+        u_star = _implicit_vertical_solve(u_star, r, model.dz, model.dzc, model.mask_u3)
+        v_star = _implicit_vertical_solve(v_star, r, model.dz, model.dzc, model.mask_v3)
+    u_new, v_new = corrector.depth_mean_plain(
+        u_star, v_star, model.dzu, model.dzv, model.inv_h_u, model.inv_h_v,
+        crop_ext(g, ge, U_a), crop_ext(g, ge, V_a))
+    c_new, b_new = corrector.tracer_update_plain(
+        state.c, Gc, state.Gc, model.mask_c3, w1, w2, dt,
+        b=(state.b, Gb, state.Gb) if model.has_b else None)
+    if model.kappa_v > 0.0:
+        r = dt * model.kappa_v
+        c_new = _as_tracer_stack(model, _implicit_vertical_solve(
+            _as_tracer4(model, c_new), r, model.dz, model.dzc, model.mask_c3))
+        if model.has_b:
+            b_new = _implicit_vertical_solve(b_new, r, model.dz, model.dzc, model.mask_c3)
+    return u_new, v_new, c_new, state.b if b_new is None else b_new
 
 
 def layered_multi_step(model: LayeredModel, state: LayeredState, dt,

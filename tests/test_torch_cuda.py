@@ -24,7 +24,7 @@ if ROOT not in sys.path:
 
 from orthogonalsphericalshellgrids_tpu_torch import kernels  # noqa: E402
 from orthogonalsphericalshellgrids_tpu_torch.kernels import (  # noqa: E402
-    barotropic, halo_fill, momentum, tracer_adv, vertical)
+    barotropic, corrector, halo_fill, momentum, tracer_adv, vertical)
 from orthogonalsphericalshellgrids_tpu_torch.models import hydrostatic as TH  # noqa: E402
 from orthogonalsphericalshellgrids_tpu_torch.models import layered as TL  # noqa: E402
 from orthogonalsphericalshellgrids_tpu_torch.ops.location import CC, CF, FC, FF  # noqa: E402
@@ -232,11 +232,127 @@ def test_cuda_layered_steps_match_cpu_float64():
     gpu_out = TL.layered_multi_step(gpu_m, gpu_s, 120.0, 3)
     want = {k: 0 for k in kernels.LAUNCHES}
     want.update(halo_fill=6, halo_fill_copy=21, barotropic=3, vertical=3,
-                momentum_layered=3, tracer_adv_layered=6)
+                momentum_layered=3, tracer_adv_layered=6, corrector=3)
     assert kernels.launch_counts() == want
     cpu_out = TL.layered_multi_step(cpu_m, cpu_s, 120.0, 3)
     I3 = (slice(None),) + cpu_m.grid.interior2d
     for name in ("u", "v", "c", "b"):
+        w = getattr(cpu_out, name)[I3]
+        got = getattr(gpu_out, name).cpu()[I3]
+        assert float((got - w).abs().max()) <= 1e-11 * float(w.abs().max()), name
+
+
+# ----------------------------------------------------------------------------------
+# the gyre's closure modes and the corrector
+# ----------------------------------------------------------------------------------
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nz,has_lap,has_drag", [(1, True, True), (4, True, True),
+                                                 (4, False, True), (50, True, True)])
+def test_cuda_momentum_closures(dtype, nz, has_lap, has_drag):
+    """One masked layer (nz = 1, the single-layer model) or an unmasked stack."""
+    r = np.random.default_rng(nz + has_lap)
+    Yb, Xb = 40, 52
+    masked = nz == 1
+    shape = (Yb, Xb) if masked else (nz, Yb, Xb)
+    static = 1.0 + r.random((10 if masked else 8, Yb, Xb))
+    static[3] = 0.1 * r.standard_normal((Yb, Xb))
+    if masked:
+        static[8:] = r.random((2, Yb, Xb)) > 0.15
+    L = 6 * has_lap + 2 * has_drag
+    # each fused term O(1e-1..1) of G, so that the float32 band sees it
+    lay = 0.5 + r.random((nz, L, Yb, Xb))
+    lay[:, 6 * has_lap:] *= 0.1
+    arrays = (r.standard_normal(shape), r.standard_normal(shape), static,
+              lay.reshape(nz * L, Yb, Xb))
+    u, v, st, lay = (torch.as_tensor(a, dtype=dtype, device="cuda") for a in arrays)
+    kw = dict(has_mask=masked, lay=lay, has_lap=has_lap, has_drag=has_drag)
+    R = momentum.REACH
+    kernels.reset_launch_counts()
+    got = momentum.momentum(u, v, st, **kw)
+    assert kernels.launch_counts()["momentum_closures"] == 1
+    for g, w in zip(got, momentum.momentum_plain(u, v, st, **kw)):
+        assert _rel_err(g, w, (slice(R, -R), slice(R, -R))) <= BANDS[dtype]
+        assert torch.isfinite(g).all()
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nz,n_tr", [(0, 1), (4, 2), (50, 1)])
+def test_cuda_tracer_adv_kappa(dtype, nz, n_tr):
+    """Column mode (nz = 0: one plane, the 8-plane pack) and layered mode, S = 4."""
+    r = np.random.default_rng(nz + n_tr)
+    Yb, Xb = 40, 52
+    if nz == 0:
+        arrays = (*r.standard_normal((3, Yb, Xb)), 1.0 + r.random((8, Yb, Xb)))
+        layered = ()
+    else:
+        mask = (r.random((nz, Yb, Xb)) > 0.2).astype(np.float64)
+        pack = (mask[:, None] * (0.5 + r.random((nz, 4, Yb, Xb)))).reshape(-1, Yb, Xb)
+        arrays = (r.standard_normal((n_tr * nz, Yb, Xb)),
+                  r.standard_normal((nz, Yb, Xb)) * mask,
+                  r.standard_normal((nz, Yb, Xb)) * mask, pack)
+        layered = (0.5 + r.random((2, Yb, Xb)), 50.0 * 1.1 ** np.arange(nz))
+    args = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in arrays + layered]
+    R = tracer_adv.REACH
+    kernels.reset_launch_counts()
+    got = tracer_adv.tracer_adv(*args)
+    assert kernels.launch_counts()["tracer_adv_kappa"] == 1
+    want = tracer_adv.tracer_adv_plain(*args)
+    assert _rel_err(got, want, (slice(R, -R), slice(R, -R))) <= BANDS[dtype]
+    assert torch.isfinite(got).all()
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nz,with_b", [(4, False), (4, True), (50, True)])
+def test_cuda_corrector(dtype, nz, with_b):
+    """U_a and V_a are views cropped out of wider arrays, as in the step."""
+    r = np.random.default_rng(nz + with_b)
+    Yb, Xb, d = 40, 52, 6
+    mu, mv, mc = (r.random((3, nz, Yb, Xb)) > 0.2)
+    dz3 = (40.0 * 1.05 ** np.arange(nz)).reshape(-1, 1, 1)
+
+    def cu(a):
+        return torch.as_tensor(a, dtype=dtype, device="cuda")
+
+    stacks = [cu(r.standard_normal((nz, Yb, Xb))) for _ in range(6)]
+    tracers = [cu(r.standard_normal((2 * nz, Yb, Xb))) for _ in range(3)]
+    b = tuple(cu(r.standard_normal((nz, Yb, Xb))) for _ in range(3)) if with_b else None
+    ext = cu(r.standard_normal((2, Yb + 2 * d, Xb + 2 * d)))
+    args = (*stacks, *tracers, cu(dz3 * mu), cu(dz3 * mv), cu(mc), cu(r.random((Yb, Xb))),
+            cu(r.random((Yb, Xb))), ext[0, d:-d, d:-d], ext[1, d:-d, d:-d],
+            cu(1.6), cu(0.6), cu(40.0))
+    kernels.reset_launch_counts()
+    got = corrector.corrector(*args, b=b)
+    assert kernels.launch_counts()["corrector"] == 1
+    want = corrector.corrector_plain(*args, b=b)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert _rel_err(g, w, (slice(None), slice(None))) <= BANDS[dtype]
+        assert torch.isfinite(g).all()
+
+
+@needs_cuda
+def test_cuda_gyre_steps_match_cpu_float64():
+    """Three float64 steps of the 48 x 32 x 3 check gyre through the kernels agree
+    with the CPU plain path, and each step launches the gyre's kernels."""
+    from examples.wind_driven_ts_gyre_torch import build_check
+
+    cpu_m, cpu_s = build_check(device="cpu")
+    gpu_m, gpu_s = build_check(device="cuda")
+    kernels.reset_launch_counts()
+    gpu_out = TL.layered_multi_step(gpu_m, gpu_s, 60.0, 3)
+    want = {k: 0 for k in kernels.LAUNCHES}
+    want.update(halo_fill=6, halo_fill_copy=18, barotropic=3, vertical=3,
+                momentum_closures=3, tracer_adv_kappa=3, corrector=3)
+    assert kernels.launch_counts() == want
+    cpu_out = TL.layered_multi_step(cpu_m, cpu_s, 60.0, 3)
+    I3 = (slice(None),) + cpu_m.grid.interior2d
+    for name in ("u", "v", "c"):
         w = getattr(cpu_out, name)[I3]
         got = getattr(gpu_out, name).cpu()[I3]
         assert float((got - w).abs().max()) <= 1e-11 * float(w.abs().max()), name

@@ -21,7 +21,9 @@
   ``"per"``) at rtol 1e-12 / 1e-11 (``tests/test_layered_kernels.py:101, 121``).
 - The 120 x 60 x 4 front oracle through the port's plain path with
   ``tests/test_parity.py:233-236``'s tolerances.
-- The deferred layered options raise ``NotImplementedError``.
+
+The gyre's options (closures, wind, drag, forcing) are tested in
+``tests/test_torch_gyre.py``.
 """
 
 import dataclasses
@@ -227,8 +229,8 @@ def test_layered_wrappers_reject_bad_operands():
     z = torch.zeros((nz, Yb, Xb), dtype=torch.float64)
     g2 = torch.zeros((2, Yb, Xb), dtype=torch.float64)
     dz = torch.ones(nz, dtype=torch.float64)
-    with pytest.raises(ValueError):  # a κ_h pack (S = 4) is refused, not misread
-        tracer_adv.tracer_adv(z, z, z, torch.zeros((4 * nz, Yb, Xb), dtype=torch.float64),
+    with pytest.raises(ValueError):  # a pack of S = 3 per layer is refused, not misread
+        tracer_adv.tracer_adv(z, z, z, torch.zeros((3 * nz, Yb, Xb), dtype=torch.float64),
                               g2, dz)
     with pytest.raises(ValueError):  # layered mode needs both g_pack and dz
         tracer_adv.tracer_adv(z, z, z, z, g2)
@@ -437,7 +439,7 @@ def test_layered_cfl_dt_matches_jax(run):
 
 
 # ----------------------------------------------------------------------------------
-# the front oracle and the deferred options
+# the front oracle
 # ----------------------------------------------------------------------------------
 
 def test_front_oracle_through_port():
@@ -457,16 +459,3 @@ def test_front_oracle_through_port():
     np.testing.assert_allclose(s.v.numpy()[I3], v15, rtol=1e-9, atol=1e-14)
     np.testing.assert_allclose(s.b.numpy()[I3], b15, rtol=1e-9, atol=1e-14)
     np.testing.assert_allclose(ke, ke_ref, rtol=1e-10)
-
-
-@pytest.mark.parametrize("option", [
-    dict(nu_h=5e3), dict(kappa_h=1e2), dict(nu4_h=1e9), dict(kappa4_h=1e9),
-    dict(wind_stress=lambda lam, phi: (np.zeros_like(lam), np.zeros_like(lam))),
-    dict(bottom_drag=("quadratic", 2.5e-3)),
-    dict(forcing={"u": lambda lam, phi, z, t, f: 0.0 * lam})])
-def test_layered_deferred_options_raise(option):
-    grid = TripolarGrid.make((24, 16, 2), halo=(5, 5, 5), z=(-1000.0, 0.0),
-                             dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TL.make_layered_model(grid, free_surface=SplitExplicitFreeSurface(substeps=6),
-                              bottom_height=bottom, device="cpu", **option)
