@@ -46,8 +46,8 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from benchmarks.torch_profile_step import (plain_kernels, smi_line,  # noqa: E402
-                                           spin_cycles_per_ms)
+from benchmarks.torch_profile_step import plain_kernels, spin_cycles_per_ms  # noqa: E402
+from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import smi_line  # noqa: E402
 
 DT = 40.0
 # the device kernels of csrc/ (names as the profiler reports them)

@@ -38,18 +38,13 @@ import argparse
 import contextlib
 import json
 import os
-import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
-
-def smi_line():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import smi_line  # noqa: E402
 
 
 @contextlib.contextmanager
@@ -166,7 +161,6 @@ def main():
     if not torch.cuda.is_available():
         print("torch_profile_step: no CUDA device available", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
     from examples.bickley_jet_torch import build
     from orthogonalsphericalshellgrids_tpu_torch import kernels
 

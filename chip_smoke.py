@@ -31,6 +31,26 @@ Phase 7  the gyre: the wind-driven T/S gyre of bench_layered.py (1440 x 680 x 10
 Phase 8  gyre parity on the card: 3 float64 steps of the 48 x 32 x 3 check gyre
          (examples/wind_driven_ts_gyre_torch.py:build_check) through the kernels
          against the port's plain path on the CPU, rtol 1e-11.
+Phase 9  the measurement probes (csrc/probes.cu): the barotropic substep probe, the
+         WENO-5 probe and the stream and FMA ceiling kernels against their plain
+         versions at float32 and float64; then the four ceilings measured through
+         them (benchmarks/torch_roofline.py), each kernel's byte bound at the
+         measured stream rate, and the barotropic, momentum and tracer kernels'
+         math and WENO bounds beside their phase-2 times.
+Phase 10 the phase-7 gyre through utils.Simulation: 100 iterations with the wizard
+         and the progress line every 10 and the default NaN checker. It fails if a
+         step waits for the card: torch's sync debug mode must count no host
+         synchronization at an iteration where no callback fires (and counts one at
+         every iteration of a run that reads u after each step). ms/step against
+         layered_multi_step, reported against the 3 % target, beside the same run
+         with a NaN checker on u, v and c every 10 and the run that reads u after
+         each step; the async surface writer and the checkpoint timed on their own;
+         a pickup from the checkpoint at iteration 30, resumed to 60 at a fixed
+         dt = 40 s, bitwise equal to the uninterrupted run.
+Phase 11 the reference's run (BASELINE.md:13): the 180 x 90 float64 Bickley jet,
+         50 days through Simulation with the CFL-0.3 wizard (max dt 3 h) and daily
+         output; steps, wall time, final invariants, finite fields, the tracer
+         range and its conservation.
 
 Phase 2 also holds the layered kernels against their plain versions: the vertical
 column kernel at (10, 690, 1450) in its three modes and at Nz = 50, the layered
@@ -41,7 +61,8 @@ mode, and the corrector with and without b.
 
 Prints the kernel table as one JSON line (with each kernel's bound: the larger of
 its bytes, every input read once and every output written once, over 3.35 TB/s and
-its operations over 67 TFLOP/s at float32), then the nvidia-smi line, then
+its operations over 67 TFLOP/s at float32, the data sheet's rates; phase 9 prints
+the bounds at the measured rates), then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line. Any failed check raises, and the
 script exits non-zero.
 """
@@ -50,11 +71,15 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import (  # noqa: E402
+    host_syncs, smi_line, time_ms)
+
 FILL_SHAPES = {"base": (690, 1450), "ext": (724, 1484)}
 BANDS = {"float32": 1e-5, "float64": 1e-12}
 REPLACES = {
@@ -69,10 +94,16 @@ REPLACES = {
     "momentum_closures": "orthogonalsphericalshellgrids_tpu/ops/pallas_mom.py:281",
     "tracer_adv_kappa": "orthogonalsphericalshellgrids_tpu/ops/pallas_adv.py:258",
     "corrector": "orthogonalsphericalshellgrids_tpu/ops/pallas_corr.py:83",
+    "baro_substep_sol": "benchmarks/roofline.py:121",
+    "weno_probe": "benchmarks/weno_sol.py:167",
+    # the ceiling kernels stand for the XLA scan bodies of the JAX package's probes
+    "stream_probe": "orthogonalsphericalshellgrids_tpu/utils/profiling.py:49",
+    "fma_ceiling": "benchmarks/weno_sol.py:215",
 }
 SOURCE_FILE = {"halo_fill_copy": "halo_fill", "momentum_layered": "momentum",
                "tracer_adv_layered": "tracer_adv", "momentum_closures": "momentum",
-               "tracer_adv_kappa": "tracer_adv"}
+               "tracer_adv_kappa": "tracer_adv", "baro_substep_sol": "probes",
+               "weno_probe": "probes", "stream_probe": "probes", "fma_ceiling": "probes"}
 SOURCES = {name: "orthogonalsphericalshellgrids_tpu_torch/csrc/{}.cu".format(
     SOURCE_FILE.get(name, name)) for name in REPLACES}
 # the kernels each main path must launch: the Bickley jet (phase 3), the baroclinic
@@ -82,6 +113,8 @@ FRONT = ("halo_fill", "halo_fill_copy", "barotropic", "vertical", "momentum_laye
          "tracer_adv_layered", "corrector")
 GYRE = ("halo_fill", "halo_fill_copy", "barotropic", "vertical", "momentum_closures",
         "tracer_adv_kappa", "corrector")
+# the kernels the ceilings measurement must launch (phase 9)
+PROBES = ("baro_substep_sol", "weno_probe", "stream_probe", "fma_ceiling")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOPS_PER_S = 67e12    # float32 outside the tensor cores
 
@@ -95,36 +128,6 @@ def log(msg):
     print(msg, flush=True)
 
 
-def smi_line():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, n=20, reps=5, warm=3):
-    """Milliseconds per call: CUDA events around ``n`` back-to-back calls, median of
-    ``reps`` such windows, after ``warm`` calls. A call whose host-side enqueue takes
-    longer than its device work (a small kernel) is timed at the enqueue rate."""
-    import torch
-
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / n)
-    times.sort()
-    return times[len(times) // 2]
-
-
 def rel_err(got, want, sl):
     g, w = got[..., sl[0], sl[1]], want[..., sl[0], sl[1]]
     return float((g - w).abs().max()), float((g - w).abs().max() / w.abs().max())
@@ -136,10 +139,11 @@ def nbytes(*tensors):
 
 
 def bound(n_bytes, flops):
-    """(least ms the card could take, what bounds it): the larger of the bytes over
-    the HBM rate and the operations over the float32 rate."""
+    """(least ms the card could take, what bounds it, the bytes): the larger of the
+    bytes over the HBM rate and the operations over the float32 rate. Phase 9 puts
+    the same bytes over the measured stream rate."""
     t_b, t_f = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
-    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+    return (t_b, "bytes", n_bytes) if t_b >= t_f else (t_f, "operations", n_bytes)
 
 
 # operations per output value, counted from each kernel's arithmetic: the fill's
@@ -695,7 +699,7 @@ def phase6_layered_parity(card):
 
 def phase7_gyre_path(card, n_steps=10, warm=3):
     """The 1/4-degree x 10 wind-driven T/S gyre through the kernels; returns the
-    launch counts."""
+    launch counts, ms/step, and the model with its initial state for phase 10."""
     import torch
 
     from examples.wind_driven_ts_gyre_torch import build
@@ -704,6 +708,7 @@ def phase7_gyre_path(card, n_steps=10, warm=3):
 
     t0 = time.perf_counter()
     model, state = build(1440, 680, 10, dtype=torch.float32, substeps=30, device="cuda")
+    state0 = state
     torch.cuda.synchronize()
     log(f"phase 7: built the 1440 x 680 x 10 gyre in {time.perf_counter() - t0:.1f} s "
         f"(stacks {tuple(state.u.shape)}, tracers {tuple(state.c.shape)}, layers "
@@ -740,7 +745,7 @@ def phase7_gyre_path(card, n_steps=10, warm=3):
         f"max|u| {float(state.u.abs().max()):.6f}, T in [{float(T.min()):.4f}, "
         f"{float(T.max()):.4f}], S in [{float(S.min()):.4f}, {float(S.max()):.4f}] "
         f"[{card}]")
-    return counts, ms
+    return counts, ms, model, state0
 
 
 def phase8_gyre_parity(card, n_steps=3):
@@ -773,6 +778,351 @@ def phase8_gyre_parity(card, n_steps=3):
         f"against the CPU plain path: max rel diff {', '.join(worst)} (rtol 1e-11) [{card}]")
 
 
+def phase9_probes(card, kres):
+    """The two probes and the two ceiling kernels against their plain versions at the
+    measurement's shapes (f32 and f64), then the four ceilings measured through them
+    and the bounds they put on the kernels of phase 2. Returns ({name: (max_abs_err at
+    f32, kernel ms, plain ms, bound, library ms)}, the measurement's launch counts)."""
+    import torch
+
+    from benchmarks import torch_roofline as roof
+    from benchmarks.torch_weno_sol import (FLOPS_PER_RECONSTRUCTION, WENO_ITER,
+                                           probe_input)
+    from orthogonalsphericalshellgrids_tpu_torch import kernels
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import probes
+
+    whole = (slice(None), slice(None))
+    n_tiles = roof.baro_n_tiles()
+    rows = {}
+    for name in ("float32", "float64"):
+        dt = getattr(torch, name)
+        f32 = name == "float32"
+
+        # the barotropic substep probe: every tile, all three accumulators, at the
+        # measurement's length (the iterate is smooth, so the full length compares)
+        spack, dpack, dtau = roof.baro_inputs(n_tiles, dtype=dt)
+        got = probes.baro_substep_sol(spack, dpack, dtau, roof.BARO_ITER)
+        want = probes.baro_substep_sol_plain(spack, dpack, dtau, roof.BARO_ITER)
+        ea, er = rel_err(got, want, whole)
+        check(er <= BANDS[name] and bool(torch.isfinite(got).all()),
+              f"baro_substep_sol {name}: rel err {er:.3e}")
+        t_p = time_ms(lambda: probes.baro_substep_sol_plain(spack, dpack, dtau,
+                                                            roof.BARO_ITER), n=1, reps=1,
+                      warm=0) if f32 else float("nan")
+        log(f"phase 9: baro_substep_sol {name} on {tuple(spack.shape)}, {roof.BARO_ITER} "
+            f"substeps: max abs err {ea:.3e}, max rel err {er:.3e} (band {BANDS[name]:g})"
+            f"{f'; plain {t_p:.4f} ms' if f32 else ''} [{card}]")
+        if f32:
+            rows["baro_substep_sol"] = (ea, None, t_p, bound(
+                nbytes(spack, dpack, dtau, got),
+                probes.BARO_FLOPS * got[:, 0].numel() * roof.BARO_ITER), None)
+
+        # the WENO-5 probe: the upwind select flips on a rounding difference near 0
+        # and the flip spreads, so it compares at 1 and 4 iterations, and a point
+        # outside the band may be at most 1e-4 of the points
+        x = probe_input(dtype=dt)
+        worst = []
+        for n_iter in (1, 4):
+            for upwind in (True, False):
+                got = probes.weno_probe(x, n_iter, upwind)
+                want = probes.weno_probe_plain(x, n_iter, upwind)
+                diff = (got - want).abs()
+                out_of_band = float((diff > BANDS[name] * want.abs().max()).double().mean())
+                check(out_of_band < 1e-4 and bool(torch.isfinite(got).all()),
+                      f"weno_probe {name} n_iter={n_iter} upwind={upwind}: {out_of_band:.2e} "
+                      f"of the points outside the band")
+                worst.append((float(diff.max()), float(diff.max() / want.abs().max()),
+                              out_of_band))
+        ea = max(w[0] for w in worst)
+        t_p = time_ms(lambda: probes.weno_probe_plain(x, WENO_ITER), n=1, reps=1,
+                      warm=0) if f32 else float("nan")
+        log(f"phase 9: weno_probe {name} on {tuple(x.shape)}, 1 and 4 iterations, upwind "
+            f"and left-biased: max abs err {ea:.3e}, max rel err "
+            f"{max(w[1] for w in worst):.3e}, outside the band {max(w[2] for w in worst):.2e}"
+            f" of the points (band {BANDS[name]:g})"
+            f"{f'; plain at {WENO_ITER} iterations {t_p:.4f} ms' if f32 else ''} [{card}]")
+        if f32:
+            rows["weno_probe"] = (ea, None, t_p, bound(
+                2 * nbytes(x), FLOPS_PER_RECONSTRUCTION * x.numel() * WENO_ITER), None)
+
+        # the stream kernel, and the one PyTorch call that computes the same function
+        xs = torch.arange(roof.STREAM_N, dtype=dt, device="cuda")
+        ys = torch.empty_like(xs)
+        want = probes.stream_probe_plain(xs)
+        ea, er = rel_err(probes.stream_probe(xs, out=ys).view(1, -1), want.view(1, -1),
+                         whole)
+        check(er <= BANDS[name], f"stream_probe {name}: rel err {er:.3e}")
+        half = torch.tensor(0.5, dtype=dt, device="cuda")
+        lib = torch.add(half, xs, alpha=1.000001)
+        check(rel_err(lib.view(1, -1), want.view(1, -1), whole)[1] <= BANDS[name],
+              f"torch.add {name} as the stream")
+        if f32:
+            t_p = time_ms(lambda: probes.stream_probe_plain(xs), n=5)
+            t_lib = time_ms(lambda: torch.add(half, xs, alpha=1.000001, out=ys), n=5)
+            t_copy = time_ms(lambda: ys.copy_(xs), n=5)
+            rows["stream_probe"] = (ea, None, t_p, bound(2 * nbytes(xs), 2 * xs.numel()),
+                                    t_lib)
+            log(f"phase 9: stream_probe {name} on {xs.numel()} elements: max abs err "
+                f"{ea:.3e}, max rel err {er:.3e}; plain {t_p:.4f} ms, torch.add {t_lib:.4f}"
+                f" ms, copy_ of the same bytes {t_copy:.4f} ms [{card}]")
+        del xs, ys, lib, want
+
+        # the FMA ceiling kernel
+        xf = torch.full((roof.FMA_N,), 0.999, dtype=dt, device="cuda")
+        ea, er = rel_err(probes.fma_ceiling(xf, roof.FMA_ITER).view(1, -1),
+                         probes.fma_ceiling_plain(xf, roof.FMA_ITER).view(1, -1), whole)
+        check(er <= BANDS[name], f"fma_ceiling {name}: rel err {er:.3e}")
+        t_p = time_ms(lambda: probes.fma_ceiling_plain(xf, roof.FMA_ITER), n=1, reps=1,
+                      warm=0) if f32 else float("nan")
+        log(f"phase 9: fma_ceiling {name} on {xf.numel()} elements x {roof.FMA_ITER}: max "
+            f"abs err {ea:.3e}, max rel err {er:.3e}{f'; plain {t_p:.4f} ms' if f32 else ''}"
+            f" [{card}]")
+        if f32:
+            rows["fma_ceiling"] = (ea, None, t_p, bound(
+                2 * nbytes(xf), probes.FMA_FLOPS * xf.numel() * roof.FMA_ITER), None)
+
+    # the ceilings: the path that runs these four kernels
+    kernels.reset_launch_counts()
+    ceil = roof.measure()
+    counts = kernels.launch_counts()
+    check(all(counts[n] > 0 for n in PROBES) and
+          all(c == 0 for n, c in counts.items() if n not in PROBES),
+          f"the ceilings launched {counts}")
+    # a reading above the data sheet means the timing window is broken
+    check(ceil["stream_gbps"] <= 1.02 * HBM_BYTES_PER_S / 1e9,
+          f"stream {ceil['stream_gbps']:.1f} GB/s above the data sheet")
+    check(ceil["fma_tflops"] <= 1.02 * F32_FLOPS_PER_S / 1e12,
+          f"FMA {ceil['fma_tflops']:.2f} TFLOP/s above the data sheet")
+    for name, key in (("baro_substep_sol", "baro_ms"), ("weno_probe", "weno_ms"),
+                      ("stream_probe", "stream_ms"), ("fma_ceiling", "fma_ms")):
+        ea, _, t_p, b, t_lib = rows[name]
+        rows[name] = (ea, ceil[key], t_p, b, t_lib)
+        log(f"phase 9: {name} kernel {ceil[key]:.4f} ms, plain {t_p:.4f} ms, data-sheet "
+            f"bound {b[0]:.5f} ms ({b[1]}) [{card}]")
+    # each kernel's byte bound at the measured stream rate: the bytes of its phase-2
+    # operands, the same count as its data-sheet bound
+    roof.report(ceil, card, log=lambda m: log(f"phase 9: {m}"),
+                kernel_ms={name: row[1] for name, row in kres.items()},
+                kernel_bytes={name: row[3][2] for name, row in kres.items()})
+    log(f"phase 9: launches {counts}")
+    return rows, counts
+
+
+def phase10_simulation(card, model, state0, n_iter=60, n_time=100, warm=3):
+    """The 1/4-degree x 10 gyre through ``Simulation``: no host synchronization at an
+    iteration where no callback fires (torch's sync debug mode); its cost over
+    ``layered_multi_step`` over ``n_time`` iterations with the wizard and the progress
+    line every 10 and the default NaN checker (u every 100 iterations), beside a run
+    that reads u after every step; the async surface writer and the checkpoint timed
+    on their own; and a pickup from the checkpoint at iteration 30, resumed to
+    ``n_iter``, bitwise against the uninterrupted run at a fixed dt = 40 s (a
+    checkpoint holds the state, not the wizard's dt). Returns the launch counts of
+    one Simulation run."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch import kernels
+    from orthogonalsphericalshellgrids_tpu_torch.models import layered_multi_step
+    from orthogonalsphericalshellgrids_tpu_torch.utils import (
+        Checkpointer, FieldTimeSeries, IterationInterval, NaNChecker, OutputWriter,
+        Simulation, TimeStepWizard, progress_callback)
+
+    nz, dt = model.nz, 40.0
+    progress = []
+    warm_state = layered_multi_step(model, state0, dt, warm)
+    torch.cuda.synchronize()
+
+    def multi():
+        return layered_multi_step(model, warm_state, dt, n_time)
+
+    def driven(kind="sim", probe=None):
+        """The wizard and the progress line every 10 iterations and the default NaN
+        checker (``sim``); with a NaN checker on u, v and c every 10 iterations in
+        place of the default one (``strict``); or ``sim`` plus a host read of one
+        value of u after every step (``synced``), the wait the loop must not make.
+        ``probe`` runs after every step, after the other callbacks."""
+        sim = Simulation(model, warm_state, dt=dt, stop_iteration=warm + n_time,
+                         nan_checker=kind != "strict")
+        wizard = TimeStepWizard(cfl=0.25, max_change=1.1, max_dt=3600.0)
+        sim.add_callback(lambda s: setattr(s, "dt", wizard.update(s.model, s.state, s.dt)),
+                         IterationInterval(10))
+        sim.add_callback(progress_callback(progress.append), IterationInterval(10))
+        if kind == "strict":
+            sim.add_callback(NaNChecker(("u", "v", "c")), IterationInterval(10))
+        if kind == "synced":
+            sim.add_callback(lambda s: float(s.state.u[0, 0, 0]), IterationInterval(1))
+        if probe is not None:
+            sim.add_callback(probe, IterationInterval(1))
+        return sim.run()
+
+    def syncs_per_iteration(kind):
+        """{iteration: host synchronizations in its step and its callbacks}: torch's
+        sync debug mode counts them, read by a probe after every step (the first
+        iteration, which also holds the Simulation's construction, is left out)."""
+        marks = []
+        with host_syncs() as n_syncs:
+            driven(kind, probe=lambda s: marks.append((s.iteration, n_syncs())))
+        return {it: n - prev for (_, prev), (it, n) in zip(marks, marks[1:])}
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n_time * 1e3
+
+    driven("strict")  # the first launches of the callbacks' reductions load them
+    syncs = {kind: syncs_per_iteration(kind) for kind in ("sim", "synced")}
+    quiet = [it for it in syncs["sim"] if it % 10]  # no callback but the probe fires
+    loud = sorted(set(syncs["sim"]) - set(quiet))
+    check(len(quiet) >= n_time * 8 // 10 and all(syncs["synced"][it] >= 1 for it in quiet),
+          f"the sync count sees a host read after every step: {syncs['synced']}")
+    check(all(syncs["sim"][it] == 0 for it in quiet),
+          f"Simulation waited for the card at an iteration without a callback: "
+          f"{ {it: n for it, n in syncs['sim'].items() if n and it in quiet} }")
+    times = {"multi": [], "sim": [], "strict": [], "synced": []}
+    runs = {"multi": multi, "sim": driven, "strict": lambda: driven("strict"),
+            "synced": lambda: driven("synced")}
+    for which in ("multi", "sim", "strict", "synced", "synced", "strict", "sim", "multi",
+                  "multi", "sim", "strict", "synced"):
+        if which == "sim" and not times["sim"]:
+            kernels.reset_launch_counts()
+            times["sim"].append(wall_ms(driven))
+            counts = kernels.launch_counts()
+        else:
+            times[which].append(wall_ms(runs[which]))
+    expected = {k: 0 for k in counts}
+    expected.update(halo_fill_copy=6 * n_time, halo_fill=2 * n_time, vertical=n_time,
+                    momentum_closures=n_time, tracer_adv_kappa=n_time, corrector=n_time,
+                    barotropic=n_time)
+    check(counts == expected, f"Simulation launch counts {counts} != {expected}")
+    best = {k: min(v) for k, v in times.items()}
+    over = {k: best[k] / best["multi"] - 1.0 for k in ("sim", "strict", "synced")}
+    log(f"phase 10: {n_time} gyre iterations: host synchronizations 0 at each of the "
+        f"{len(quiet)} iterations without a callback, "
+        f"{sum(syncs['sim'][it] for it in loud)} at the {len(loud)} with one; "
+        f"{sum(syncs['synced'].values())} with a host read after every step [{card}]")
+    log(f"phase 10: ms/step through Simulation (wizard and progress every 10, the "
+        f"default NaN checker) {', '.join(f'{t:.4f}' for t in times['sim'])}; with a NaN "
+        f"checker on u, v and c every 10 {', '.join(f'{t:.4f}' for t in times['strict'])}"
+        f"; with a host read after every step "
+        f"{', '.join(f'{t:.4f}' for t in times['synced'])}; layered_multi_step "
+        f"{', '.join(f'{t:.4f}' for t in times['multi'])}; Simulation costs "
+        f"{100 * over['sim']:+.2f} % ({100 * over['strict']:+.2f} % with the NaN checker "
+        f"every 10, {100 * over['synced']:+.2f} % with a read after every step; best "
+        f"against best; the target of at most 3 % "
+        f"{'held' if over['sim'] <= 0.03 else 'missed'}); last progress line: "
+        f"{progress[-1]} [{card}]")
+
+    class Timed:
+        """A callback that times ``fn`` on the host, the card drained first."""
+
+        def __init__(self, fn):
+            self.fn, self.ms = fn, []
+
+        def __call__(self, sim):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.fn(sim)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+
+    surface = {"T_surface": lambda s: s.state.c[0], "S_surface": lambda s: s.state.c[nz],
+               "u_surface": lambda s: s.state.u[0]}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Checkpointer(os.path.join(tmp, "gyre"))
+        paths = {k: os.path.join(tmp, f"surface_{k}.npz") for k in ("once", "resumed")}
+        ends, drain_ms, write_ms = {}, {}, []
+        for run in ("once", "resumed"):
+            writer = OutputWriter(paths[run], surface, async_write=True)
+            sim = Simulation(model, state0, dt=dt, stop_iteration=n_iter)
+            sim.add_callback(progress_callback(progress.append), IterationInterval(10))
+            timed_writer = Timed(writer)
+            timed_writer.ms = write_ms
+            sim.add_callback(timed_writer, IterationInterval(20))
+            if run == "once":
+                timed_ckpt = Timed(ckpt)
+                sim.add_callback(timed_ckpt, IterationInterval(30))
+            ends[run] = sim.run(pickup=ckpt.path_for(30) if run == "resumed" else None)
+            t0 = time.perf_counter()
+            writer.close()  # the Timed wrapper hides close() from the Simulation
+            drain_ms[run] = (time.perf_counter() - t0) * 1e3
+            check(sim.iteration == n_iter, f"{run} run ended at iteration {sim.iteration}")
+        ckpt_mb = os.path.getsize(ckpt.path_for(30)) / 2**20
+        for f in dataclasses.fields(ends["once"]):
+            check(torch.equal(getattr(ends["resumed"], f.name), getattr(ends["once"], f.name)),
+                  f"pickup at iteration 30: {f.name} not bitwise equal to the uninterrupted "
+                  f"run")
+        once = {k: FieldTimeSeries(paths["once"], k) for k in surface}
+        resumed = {k: FieldTimeSeries(paths["resumed"], k) for k in surface}
+        for k in surface:
+            check(len(once[k]) == 3 and len(resumed[k]) == 2, f"{k} snapshots")
+            check((resumed[k].data == once[k].data[1:]).all() and
+                  (resumed[k].times == once[k].times[1:]).all(),
+                  f"{k}: the resumed run's snapshots differ from the uninterrupted run's")
+            check(bool((abs(once[k].data) < float("inf")).all()), f"{k} finite")
+    log(f"phase 10: pickup at iteration 30 resumed to {n_iter} bitwise equal to the "
+        f"uninterrupted run (every field, and the snapshots at 40 and 60) at dt = {dt:g} "
+        f"s; async surface writer (T, S, u) {', '.join(f'{t:.2f}' for t in write_ms)}"
+        f" ms a snapshot on the simulation thread, drain {drain_ms['resumed']:.2f} ms; "
+        f"checkpoint {', '.join(f'{t:.1f}' for t in timed_ckpt.ms)} ms for {ckpt_mb:.1f} MB "
+        f"[{card}]")
+    return counts
+
+
+def phase11_bickley_50_days(card, days=50.0):
+    """The reference's run (BASELINE.md:13): the 180 x 90 Bickley jet through
+    ``Simulation`` at float64, CFL-0.3 wizard with max dt 3 h from dt = 60 s, daily
+    output of u, v, c and zeta; steps, wall time, final invariants, finite fields and
+    phase 3's tracer range."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from examples.bickley_jet_torch import build, diagnostics, make_simulation
+    from orthogonalsphericalshellgrids_tpu_torch import kernels
+    from orthogonalsphericalshellgrids_tpu_torch.models.diagnostics import (
+        surface_volume, tracer_content)
+    from orthogonalsphericalshellgrids_tpu_torch.utils import FieldTimeSeries
+
+    model, state = build(180, 90, dtype=torch.float64, substeps=30, device="cuda")
+    c0 = float(tracer_content(model, state))
+    progress = []
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "bickley.npz")
+        sim = make_simulation(model, state, days=days, dt=60.0, out=out,
+                              log=progress.append)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        s = sim.run()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        zeta = FieldTimeSeries(out, "zeta")
+        check(len(zeta) >= int(days) and bool(np.isfinite(zeta.data).all()),
+              f"{len(zeta)} daily zeta snapshots, finite")
+    check(abs(sim.time - days * 86400.0) < 1e-6, f"stopped at t = {sim.time}")
+    check(all(counts[n] > 0 for n in BICKLEY) and counts["barotropic"] == sim.iteration,
+          f"the 50-day run launched {counts} in {sim.iteration} iterations")
+    for name in ("u", "v", "c", "eta", "U", "V"):
+        check(bool(torch.isfinite(getattr(s, name)).all()), f"50-day {name} finite")
+    cmin, cmax = float(s.c.min()), float(s.c.max())
+    check(-1 - 1e-3 <= cmin and cmax <= 1 + 1e-3, f"c in [-1, 1]: [{cmin}, {cmax}]")
+    ke, ens, cvar = diagnostics(model, s)
+    c1 = float(tracer_content(model, s))
+    # flux-form advection with the seam row half-weighted conserves it to round-off
+    check(abs(c1 / c0 - 1.0) <= 1e-9, f"tracer content {c0} -> {c1}")
+    log(f"phase 11: the 180 x 90 float64 Bickley jet, {days:g} days through Simulation: "
+        f"{sim.iteration} steps in {wall:.1f} s ({wall / sim.iteration * 1e3:.3f} ms a "
+        f"step with the callbacks), last dt {sim.dt:.1f} s, {len(zeta)} daily snapshots; "
+        f"final ke {ke:.6e}, enstrophy {ens:.6e}, tracer variance {cvar:.6e}, tracer "
+        f"content {c1:.12e} (relative change {c1 / c0 - 1:.2e}), surface volume "
+        f"{float(surface_volume(model, s)):.6e}, c in [{cmin:.6f}, {cmax:.6f}], max|u| "
+        f"{float(s.u.abs().max()):.4f}; {progress[-1]} [{card}]")
+    return counts
+
+
 def main():
     import torch
 
@@ -780,7 +1130,6 @@ def main():
         print("chip_smoke: no CUDA device available; this smoke runs only on a GPU",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
     card = smi_line()
     log(f"phase 0: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -801,21 +1150,26 @@ def main():
     phase4_parity(card)
     front_counts, _ = phase5_layered_path(card)
     phase6_layered_parity(card)
-    gyre_counts, _ = phase7_gyre_path(card)
+    gyre_counts, _, gyre_model, gyre_state0 = phase7_gyre_path(card)
     phase8_gyre_parity(card)
+    probe_rows, probe_counts = phase9_probes(card, kres)
+    kres.update(probe_rows)
+    phase10_simulation(card, gyre_model, gyre_state0)
+    del gyre_model, gyre_state0
+    phase11_bickley_50_days(card)
 
     # each path must have launched every kernel it runs; a row reports the count of
     # the last path that runs it (the gyre's for every kernel of the gyre)
     launches = {}
     for path, names, cnt in (("Bickley", BICKLEY, counts), ("front", FRONT, front_counts),
-                             ("gyre", GYRE, gyre_counts)):
+                             ("gyre", GYRE, gyre_counts), ("ceilings", PROBES, probe_counts)):
         check(all(cnt[n] > 0 for n in names), f"{path} path launched {cnt}")
         launches.update({n: cnt[n] for n in names})
     table = [{"name": name, "route": "cuda", "source": SOURCES[name],
               "replaces": REPLACES[name], "launches": launches[name],
               "max_abs_err": kres[name][0], "ms": kres[name][1], "plain_ms": kres[name][2],
               "bound_ms": kres[name][3][0], "bound_by": kres[name][3][1],
-              "library_ms": None}
+              "library_ms": kres[name][4] if len(kres[name]) > 4 else None}
              for name in REPLACES]
     print(json.dumps({"kernels": table}), flush=True)
     print(smi_line(), flush=True)

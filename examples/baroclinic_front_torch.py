@@ -8,7 +8,10 @@ rotation. Prognostic buoyancy ``b`` and one passive tracer, Coriolis, explicit
 bottom (the two north singularities and Antarctica masked) and the same initial
 front.
 
-Run:  python examples/baroclinic_front_torch.py --device cuda [--nx 1440 --ny 680 --nz 10]
+The run is ``examples/baroclinic_front.py:main``'s, through the port's
+``Simulation``: 10 simulated days with a CFL-0.25 wizard and daily output.
+
+Run:  python examples/baroclinic_front_torch.py [--nx 120 --ny 60 --nz 8 --days 10 --device cuda]
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 
-def build(nx=120, ny=60, nz=8, dtype=torch.float32, substeps=20, *, device,
+def build(nx=120, ny=60, nz=8, dtype=torch.float32, substeps=20, *, device="cuda",
           depth=1000.0, first_pole_longitude=70.0, north_poles_latitude=55.0):
     """(model, state) of the front on an ``nx`` x ``ny`` x ``nz`` tripolar grid with
     halo 5, on ``device`` in ``dtype``."""
@@ -71,22 +74,48 @@ def kinetic_energy(model, state):
     return float(torch.sum(g.interior(ke)))
 
 
-def main():
+def make_simulation(model, state, days=10.0, dt=120.0, out=None, log=print):
+    """``examples/baroclinic_front.py:main``'s run: ``days`` simulated days from Δt =
+    ``dt`` with a CFL-0.25 wizard (max change 1.1, max Δt 30 min) every 10
+    iterations, the progress line every 20, and the surface and bottom u, the
+    surface b and η written to ``out`` every simulated day (none when ``out`` is
+    None)."""
+    from orthogonalsphericalshellgrids_tpu_torch.utils import (
+        IterationInterval, OutputWriter, Simulation, TimeInterval, TimeStepWizard,
+        progress_callback)
+
+    sim = Simulation(model, state, dt=dt, stop_time=days * 86400.0)
+    wizard = TimeStepWizard(cfl=0.25, max_change=1.1, max_dt=1800.0)
+    sim.add_callback(lambda s: setattr(s, "dt", wizard.update(s.model, s.state, s.dt)),
+                     IterationInterval(10))
+    sim.add_callback(progress_callback(log), IterationInterval(20))
+    if out is not None:
+        writer = OutputWriter(out, {
+            "u_surface": lambda s: s.state.u[0],
+            "u_bottom": lambda s: s.state.u[-1],
+            "b_surface": lambda s: s.state.b[0],
+            "eta": lambda s: s.state.eta,
+        })
+        sim.add_callback(writer, TimeInterval(86400.0))
+    return sim
+
+
+def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--nx", type=int, default=120)
     p.add_argument("--ny", type=int, default=60)
     p.add_argument("--nz", type=int, default=8)
-    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--days", type=float, default=10.0)
     p.add_argument("--dt", type=float, default=120.0)
-    p.add_argument("--device", required=True, help="cpu | cuda")
-    args = p.parse_args()
-
-    from orthogonalsphericalshellgrids_tpu_torch.models import layered_multi_step
+    p.add_argument("--device", default="cuda", help="cuda (default) | cpu")
+    p.add_argument("--out", default="tripolar_baroclinic_front.npz")
+    args = p.parse_args(argv)
 
     model, state = build(args.nx, args.ny, args.nz, device=args.device)
-    state = layered_multi_step(model, state, args.dt, args.steps)
-    print(f"done: {args.steps} steps on {args.device}: ke={kinetic_energy(model, state):.6e} "
-          f"max|u|={float(state.u.abs().max()):.6e}")
+    sim = make_simulation(model, state, args.days, args.dt, args.out)
+    sim.run()
+    print(f"done: iter={sim.iteration} t={sim.time / 86400:.1f} days on {args.device}: "
+          f"ke={kinetic_energy(model, sim.state):.6e} -> {args.out}")
 
 
 if __name__ == "__main__":

@@ -6,18 +6,26 @@ tracer, WENO-5 vector-invariant momentum + flux-form WENO-5 tracer, split-explic
 free surface, immersed-boundary masking of the two north singularities and
 Antarctica — the same masks and initial conditions.
 
-Run:  python examples/bickley_jet_torch.py --device cuda [--nx 1440 --ny 680 --steps 20]
+The run is ``examples/bickley_jet.py:main``'s, through the port's ``Simulation``:
+50 simulated days from Δt = 60 s with a CFL-0.3 wizard (max Δt 3 h), the progress
+line every 10 iterations and daily output of u, v, c and ζ.
+
+Run:  python examples/bickley_jet_torch.py [--nx 180 --ny 90 --days 50 --device cuda]
 """
 
 from __future__ import annotations
 
 import argparse
+import pathlib
+import sys
 
 import numpy as np
 import torch
 
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-def build(nx=180, ny=90, dtype=torch.float32, substeps=30, *, device,
+
+def build(nx=180, ny=90, dtype=torch.float32, substeps=30, *, device="cuda",
           first_pole_longitude=45.0, north_poles_latitude=25.0, **model_kwargs):
     """(model, state) of the Bickley jet on an ``nx`` x ``ny`` tripolar grid with
     halo 5, on ``device`` in ``dtype``."""
@@ -69,38 +77,64 @@ def build(nx=180, ny=90, dtype=torch.float32, substeps=30, *, device,
 def diagnostics(model, state):
     """(kinetic energy, enstrophy, tracer variance) area integrals over the interior —
     the invariant curves of ``benchmarks/gen_parity_oracle.py:diagnostics``."""
-    from orthogonalsphericalshellgrids_tpu_torch.models.hydrostatic import vorticity
-    from orthogonalsphericalshellgrids_tpu_torch.ops import zipper
-    from orthogonalsphericalshellgrids_tpu_torch.ops.location import CF, FC
+    from orthogonalsphericalshellgrids_tpu_torch.models.diagnostics import (
+        vertical_vorticity)
 
     g = model.grid
-    u = zipper.fill_halos(state.u, FC, -1, g.Nx, g.Ny, g.Hx, g.Hy)
-    v = zipper.fill_halos(state.v, CF, -1, g.Nx, g.Ny, g.Hx, g.Hy)
-    zeta = vorticity(model, u, v)
+    zeta = vertical_vorticity(model, state)
     az = g.az_cc * model.ib.mask_c
     I = g.interior2d
-    ke = float(torch.sum((0.5 * (u**2 + v**2) * az)[I]))
+    # the interior of u and v needs no halo fill
+    ke = float(torch.sum((0.5 * (state.u**2 + state.v**2) * az)[I]))
     ens = float(torch.sum((zeta**2 * g.az_ff)[I]))
     cvar = float(torch.sum((state.c**2 * az)[I]))
     return ke, ens, cvar
 
 
-def main():
+def make_simulation(model, state, days=50.0, dt=60.0, out=None, log=print):
+    """The reference's run (``examples/bickley_jet.jl:73-89``, as
+    ``examples/bickley_jet.py:main`` sets it up): ``days`` simulated days from Δt =
+    ``dt`` with a CFL-0.3 wizard (max change 1.1, max Δt 3 h) and the progress line
+    every 10 iterations, and u, v, c and ζ written to ``out`` every simulated day
+    (no output when ``out`` is None)."""
+    from orthogonalsphericalshellgrids_tpu_torch.models.diagnostics import (
+        vertical_vorticity)
+    from orthogonalsphericalshellgrids_tpu_torch.utils import (
+        IterationInterval, OutputWriter, Simulation, TimeInterval, TimeStepWizard,
+        progress_callback)
+
+    sim = Simulation(model, state, dt=dt, stop_time=days * 86400.0)
+    wizard = TimeStepWizard(cfl=0.3, max_change=1.1, max_dt=3 * 3600.0)
+    sim.add_callback(lambda s: setattr(s, "dt", wizard.update(s.model, s.state, s.dt)),
+                     IterationInterval(10))
+    sim.add_callback(progress_callback(log), IterationInterval(10))
+    if out is not None:
+        writer = OutputWriter(out, {
+            "u": lambda s: s.state.u,
+            "v": lambda s: s.state.v,
+            "c": lambda s: s.state.c,
+            "zeta": lambda s: vertical_vorticity(s.model, s.state),
+        })
+        sim.add_callback(writer, TimeInterval(86400.0))
+    return sim
+
+
+def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--nx", type=int, default=180)
     p.add_argument("--ny", type=int, default=90)
-    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--days", type=float, default=50.0)
     p.add_argument("--dt", type=float, default=60.0)
-    p.add_argument("--device", required=True, help="cpu | cuda")
-    args = p.parse_args()
-
-    from orthogonalsphericalshellgrids_tpu_torch.models import multi_step
+    p.add_argument("--device", default="cuda", help="cuda (default) | cpu")
+    p.add_argument("--out", default="tripolar_bickley.npz")
+    args = p.parse_args(argv)
 
     model, state = build(args.nx, args.ny, device=args.device)
-    state = multi_step(model, state, args.dt, args.steps)
-    ke, ens, cvar = diagnostics(model, state)
-    print(f"done: {args.steps} steps on {args.device}: ke={ke:.6e} ens={ens:.6e} "
-          f"cvar={cvar:.6e}")
+    sim = make_simulation(model, state, args.days, args.dt, args.out)
+    sim.run()
+    ke, ens, cvar = diagnostics(model, sim.state)
+    print(f"done: iter={sim.iteration} t={sim.time / 86400:.1f} days on {args.device}: "
+          f"ke={ke:.6e} ens={ens:.6e} cvar={cvar:.6e} -> {args.out}")
 
 
 if __name__ == "__main__":

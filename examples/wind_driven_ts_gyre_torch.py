@@ -10,7 +10,10 @@ Coriolis, quadratic bottom drag (Cd = 2.5e-3), ν_h = 5e3 and κ_h = 1e2 m²/s, 
 ν_v = 1e-3 and κ_v = 1e-5 m²/s. ``bench_layered.py`` runs this configuration at
 1440 x 680 x 10 with substeps = 30 and dt = 40 s.
 
-Run:  python examples/wind_driven_ts_gyre_torch.py --device cuda [--nx 1440 --ny 680 --nz 10]
+The run is ``examples/wind_driven_ts_gyre.py:main``'s, through the port's
+``Simulation``: 30 simulated days with a CFL-0.25 wizard and output every 5 days.
+
+Run:  python examples/wind_driven_ts_gyre_torch.py [--nx 180 --ny 80 --nz 6 --days 30 --device cuda]
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 
-def build(nx=180, ny=80, nz=6, dtype=torch.float32, substeps=20, *, device,
+def build(nx=180, ny=80, nz=6, dtype=torch.float32, substeps=20, *, device="cuda",
           first_pole_longitude=70.0, north_poles_latitude=55.0, depth=2000.0,
           **model_kwargs):
     """(model, state) of the gyre on an ``nx`` x ``ny`` x ``nz`` tripolar grid with
@@ -110,7 +113,7 @@ CHECK_INIT = dict(
     eta=lambda lam, phi: 0.01 * np.cos(np.deg2rad(lam) * 2))
 
 
-def build_check(nz=3, dtype=torch.float64, *, device):
+def build_check(nz=3, dtype=torch.float64, *, device="cuda"):
     """(model, state) of the small gyre that the JAX package's kernel-path tests run
     (``tests/test_layered_kernels.py:45-81``): 48 x 32 x ``nz`` uniform layers over
     1000 m, substeps = 6, the gyre's options (``CHECK_OPTIONS``) and initial state
@@ -127,25 +130,51 @@ def build_check(nz=3, dtype=torch.float64, *, device):
     return model, layered_initial_state(model, **CHECK_INIT)
 
 
-def main():
+def make_simulation(model, state, days=30.0, dt=300.0, out=None, log=print):
+    """``examples/wind_driven_ts_gyre.py:main``'s run: ``days`` simulated days from
+    Δt = ``dt`` with a CFL-0.25 wizard (max change 1.1, max Δt 1 h) every 10
+    iterations, the progress line every 50, and the surface T, S and u and η written
+    to ``out`` every 5 simulated days (none when ``out`` is None)."""
+    from orthogonalsphericalshellgrids_tpu_torch.utils import (
+        IterationInterval, OutputWriter, Simulation, TimeInterval, TimeStepWizard,
+        progress_callback)
+
+    nz = model.nz
+    sim = Simulation(model, state, dt=dt, stop_time=days * 86400.0)
+    wizard = TimeStepWizard(cfl=0.25, max_change=1.1, max_dt=3600.0)
+    sim.add_callback(lambda s: setattr(s, "dt", wizard.update(s.model, s.state, s.dt)),
+                     IterationInterval(10))
+    sim.add_callback(progress_callback(log), IterationInterval(50))
+    if out is not None:
+        writer = OutputWriter(out, {
+            "T_surface": lambda s: s.state.c[0],    # tracer 0 = T, layer 0
+            "S_surface": lambda s: s.state.c[nz],   # tracer 1 = S, layer 0
+            "u_surface": lambda s: s.state.u[0],
+            "eta": lambda s: s.state.eta,
+        })
+        sim.add_callback(writer, TimeInterval(5 * 86400.0))
+    return sim
+
+
+def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--nx", type=int, default=180)
     p.add_argument("--ny", type=int, default=80)
     p.add_argument("--nz", type=int, default=6)
-    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--days", type=float, default=30.0)
     p.add_argument("--dt", type=float, default=300.0)
-    p.add_argument("--device", required=True, help="cpu | cuda")
-    args = p.parse_args()
-
-    from orthogonalsphericalshellgrids_tpu_torch.models import layered_multi_step
+    p.add_argument("--device", default="cuda", help="cuda (default) | cpu")
+    p.add_argument("--out", default="tripolar_ts_gyre.npz")
+    args = p.parse_args(argv)
 
     model, state = build(args.nx, args.ny, args.nz, device=args.device)
-    state = layered_multi_step(model, state, args.dt, args.steps)
+    sim = make_simulation(model, state, args.days, args.dt, args.out)
+    state = sim.run()
     nz = model.nz
-    print(f"done: {args.steps} steps on {args.device}: max|u| "
-          f"{float(state.u.abs().max()):.6e}, surface T in "
+    print(f"done: iter={sim.iteration} t={sim.time / 86400:.1f} days on {args.device}: "
+          f"max|u| {float(state.u.abs().max()):.6e}, surface T in "
           f"[{float(state.c[0].min()):.4f}, {float(state.c[0].max()):.4f}], surface S in "
-          f"[{float(state.c[nz].min()):.4f}, {float(state.c[nz].max()):.4f}]")
+          f"[{float(state.c[nz].min()):.4f}, {float(state.c[nz].max()):.4f}] -> {args.out}")
 
 
 if __name__ == "__main__":

@@ -297,12 +297,12 @@ class TripolarGrid(nn.Module):
         first_pole_longitude=70.0,
         dtype=torch.float32,
         *,
-        device,
+        device="cuda",
         phi_spacing=None,
         backend="numpy",
     ):
-        """Generate the grid in float64 on the host and place it on ``device`` in
-        ``dtype``. The signature follows the reference constructor
+        """Generate the grid in float64 on the host and place it on ``device`` (the
+        card unless the caller asks for the CPU) in ``dtype``. The signature follows the reference constructor
         (``src/tripolar_grid.jl:59-66``); ``dtype`` is its ``FT``."""
         raw = build_tripolar_arrays(
             size, southernmost_latitude=southernmost_latitude, halo=halo,

@@ -179,13 +179,14 @@ def make_model(
     nu4_h: float = 0.0,
     kappa4_h: float = 0.0,
     *,
-    device,
+    device="cuda",
 ) -> HydrostaticModel:
-    """Assemble the model on ``device`` (where ``grid`` must lie): widen the
-    free-surface grid's halos to ``len(weights) + 1`` (``with_halo``,
-    test/runtests.jl:58-71), precompute reciprocal metrics, masks and column depths
-    on both grids, and the kernels' closure planes. A tripolar model requires an
-    explicit free surface, as in the reference.
+    """Assemble the model on ``device`` (where ``grid`` must lie; the card unless
+    the caller asks for the CPU): widen the free-surface grid's halos to
+    ``len(weights) + 1`` (``with_halo``, test/runtests.jl:58-71), precompute
+    reciprocal metrics, masks and column depths on both grids, and the kernels'
+    closure planes. A tripolar model requires an explicit free surface, as in the
+    reference.
 
     ``forcing``: {target: fn}, target "u", "v" or the tracer's name, fn(λ°, φ°, t,
     fields) -> the tendency term, on tensors (``fields`` a ``ForcingFields`` of the

@@ -225,12 +225,12 @@ def make_layered_model(
     momentum_advection: str = "weno_vector_invariant",
     forcing=None,
     *,
-    device,
+    device="cuda",
 ) -> LayeredModel:
-    """Assemble the layered model on ``device`` (where ``grid`` must lie). The
-    embedded single-layer model provides the barotropic engine and the column
-    immersed boundary; the layers are the grid's own z discretization, k = 0 at the
-    surface. ``buoyancy``: False (none), True (prognostic ``b``) or ``"linear_eos"``
+    """Assemble the layered model on ``device`` (where ``grid`` must lie; the card
+    unless the caller asks for the CPU). The embedded single-layer model provides
+    the barotropic engine and the column immersed boundary; the layers are the
+    grid's own z discretization, k = 0 at the surface. ``buoyancy``: False (none), True (prognostic ``b``) or ``"linear_eos"``
     (b = g (α (T − T0) − β (S − S0)) from the ``"T"``/``"S"`` tracers).
     ``wind_stress`` acts on layer 0 and ``bottom_drag`` on the deepest wet layer of
     each column; ``forcing`` is {target: fn}, target "u", "v", "b" (with a

@@ -356,3 +356,165 @@ def test_cuda_gyre_steps_match_cpu_float64():
         w = getattr(cpu_out, name)[I3]
         got = getattr(gpu_out, name).cpu()[I3]
         assert float((got - w).abs().max()) <= 1e-11 * float(w.abs().max()), name
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_baro_substep_sol(dtype):
+    """The substep probe on 5 tiles of (8, 128) and (16, 64), 64 substeps: all three
+    accumulators against the plain version."""
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import probes
+
+    r = np.random.default_rng(9)
+    for tile in ((8, 128), (16, 64)):
+        shape = (5, 5) + tile
+        spack = torch.as_tensor(1e-6 * r.standard_normal(shape), dtype=dtype, device="cuda")
+        dpack = torch.as_tensor(r.standard_normal(shape), dtype=dtype, device="cuda")
+        dtau = torch.tensor([1e-7], dtype=dtype, device="cuda")
+        kernels.reset_launch_counts()
+        got = probes.baro_substep_sol(spack, dpack, dtau, 64)
+        assert kernels.launch_counts()["baro_substep_sol"] == 1
+        want = probes.baro_substep_sol_plain(spack, dpack, dtau, 64)
+        assert _rel_err(got, want, (slice(None), slice(None))) <= BANDS[dtype]
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("upwind", [True, False])
+def test_cuda_weno_probe(dtype, upwind):
+    """The WENO-5 probe on 9 rows (a partly filled block) of 1536, 1 and 4
+    iterations: a rounding flip of the upwind select may leave at most 1e-4 of the
+    points outside the band."""
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import probes
+
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal((9, 1536)), dtype=dtype,
+                        device="cuda")
+    for n_iter in (1, 4):
+        kernels.reset_launch_counts()
+        got = probes.weno_probe(x, n_iter, upwind)
+        assert kernels.launch_counts()["weno_probe"] == 1
+        want = probes.weno_probe_plain(x, n_iter, upwind)
+        diff = (got - want).abs()
+        assert float((diff > BANDS[dtype] * want.abs().max()).double().mean()) < 1e-4
+        assert torch.isfinite(got).all()
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_stream_and_fma_ceilings(dtype):
+    """The two ceiling kernels against their plain versions, the stream with a
+    ragged tail after its 16-byte vectors."""
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import probes
+
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(100003), dtype=dtype,
+                        device="cuda")
+    kernels.reset_launch_counts()
+    got = probes.stream_probe(x)
+    assert kernels.launch_counts()["stream_probe"] == 1
+    assert float((got - probes.stream_probe_plain(x)).abs().max()) <= \
+        BANDS[dtype] * float(x.abs().max())
+    xf = torch.full((4099,), 0.999, dtype=dtype, device="cuda")
+    got = probes.fma_ceiling(xf, 5)
+    assert kernels.launch_counts()["fma_ceiling"] == 1
+    want = probes.fma_ceiling_plain(xf, 5)
+    assert float((got - want).abs().max()) <= BANDS[dtype] * float(want.abs().max())
+
+
+@needs_cuda
+def test_cuda_simulation_through_the_kernels():
+    """Ten iterations of the 48 x 32 x 3 check gyre through ``Simulation`` (the
+    wizard every 5, the NaN checker every iteration) launch the gyre's kernels on
+    every step and agree with the same run on the CPU."""
+    from examples.wind_driven_ts_gyre_torch import build_check
+    from orthogonalsphericalshellgrids_tpu_torch.utils import (
+        IterationInterval, NaNChecker, Simulation, TimeStepWizard)
+
+    def run(device):
+        model, state = build_check(device=device)
+        sim = Simulation(model, state, dt=60.0, stop_iteration=10)
+        wizard = TimeStepWizard(cfl=0.25, max_change=1.1, max_dt=600.0)
+        sim.add_callback(lambda s: setattr(s, "dt", wizard.update(s.model, s.state, s.dt)),
+                         IterationInterval(5))
+        sim.add_callback(NaNChecker(("u", "v", "c")), IterationInterval(1))
+        return sim.run(), sim
+
+    kernels.reset_launch_counts()
+    gpu_out, gpu_sim = run("cuda")
+    want = {k: 0 for k in kernels.LAUNCHES}
+    want.update(halo_fill=20, halo_fill_copy=60, barotropic=10, vertical=10,
+                momentum_closures=10, tracer_adv_kappa=10, corrector=10)
+    assert kernels.launch_counts() == want
+    cpu_out, cpu_sim = run("cpu")
+    assert gpu_sim.iteration == cpu_sim.iteration == 10
+    assert gpu_sim.dt == pytest.approx(cpu_sim.dt, rel=1e-12) and gpu_sim.dt > 60.0
+    I3 = (slice(None),) + gpu_sim.model.grid.interior2d
+    for name in ("u", "v", "c"):
+        w = getattr(cpu_out, name)[I3]
+        got = getattr(gpu_out, name).cpu()[I3]
+        assert float((got - w).abs().max()) <= 1e-11 * float(w.abs().max()), name
+
+
+@needs_cuda
+@pytest.mark.parametrize("which", ["bickley", "gyre"])
+def test_cuda_simulation_waits_only_where_a_callback_fires(which):
+    """Through ``Simulation`` (the wizard and the progress line every 5 iterations) a
+    step makes no host synchronization: torch's sync debug mode counts none at the
+    iterations where no callback fires, some where the wizard and the progress line
+    read the card, and one at every iteration of a run that reads u after each
+    step."""
+    from orthogonalsphericalshellgrids_tpu_torch.utils import (
+        IterationInterval, Simulation, TimeStepWizard, progress_callback)
+    from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import host_syncs
+
+    if which == "bickley":
+        from examples.bickley_jet_torch import build
+
+        model, state = build(48, 32, dtype=torch.float64, substeps=10, device="cuda")
+    else:
+        from examples.wind_driven_ts_gyre_torch import build_check
+
+        model, state = build_check(device="cuda")
+
+    def syncs(read_every_step):
+        sim = Simulation(model, state, dt=60.0, stop_iteration=12, nan_checker=False)
+        wizard = TimeStepWizard(cfl=0.25, max_change=1.1, max_dt=600.0)
+        sim.add_callback(lambda s: setattr(s, "dt", wizard.update(s.model, s.state, s.dt)),
+                         IterationInterval(5))
+        sim.add_callback(progress_callback(lambda line: None), IterationInterval(5))
+        if read_every_step:
+            sim.add_callback(lambda s: float(s.state.u.reshape(-1)[0]), IterationInterval(1))
+        marks = []
+        with host_syncs() as n_syncs:
+            sim.add_callback(lambda s: marks.append((s.iteration, n_syncs())),
+                             IterationInterval(1))
+            sim.run()
+        return {it: n - prev for (_, prev), (it, n) in zip(marks, marks[1:])}
+
+    syncs(False)  # loads the kernels and the callbacks' reductions
+    quiet = [2, 3, 4, 6, 7, 8, 9, 11, 12]
+    plain, read = syncs(False), syncs(True)
+    assert sorted(plain) == list(range(2, 13))
+    assert all(plain[it] == 0 for it in quiet), plain
+    assert plain[5] >= 2 and plain[10] >= 2, plain
+    assert all(read[it] >= 1 for it in quiet), read
+
+
+@needs_cuda
+@pytest.mark.parametrize("bad", [float("nan"), float("inf"), -float("inf")])
+def test_cuda_nan_checker_and_progress(bad):
+    """On the card the NaN checker sees a NaN or an infinity in a tracer stack, and
+    the progress line reads max |u| and max |v| exactly."""
+    from examples.wind_driven_ts_gyre_torch import build_check
+    from orthogonalsphericalshellgrids_tpu_torch.utils import (NaNChecker, Simulation,
+                                                               progress_callback)
+
+    model, state = build_check(device="cuda")
+    sim = Simulation(model, TL.layered_multi_step(model, state, 60.0, 2), dt=60.0)
+    lines = []
+    progress_callback(lines.append)(sim)
+    assert lines[0].endswith(f"velocity: {float(sim.state.u.abs().max()):.2e} "
+                             f"{float(sim.state.v.abs().max()):.2e}")
+    NaNChecker(("u", "v", "c"))(sim)
+    sim.state.c[4, 10, 10] = bad
+    with pytest.raises(RuntimeError, match="non-finite values in 'c'"):
+        NaNChecker(("u", "v", "c"))(sim)
