@@ -52,6 +52,12 @@ Phase 11 the reference's run (BASELINE.md:13): the 180 x 90 float64 Bickley jet,
          output; steps, wall time, final invariants, finite fields, the tracer
          range and its conservation.
 
+Phase 2 holds the barotropic kernel, beside the main shape, on five planes from
+(26, 28) (smaller than one tile) to (135, 171), none of which the tiles divide, at 7,
+17, 21, 31 and 36 substeps (launches shorter than the others), with the wrap on and
+off: within the band, finite everywhere, inputs unchanged, and each wrapped halo
+column bitwise equal to the column it copies.
+
 Phase 2 also holds the layered kernels against their plain versions: the vertical
 column kernel at (10, 690, 1450) in its three modes and at Nz = 50, the layered
 momentum kernel at Nz = 10, the layered tracer kernel with 1 and 2 tracers, and the
@@ -147,7 +153,7 @@ def bound(n_bytes, flops):
 
 
 # operations per output value, counted from each kernel's arithmetic: the fill's
-# sign; per substep and cell the barotropic pair's divergence, gradients and
+# sign; per substep and cell the barotropic divergence, gradients and
 # updates; momentum's vorticity, two WENO-5 reconstructions and KE gradient (+40
 # with the closure planes); tracer advection's four face reconstructions (+12 with
 # kappa_h); the vertical pass per layer and tracer block; the corrector's AB2 update
@@ -223,6 +229,7 @@ def phase2_kernels(card):
         weights = torch.as_tensor(averaging_weights(30)[1], dtype=dt, device="cuda")
         I = (slice(22, Ye - 22), slice(22, Xe - 22))
         errs = []
+        kept = [a.clone() for a in (static, eta, U, V, GU, GV)]
         for wrap in (False, True):
             args = (static, eta, U, V, GU, GV, dtau, weights, 1440, 22, wrap)
             for g, w in zip(barotropic.barotropic_substeps(*args),
@@ -231,6 +238,40 @@ def phase2_kernels(card):
                 check(er <= BANDS[name] and bool(torch.isfinite(g).all()),
                       f"barotropic {name} wrap={wrap}: rel err {er:.3e}")
                 errs.append((ea, er))
+        check(all(torch.equal(a, b) for a, b in zip(kept, (static, eta, U, V, GU, GV))),
+              f"barotropic {name}: inputs unchanged")
+        # where the tiles do not fit the plane: a plane smaller than one tile, planes
+        # no tile divides, and substep counts that leave a short last launch
+        odd = []
+        for substeps, Ny, Nx in ((10, 10, 12), (24, 53, 37), (30, 53, 37), (44, 61, 97),
+                                 (50, 61, 97)):
+            w_np = averaging_weights(substeps)[1]
+            n, H = len(w_np), len(w_np) + 1
+            sp = rnd((9, Ny + 2 * H, Nx + 2 * H), lo=0.5)
+            sp[7:] = (sp[7:] > 0.6).to(dt)
+            dyn = [rnd(sp.shape[1:], 0.01) for _ in range(3)] + [
+                rnd(sp.shape[1:], 1e-3) for _ in range(2)]
+            planes = [sp, *dyn]
+            kept = [a.clone() for a in planes]
+            for wrap in (False, True):
+                args = (*planes, dtau, torch.as_tensor(w_np, dtype=dt, device="cuda"), Nx,
+                        H, wrap)
+                Iv = (slice(n, -n), slice(None) if wrap else slice(n, -n))
+                for g, w in zip(barotropic.barotropic_substeps(*args),
+                                barotropic.barotropic_substeps_plain(*args)):
+                    er = rel_err(g, w, Iv)[1]
+                    halo = not wrap or (torch.equal(g[:, :H], g[:, Nx:Nx + H]) and
+                                        torch.equal(g[:, H + Nx:], g[:, H:2 * H]))
+                    check(er <= BANDS[name] and bool(torch.isfinite(g).all()) and halo,
+                          f"barotropic {name} {tuple(sp.shape[1:])} {n} substeps "
+                          f"wrap={wrap}: rel err {er:.3e}, halo columns bitwise {halo}")
+                    odd.append(er)
+            check(all(torch.equal(a, b) for a, b in zip(kept, planes)),
+                  f"barotropic {name} {tuple(sp.shape[1:])}: inputs unchanged")
+        log(f"phase 2: barotropic {name} on five planes from (26, 28) to (135, 171) with "
+            f"7, 17, 21, 31 and 36 substeps, wrap on and off: max rel err {max(odd):.3e} "
+            f"(band {BANDS[name]:g}), finite, inputs unchanged, wrapped halo columns "
+            f"bitwise [{card}]")
         args = (static, eta, U, V, GU, GV, dtau, weights, 1440, 22, False)
         t_k = time_ms(lambda: barotropic.barotropic_substeps(*args), n=10)
         t_p = time_ms(lambda: barotropic.barotropic_substeps_plain(*args), n=10)

@@ -38,7 +38,7 @@ _SIGNATURES = {
     "osg_baro_substep_sol": [_P] * 4 + [_I] * 4 + [_P],
     "osg_halo_fill": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "osg_halo_fill_copy": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "osg_barotropic": [_P] * 10 + [_I] * 6 + [_P],
+    "osg_barotropic": [_P] * 10 + [_I] * 9 + [_P],
     "osg_momentum": [_P] * 6 + [_I] * 6 + [_P],
     "osg_tracer_adv": [_P] * 5 + [_I] * 3 + [_P],
     "osg_tracer_adv_layered": [_P] * 7 + [_I] * 5 + [_P],

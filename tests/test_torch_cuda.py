@@ -123,6 +123,71 @@ def test_cuda_barotropic(dtype, wrap):
         assert torch.equal(a, a0)
 
 
+def _baro_inputs(Ny, Nx, H, dtype, seed):
+    """Random planes on an (Ny + 2H, Nx + 2H) grid, not halo-filled; the masks are 0
+    and 1 and gh_u is not 0 where mask_u is."""
+    r = np.random.default_rng(seed)
+    Ye, Xe = Ny + 2 * H, Nx + 2 * H
+    static = 0.5 + r.random((9, Ye, Xe))
+    static[7:] = static[7:] > 0.6
+    planes = (static, *(0.01 * r.standard_normal((3, Ye, Xe))),
+              *(1e-3 * r.standard_normal((2, Ye, Xe))))
+    return [torch.as_tensor(a, dtype=dtype, device="cuda") for a in planes]
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("wrap", [False, True])
+@pytest.mark.parametrize("substeps,Ny,Nx", [(10, 10, 12), (24, 53, 37), (30, 53, 37),
+                                            (44, 61, 97), (50, 61, 97)])
+def test_cuda_barotropic_tiles(dtype, wrap, substeps, Ny, Nx):
+    """The time-tiled kernel where the tiles do not fit the plane: a plane smaller than
+    one tile (10 x 12 with halo 8), planes that no tile divides, and 7, 17, 21, 31 and
+    36 substeps, which leave a last launch shorter than the others (17, 21 and 31 at
+    float32, 17 and 31 at float64). One wrapper call; finite everywhere; inputs
+    unchanged; with the wrap each halo column equals the column it copies, bitwise."""
+    from orthogonalsphericalshellgrids_tpu_torch.models.split_explicit import (
+        averaging_weights)
+
+    w = averaging_weights(substeps)[1]
+    n_sub, H = len(w), len(w) + 1
+    planes = _baro_inputs(Ny, Nx, H, dtype, seed=substeps)
+    kept = [a.clone() for a in planes]
+    args = (*planes, torch.tensor(0.01, dtype=dtype, device="cuda"),
+            torch.as_tensor(w, dtype=dtype, device="cuda"), Nx, H, wrap)
+    kernels.reset_launch_counts()
+    got = barotropic.barotropic_substeps(*args)
+    assert kernels.launch_counts()["barotropic"] == 1
+    want = barotropic.barotropic_substeps_plain(*args)
+    # valid: n_sub cells from the array's edge (x is periodic under the wrap)
+    I = (slice(n_sub, -n_sub), slice(None) if wrap else slice(n_sub, -n_sub))
+    for g, ww in zip(got, want):
+        assert _rel_err(g, ww, I) <= BANDS[dtype]
+        assert torch.isfinite(g).all()
+        if wrap:
+            assert torch.equal(g[:, :H], g[:, Nx:Nx + H])
+            assert torch.equal(g[:, H + Nx:], g[:, H:2 * H])
+    for a, a0 in zip(planes, kept):
+        assert torch.equal(a, a0)
+
+
+@needs_cuda
+def test_cuda_barotropic_refuses_what_it_cannot_run():
+    """The entry point refuses a plan for another window, and the wrapper a wrap whose
+    halo does not fit the plane; neither falls back."""
+    static, eta, U, V, GU, GV = _baro_inputs(20, 30, 8, torch.float32, seed=1)
+    dtau = torch.tensor(0.01, dtype=torch.float32, device="cuda")
+    w = torch.full((7,), 1 / 7, dtype=torch.float32, device="cuda")
+    acc = torch.empty((3, *eta.shape), device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kernels.call("osg_barotropic", torch.float32, eta.device, static.data_ptr(),
+                     eta.data_ptr(), U.data_ptr(), V.data_ptr(), GU.data_ptr(),
+                     GV.data_ptr(), 0, acc.data_ptr(), dtau.data_ptr(), w.data_ptr(), 7,
+                     *eta.shape, 30, 8, 0, 7, 32, 48)
+    with pytest.raises(ValueError, match="x-wrap"):
+        barotropic.barotropic_substeps(static, eta, U, V, GU, GV, dtau, w, 29, 8, True)
+
+
 @needs_cuda
 def test_cuda_steps_match_cpu_float64():
     """Five float64 steps through the kernels agree with the CPU plain path."""
