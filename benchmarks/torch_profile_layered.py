@@ -27,7 +27,10 @@ time per step.
 Last, the layered tracer kernel alone on the step's own operands (the filled u, v
 and the tracer stack c, which the front starts at 0, then b where it is
 prognostic) and on random operands of the same shape, each timed with CUDA events
-over back-to-back calls: its time depends on the data it is given.
+over back-to-back calls: its time depends on the data it is given. The same for the
+momentum kernel: its call of the step (u, v zero on land, the closure pack, dGu and
+dGv, the closing mask), then that call with random u and v of the same magnitude,
+masked and not.
 
 Prints one line per measurement with the card's name and power limit, and as its last
 line one JSON object holding all of them (also written to ``--out``). Imports nothing
@@ -47,11 +50,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from benchmarks.torch_profile_step import plain_kernels, spin_cycles_per_ms  # noqa: E402
-from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import smi_line  # noqa: E402
+from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import (  # noqa: E402
+    smi_line, time_ms)
 
 DT = 40.0
 # the device kernels of csrc/ (names as the profiler reports them)
-PORT_KERNELS = ("halo_fill_kernel", "halo_fill_copy_kernel", "eta_kernel", "uv_kernel",
+PORT_KERNELS = ("halo_fill_kernel", "halo_fill_copy_kernel", "subcycle_kernel",
                 "momentum_kernel", "tracer_adv_kernel", "tracer_adv_layered_kernel",
                 "w_kernel", "vertical_kernel", "corrector_kernel")
 
@@ -170,19 +174,50 @@ def tracer_operands(model, state, reps=20):
     out = {}
     for label, (c, uu, vv) in cases.items():
         args = (c, uu, vv, model.adv_pack, model.vert_g[3:5], model.dz_t)
-        for _ in range(3):
-            tracer_adv.tracer_adv(*args)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            tracer_adv.tracer_adv(*args)
-        end.record()
-        end.synchronize()
-        out[label] = dict(ms=start.elapsed_time(end) / reps,
+        out[label] = dict(ms=time_ms(lambda: tracer_adv.tracer_adv(*args), n=reps),
                           zero_share=float((c == 0).double().mean()))
     return out
+
+
+def momentum_operands(model, state, reps=20):
+    """ms per momentum call with the step's own operands (caught from one
+    ``layered_tendencies`` call) and with random u and v of the same magnitude, masked
+    as the step's are and not."""
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import momentum
+    from orthogonalsphericalshellgrids_tpu_torch.models import layered
+    from orthogonalsphericalshellgrids_tpu_torch.models.hydrostatic import _fill
+    from orthogonalsphericalshellgrids_tpu_torch.ops.location import CC, CF, FC
+
+    g = model.grid
+    fields = (_fill(g, state.u, FC, -1), _fill(g, state.v, CF, -1),
+              _fill(g, state.c, CC, 1), _fill(g, state.b, CC, 1) if model.has_b else state.b)
+    calls, kernel = [], momentum.momentum
+
+    def catch(*a, **kw):
+        calls.append((a, kw))
+        return kernel(*a, **kw)
+
+    momentum.momentum = catch
+    try:
+        layered.layered_tendencies(model, *fields)
+    finally:
+        momentum.momentum = kernel
+    (u, v, *rest), kw = calls[0]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def rand_like(a):
+        return float(a.abs().max()) * torch.randn(a.shape, generator=gen, device=a.device,
+                                                  dtype=a.dtype)
+
+    ur, vr = rand_like(u), rand_like(v)
+    cases = {"the step's u and v (land zeros)": (u, v),
+             "random u and v, masked": (ur * model.mask_u3, vr * model.mask_v3),
+             "random u and v": (ur, vr)}
+    return {label: dict(ms=time_ms(lambda: kernel(uu, vv, *rest, **kw), n=reps),
+                        zero_share=float((uu == 0).double().mean()))
+            for label, (uu, vv) in cases.items()}
 
 
 def main():
@@ -256,6 +291,10 @@ def main():
     for label, rec in result["tracer_operands"].items():
         print(f"tracer_adv_layered on {label}: {rec['ms']:.4f} ms per call (share of "
               f"exact zeros in c {rec['zero_share']:.3f}) [{card}]", flush=True)
+    result["momentum_operands"] = momentum_operands(model, state)
+    for label, rec in result["momentum_operands"].items():
+        print(f"momentum on {label}: {rec['ms']:.4f} ms per call (share of exact zeros "
+              f"in u {rec['zero_share']:.3f}) [{card}]", flush=True)
     if not bool(torch.isfinite(state.u).all()):
         raise RuntimeError("the profiled run produced non-finite velocities")
     line = json.dumps(result)

@@ -35,7 +35,8 @@ Phase 9  the measurement probes (csrc/probes.cu): the barotropic substep probe, 
          WENO-5 probe and the stream and FMA ceiling kernels against their plain
          versions at float32 and float64; then the four ceilings measured through
          them (benchmarks/torch_roofline.py), each kernel's byte bound at the
-         measured stream rate, and the barotropic, momentum and tracer kernels'
+         measured stream rate (the vertical kernel's linear-EOS mode, the gyre's,
+         beside the front's), and the barotropic, momentum and tracer kernels'
          math and WENO bounds beside their phase-2 times.
 Phase 10 the phase-7 gyre through utils.Simulation: 100 iterations with the wizard
          and the progress line every 10 and the default NaN checker. It fails if a
@@ -60,10 +61,18 @@ column bitwise equal to the column it copies.
 
 Phase 2 also holds the layered kernels against their plain versions: the vertical
 column kernel at (10, 690, 1450) in its three modes and at Nz = 50, the layered
-momentum kernel at Nz = 10, the layered tracer kernel with 1 and 2 tracers, and the
-halo fill on a 10-plane stack; and the gyre's modes: momentum with the nu_h and drag
-planes on one layer and on 10, tracer advection with kappa_h in column and layered
-mode, and the corrector with and without b.
+momentum kernel at Nz = 10 without and with the front's acc (dGu, dGv) and closing
+mask, the layered tracer kernel with 1 and 2 tracers, and the halo fill on a
+10-plane stack; and the gyre's modes: momentum with the nu_h and drag planes on one
+layer and on 10 (with acc and the closing mask, the gyre's call), tracer advection
+with kappa_h in column and layered mode, and the corrector with and without b. Then
+the acc/mask_out operands in every mode of the momentum kernel and the acc of the
+tracer kernel, at float32 and float64, on the main shape and on three planes the
+momentum tiles do not divide, from (7, 9) (smaller than one tile) to (135, 171):
+within the band, finite, the edge cells 0, the inputs unchanged. The momentum rows of
+the kernel table time the calls the main paths make: one masked layer (Bickley), Nz
+= 10 with acc and mask_out (front), and with the closure planes too (gyre); the
+layered tracer rows the front's c and the gyre's T and S with acc (dGc).
 
 Prints the kernel table as one JSON line (with each kernel's bound: the larger of
 its bytes, every input read once and every output written once, over 3.35 TB/s and
@@ -157,8 +166,9 @@ def bound(n_bytes, flops):
 # updates; momentum's vorticity, two WENO-5 reconstructions and KE gradient (+40
 # with the closure planes); tracer advection's four face reconstructions (+12 with
 # kappa_h); the vertical pass per layer and tracer block; the corrector's AB2 update
+# (+4 with acc and mask_out)
 FLOPS = {"halo_fill": 1, "halo_fill_copy": 1, "barotropic": 30, "momentum": 300,
-         "momentum_layered": 300, "momentum_closures": 340, "tracer_adv": 300,
+         "momentum_layered": 304, "momentum_closures": 344, "tracer_adv": 300,
          "tracer_adv_layered": 300, "tracer_adv_kappa": 312, "vertical": 40,
          "corrector": 8}
 
@@ -402,31 +412,41 @@ def phase2_layered(card):
                 f"{n_c + (b is not None)} tracer blocks: max abs err {ea:.3e}, max rel "
                 f"err {er:.3e} (band {BANDS[name]:g}); {t_k:.4f} ms kernel, {t_p:.4f} ms "
                 f"plain [{card}]")
-            if name == "float32" and front and nz == 10:
-                # dGu, dGv and dGc have the shapes of u, v and c + b
-                results["vertical"] = (ea, t_k, t_p, bound(
+            if name == "float32" and nz == 10 and mode != "none":
+                # dGu, dGv and dGc have the shapes of u, v and c (+ b); the front's
+                # mode is the table's row, the gyre's (linear EOS) has its bound in
+                # phase 9
+                key = "vertical" if front else "vertical_linear_eos"
+                n_out = c.numel() + (b.numel() if b is not None else 0)
+                results[key] = (ea, t_k, t_p, bound(
                     nbytes(*args) + nbytes(u, v, c, b),
-                    FLOPS["vertical"] * (u.numel() + c.numel() + b.numel())))
+                    FLOPS["vertical"] * (u.numel() + n_out)))
 
-        # layered momentum at Nz = 10 (8 shared planes, no masks)
+        # layered momentum at Nz = 10 (8 shared planes, no masks), without operands
+        # and with the front's: acc (dGu, dGv, O(1e-1..1) of G) and the closing mask
         u, v = rnd((10, Yb, Xb)), rnd((10, Yb, Xb))
         st = rnd((8, Yb, Xb), lo=1.0)
         st[3] = 0.1 * rnd((Yb, Xb))
         R = momentum.REACH
         I = (slice(R, -R), slice(R, -R))
-        errs = [rel_err(gk, wp, I) for gk, wp in zip(
-            momentum.momentum(u, v, st, has_mask=False),
-            momentum.momentum_plain(u, v, st, has_mask=False))]
-        ea, er = max(e[0] for e in errs), max(e[1] for e in errs)
-        check(er <= BANDS[name], f"layered momentum {name}: rel err {er:.3e}")
-        t_k = time_ms(lambda: momentum.momentum(u, v, st, has_mask=False))
-        t_p = time_ms(lambda: momentum.momentum_plain(u, v, st, has_mask=False), n=5)
-        log(f"phase 2: momentum_layered {name} on (10, 690, 1450): max abs err {ea:.3e}, "
-            f"max rel err {er:.3e} (band {BANDS[name]:g}); {t_k:.4f} ms kernel, "
-            f"{t_p:.4f} ms plain [{card}]")
-        if name == "float32":
+        fold = dict(acc=(rnd((10, Yb, Xb), 0.5), rnd((10, Yb, Xb), 0.5)),
+                    mask_out=(masks((10, Yb, Xb)), masks((10, Yb, Xb))))
+        for label, kw in (("without operands", {}), ("with acc and mask_out", fold)):
+            errs = [rel_err(gk, wp, I) for gk, wp in zip(
+                momentum.momentum(u, v, st, has_mask=False, **kw),
+                momentum.momentum_plain(u, v, st, has_mask=False, **kw))]
+            ea, er = max(e[0] for e in errs), max(e[1] for e in errs)
+            check(er <= BANDS[name], f"layered momentum {label} {name}: rel err {er:.3e}")
+            t_k = time_ms(lambda: momentum.momentum(u, v, st, has_mask=False, **kw))
+            t_p = time_ms(lambda: momentum.momentum_plain(u, v, st, has_mask=False, **kw),
+                          n=5)
+            log(f"phase 2: momentum_layered {name} on (10, 690, 1450) {label}: max abs "
+                f"err {ea:.3e}, max rel err {er:.3e} (band {BANDS[name]:g}); {t_k:.4f} ms "
+                f"kernel, {t_p:.4f} ms plain [{card}]")
+        if name == "float32":  # the front's call: the operands' 4 stacks count
             results["momentum_layered"] = (ea, t_k, t_p, bound(
-                nbytes(u, v, st) + 2 * nbytes(u), FLOPS["momentum_layered"] * u.numel()))
+                nbytes(u, v, st, *fold["acc"], *fold["mask_out"]) + 2 * nbytes(u),
+                FLOPS["momentum_layered"] * u.numel()))
 
         # layered tracer advection, one and two tracer stacks over masked velocities
         mask = masks((10, Yb, Xb))
@@ -438,19 +458,23 @@ def phase2_layered(card):
         for n_tr in (1, 2):
             c = rnd((n_tr * 10, Yb, Xb))
             args = (c, u, v, iv, g2, dz)
-            ea, er = rel_err(tracer_adv.tracer_adv(*args), tracer_adv.tracer_adv_plain(*args),
+            # the front's call adds dGc in the kernel (acc, O(1e-1..1) of G)
+            kw = dict(acc=rnd(c.shape, 0.5)) if n_tr == 1 else {}
+            ea, er = rel_err(tracer_adv.tracer_adv(*args, **kw),
+                             tracer_adv.tracer_adv_plain(*args, **kw),
                              (slice(R, -R), slice(R, -R)))
             check(er <= BANDS[name], f"layered tracer_adv n_tr={n_tr} {name}: rel err "
                   f"{er:.3e}")
-            t_k = time_ms(lambda: tracer_adv.tracer_adv(*args))
-            t_p = time_ms(lambda: tracer_adv.tracer_adv_plain(*args), n=5)
+            t_k = time_ms(lambda: tracer_adv.tracer_adv(*args, **kw))
+            t_p = time_ms(lambda: tracer_adv.tracer_adv_plain(*args, **kw), n=5)
             log(f"phase 2: tracer_adv_layered {name} with {n_tr} tracer stack(s) on "
-                f"({10 * n_tr}, 690, 1450): max abs err {ea:.3e}, max rel err {er:.3e} "
-                f"(band {BANDS[name]:g}); {t_k:.4f} ms kernel, {t_p:.4f} ms plain "
-                f"[{card}]")
+                f"({10 * n_tr}, 690, 1450){' with acc' if kw else ''}: max abs err "
+                f"{ea:.3e}, max rel err {er:.3e} (band {BANDS[name]:g}); {t_k:.4f} ms "
+                f"kernel, {t_p:.4f} ms plain [{card}]")
             if name == "float32" and n_tr == 1:
                 results["tracer_adv_layered"] = (ea, t_k, t_p, bound(
-                    nbytes(*args) + nbytes(c), FLOPS["tracer_adv_layered"] * c.numel()))
+                    nbytes(*args, kw["acc"]) + nbytes(c),
+                    FLOPS["tracer_adv_layered"] * c.numel()))
     return results
 
 
@@ -495,6 +519,9 @@ def phase2_gyre(card):
             lay[:, 6:] *= 0.1
             lay = lay.reshape(8 * layers, Yb, Xb)
             kw = dict(has_mask=layers == 1, lay=lay, has_lap=True, has_drag=True)
+            if layers == nz:  # the gyre's call: acc and the closing mask as well
+                kw.update(acc=(rnd(shape, 0.5), rnd(shape, 0.5)),
+                          mask_out=(masks(shape), masks(shape)))
             errs = [rel_err(gk, wp, I) for gk, wp in zip(momentum.momentum(u, v, st, **kw),
                                                          momentum.momentum_plain(u, v, st,
                                                                                  **kw))]
@@ -503,11 +530,12 @@ def phase2_gyre(card):
             t_k = time_ms(lambda: momentum.momentum(u, v, st, **kw))
             t_p = time_ms(lambda: momentum.momentum_plain(u, v, st, **kw), n=5)
             log(f"phase 2: momentum_closures {name} on {tuple(u.shape)} with nu_h and drag "
-                f"planes: max abs err {ea:.3e}, max rel err {er:.3e} (band {BANDS[name]:g}); "
-                f"{t_k:.4f} ms kernel, {t_p:.4f} ms plain [{card}]")
+                f"planes{' and acc and mask_out' if 'acc' in kw else ''}: max abs err "
+                f"{ea:.3e}, max rel err {er:.3e} (band {BANDS[name]:g}); {t_k:.4f} ms "
+                f"kernel, {t_p:.4f} ms plain [{card}]")
             if name == "float32" and layers == nz:
                 results["momentum_closures"] = (ea, t_k, t_p, bound(
-                    nbytes(u, v, st, lay) + 2 * nbytes(u),
+                    nbytes(u, v, st, lay, *kw["acc"], *kw["mask_out"]) + 2 * nbytes(u),
                     FLOPS["momentum_closures"] * u.numel()))
 
         # tracer advection with kappa_h: column (8-plane pack) and layered (T and S,
@@ -526,17 +554,19 @@ def phase2_gyre(card):
         cases.append(("layered", (rnd((2 * nz, Yb, Xb)), u3, v3, pack,
                                   rnd((2, Yb, Xb), lo=0.5), dz)))
         for mode, args in cases:
-            ea, er = rel_err(tracer_adv.tracer_adv(*args), tracer_adv.tracer_adv_plain(*args),
-                             I)
+            # the gyre's layered call adds dGc in the kernel (acc)
+            kw = dict(acc=rnd(args[0].shape, 0.5)) if mode == "layered" else {}
+            ea, er = rel_err(tracer_adv.tracer_adv(*args, **kw),
+                             tracer_adv.tracer_adv_plain(*args, **kw), I)
             check(er <= BANDS[name], f"tracer_adv kappa {mode} {name}: rel err {er:.3e}")
-            t_k = time_ms(lambda: tracer_adv.tracer_adv(*args))
-            t_p = time_ms(lambda: tracer_adv.tracer_adv_plain(*args), n=5)
-            log(f"phase 2: tracer_adv_kappa {mode} {name} on {tuple(args[0].shape)}: max "
-                f"abs err {ea:.3e}, max rel err {er:.3e} (band {BANDS[name]:g}); "
-                f"{t_k:.4f} ms kernel, {t_p:.4f} ms plain [{card}]")
+            t_k = time_ms(lambda: tracer_adv.tracer_adv(*args, **kw))
+            t_p = time_ms(lambda: tracer_adv.tracer_adv_plain(*args, **kw), n=5)
+            log(f"phase 2: tracer_adv_kappa {mode} {name} on {tuple(args[0].shape)}"
+                f"{' with acc' if kw else ''}: max abs err {ea:.3e}, max rel err {er:.3e} "
+                f"(band {BANDS[name]:g}); {t_k:.4f} ms kernel, {t_p:.4f} ms plain [{card}]")
             if name == "float32" and mode == "layered":
                 results["tracer_adv_kappa"] = (ea, t_k, t_p, bound(
-                    nbytes(*args) + nbytes(args[0]),
+                    nbytes(*args, kw["acc"]) + nbytes(args[0]),
                     FLOPS["tracer_adv_kappa"] * args[0].numel()))
 
         # the corrector: the gyre's T and S (P = 20, no b) and the front's c and b;
@@ -572,6 +602,95 @@ def phase2_gyre(card):
                     nbytes(*args) + nbytes(*got),
                     FLOPS["corrector"] * sum(g.numel() for g in got if g is not None)))
     return results
+
+
+def phase2_operands(card):
+    """acc/mask_out in every mode of the momentum kernel and acc in every mode of the
+    tracer kernel, at float32 and float64, on the main shape and on three planes the
+    momentum tiles do not divide: within the band, finite, the edge cells 0, the
+    inputs unchanged."""
+    import numpy as np
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import momentum, tracer_adv
+
+    R = momentum.REACH
+    shapes = [FILL_SHAPES["base"], (7, 9), (37, 131), (135, 171)]
+    # (layers, has_lap, has_drag, acc, mask_out); 1 is one masked layer
+    modes = [(1, False, False, True, True), (1, True, True, True, False),
+             (10, False, False, True, True), (10, False, False, False, True),
+             (10, True, True, True, True), (10, False, True, True, False),
+             (10, True, False, True, True)]
+    worst = {}
+    for name in ("float32", "float64"):
+        dt = getattr(torch, name)
+        rng = np.random.default_rng(19)
+
+        def rnd(shape, scale=1.0, lo=None):
+            a = rng.random(shape) + lo if lo is not None else scale * rng.standard_normal(shape)
+            return torch.as_tensor(a, dtype=dt, device="cuda")
+
+        def masks(shape):
+            return torch.as_tensor(rng.random(shape) > 0.15, dtype=dt, device="cuda")
+
+        errs = []
+        for Yb, Xb in shapes:
+            I = (slice(R, -R), slice(R, -R))
+            for layers, lap, drag, acc, out in modes:
+                shape = (Yb, Xb) if layers == 1 else (layers, Yb, Xb)
+                u, v = rnd(shape), rnd(shape)
+                st = rnd((10 if layers == 1 else 8, Yb, Xb), lo=1.0)
+                st[3] = 0.1 * rnd((Yb, Xb))
+                if layers == 1:
+                    st[8:] = (st[8:] > 1.15).to(dt)
+                L = 6 * lap + 2 * drag
+                kw = dict(has_mask=layers == 1, has_lap=lap, has_drag=drag, lay=None)
+                if L:
+                    lay = rnd((layers, L, Yb, Xb), lo=0.5)
+                    lay[:, 6 * lap:] *= 0.1
+                    kw["lay"] = lay.reshape(layers * L, Yb, Xb)
+                if acc:
+                    kw["acc"] = (rnd(shape, 0.5), rnd(shape, 0.5))
+                if out:
+                    kw["mask_out"] = (masks(shape), masks(shape))
+                kept = [a.clone() for a in (u, v, st)]
+                got = momentum.momentum(u, v, st, **kw)
+                want = momentum.momentum_plain(u, v, st, **kw)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    edge = all(bool((strip == 0).all()) for strip in (
+                        g[..., :R, :], g[..., -R:, :], g[..., :R], g[..., -R:]))
+                    er = rel_err(g, w, I)[1] if min(Yb, Xb) > 2 * R + 1 else 0.0
+                    check(er <= BANDS[name] and bool(torch.isfinite(g).all()) and edge and
+                          all(torch.equal(a, b) for a, b in zip(kept, (u, v, st))),
+                          f"momentum {name} {shape} lap={lap} drag={drag} acc={acc} "
+                          f"mask_out={out}: rel err {er:.3e}, edge zeros {edge}")
+                    errs.append(er)
+        Yb, Xb = FILL_SHAPES["base"]
+        I = (slice(R, -R), slice(R, -R))
+        mask = masks((10, Yb, Xb))
+        u3, v3 = rnd((10, Yb, Xb)) * mask, rnd((10, Yb, Xb)) * mask
+        g2, dz = rnd((2, Yb, Xb), lo=0.5), torch.full((10,), 100.0, dtype=dt, device="cuda")
+        cases = [(rnd((Yb, Xb)), rnd((Yb, Xb)), rnd((Yb, Xb)), rnd((S, Yb, Xb), lo=1.0))
+                 for S in (5, 8)]
+        cases += [(rnd((n_tr * 10, Yb, Xb)), u3, v3,
+                   (mask[:, None] * rnd((10, S, Yb, Xb), lo=0.5)).reshape(S * 10, Yb, Xb),
+                   g2, dz) for n_tr, S in ((1, 1), (2, 1), (2, 4))]
+        for args in cases:
+            a = rnd(args[0].shape, 0.5)
+            g = tracer_adv.tracer_adv(*args, acc=a)
+            er = rel_err(g, tracer_adv.tracer_adv_plain(*args, acc=a), I)[1]
+            check(er <= BANDS[name] and bool(torch.isfinite(g).all()),
+                  f"tracer_adv acc {name} {tuple(args[0].shape)} pack "
+                  f"{tuple(args[3].shape)}: rel err {er:.3e}")
+            errs.append(er)
+        worst[name] = max(errs)
+        log(f"phase 2: operands {name}: momentum with acc/mask_out in 7 modes on "
+            f"{', '.join(str(sh) for sh in shapes)} and tracer_adv with acc in column "
+            f"(5 and 8 planes) and layered mode (1 and 2 tracers, S = 1 and 4): max rel "
+            f"err {worst[name]:.3e} (band {BANDS[name]:g}), finite, edge cells 0, inputs "
+            f"unchanged [{card}]")
+    return worst
 
 
 def phase3_main_path(card, n_steps=20, warm=3):
@@ -1187,6 +1306,7 @@ def main():
     kres = phase2_kernels(card)
     kres.update(phase2_layered(card))
     kres.update(phase2_gyre(card))
+    phase2_operands(card)
     counts, _ = phase3_main_path(card)
     phase4_parity(card)
     front_counts, _ = phase5_layered_path(card)

@@ -32,3 +32,13 @@ __device__ __forceinline__ T weno5_upwind(bool pos, T cm3, T cm2, T cm1, T c0, T
                                           T cp2) {
   return pos ? weno5_left(cm3, cm2, cm1, c0, cp1) : weno5_left(cp2, cp1, c0, cm1, cm2);
 }
+
+// The same reconstruction with the stencil's operands selected on the sign first:
+// one weno5_left evaluated whatever the sign, so a warp whose signs differ does not
+// run both (momentum.cu; tracer_adv.cu keeps weno5_upwind).
+template <typename T>
+__device__ __forceinline__ T weno5_upwind_selected(bool pos, T cm3, T cm2, T cm1, T c0,
+                                                   T cp1, T cp2) {
+  return weno5_left(pos ? cm3 : cp2, pos ? cm2 : cp1, pos ? cm1 : c0, pos ? c0 : cm1,
+                    pos ? cp1 : cm2);
+}

@@ -59,6 +59,11 @@ def check_operands(name, tensors, dtype, shapes):
                              f"{tuple(shapes[key])}")
 
 
+def data_ptr(t):
+    """The device address of ``t``, or None (a null pointer) for an absent operand."""
+    return None if t is None else t.data_ptr()
+
+
 def call(entry, dtype, device, *args):
     """Call C entry ``entry`` (``_f32``/``_f64`` by dtype) on the current stream of
     ``device``; raise if it reports a CUDA error."""

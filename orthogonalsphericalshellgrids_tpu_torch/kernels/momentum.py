@@ -1,29 +1,38 @@
 """Vector-invariant momentum tendencies: ``csrc/momentum.cu`` and its plain version.
 
 Counterpart: ``orthogonalsphericalshellgrids_tpu/ops/pallas_mom.py:momentum_pallas``
-in its two uses: one layer with ``has_mask`` (the single-layer model) and a layer
-stack without (``models/layered.py:704-710``), each optionally with the fused ν_h
-Laplacians (``has_lap``) and quadratic bottom drag (``has_drag``). The plain version
-is the kernel's arithmetic (``pallas_mom.py:198-259``) written with the port's
-operators; it broadcasts over a leading layer axis.
+with all its operands, in its two uses: one layer with ``has_mask`` (the single-layer
+model) and a layer stack without (``models/layered.py:704-710``), each optionally with
+the fused ν_h Laplacians (``has_lap``), quadratic bottom drag (``has_drag``), an
+additive pair ``acc`` and a closing mask pair ``mask_out``. The plain version is the
+kernel's arithmetic (``pallas_mom.py:198-268``) written with the port's operators; it
+broadcasts over a leading layer axis.
 
 ``static`` is the (10, Yb, Xb) stack ``STATIC_PLANES`` with ``has_mask`` or the
 (8, Yb, Xb) stack ``LAYERED_PLANES`` without, shared by every layer. ``lay`` is the
 per-layer closure pack, plane ``k·L + i`` the i-th factor of layer k, L = 6·has_lap +
 2·has_drag, in the order ``LAP_PLANES`` then ``DRAG_PLANES`` (``pallas_mom.py:288-296``
-without the mask planes, which ride in ``static`` here).
+without the mask planes, which ride in ``static`` here). ``acc`` and ``mask_out`` are
+pairs of tensors shaped exactly like ``u`` (``pallas_mom.py:331, 335``).
+
+The kernel runs in tiles (``launch_plan``): each CTA owns a tile of output cells,
+loads the metric planes of the tile and its ``REACH`` ring into shared memory once,
+and loops over the layers.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
 from ..ops.advection import weno5_upwind_centers_from_faces
 from ..ops.operators import dxf, dyf, ixc, ixf, iyc, iyf, shift_m, shift_p
-from . import LAUNCHES, call, check_operands, on_cuda
+from . import LAUNCHES, call, check_operands, data_ptr, on_cuda
 
-__all__ = ["momentum", "momentum_plain", "STATIC_PLANES", "LAYERED_PLANES", "LAP_PLANES",
-           "DRAG_PLANES", "REACH"]
+__all__ = ["momentum", "momentum_plain", "launch_plan", "STATIC_PLANES",
+           "LAYERED_PLANES", "LAP_PLANES", "DRAG_PLANES", "REACH"]
 
 STATIC_PLANES = ("dy_cf", "dx_fc", "inv_az_ff", "f_ff", "dx_cf", "inv_dx_fc", "dy_fc",
                  "inv_dy_cf", "mask_u", "mask_v")
@@ -34,7 +43,44 @@ LAP_PLANES = ("lu_c", "lu_f", "lu_s", "lv_f", "lv_c", "lv_s")
 DRAG_PLANES = ("dr_u", "dr_v")
 REACH = 3  # the kernel writes 0 within this many cells of the edge (its stencil's reach)
 
+# The output tile of one CTA of csrc/momentum.cu for each dtype, (rows, columns); the
+# source holds the same numbers and refuses a plan made for others.
+TILE = {torch.float32: (8, 64), torch.float64: (8, 32)}
+THREADS = 256
+
 _X, _Y = -1, -2
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How ``momentum`` runs on the card: one launch over the (rows, columns) ``grid``
+    of ``tile``s; a CTA of ``threads`` threads loads the ``window`` (its tile and a
+    ring of ``REACH`` cells, zero outside the array) of the 8 metric planes once, then
+    for each layer u and v over the window, q = ζ + f over the window less its first
+    row and column and KE over the tile and a ring of one cell, in ``smem_bytes`` of
+    shared memory."""
+
+    tile: tuple
+    window: tuple
+    grid: tuple
+    threads: int
+    smem_bytes: int
+
+
+def _plan(Yb, Xb, tile, itemsize):
+    TY, TX = tile
+    WY, WX = TY + 2 * REACH, TX + 2 * REACH
+    # 8 metric planes, u and v over the window; q over (TY + 5) x (TX + 5); KE over
+    # (TY + 1) x (TX + 1)
+    smem = (10 * WY * WX + (TY + 5) * (TX + 5) + (TY + 1) * (TX + 1)) * itemsize
+    return LaunchPlan(tile=(TY, TX), window=(WY, WX), grid=(-(-Yb // TY), -(-Xb // TX)),
+                      threads=THREADS, smem_bytes=smem)
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(Yb, Xb, dtype):
+    """The launch plan for (Yb, Xb) planes of ``dtype``."""
+    return _plan(Yb, Xb, TILE[dtype], torch.empty((), dtype=dtype).element_size())
 
 
 def _lay_planes(lay, u, n_lay):
@@ -45,10 +91,12 @@ def _lay_planes(lay, u, n_lay):
     return list(lay.reshape((u.shape[0], n_lay) + lay.shape[-2:]).transpose(0, 1))
 
 
-def momentum_plain(u, v, static, has_mask=True, lay=None, has_lap=False, has_drag=False):
-    """(Gu, Gv) of halo-filled (Yb, Xb) velocities or (Nz, Yb, Xb) stacks: masked by
-    the last two planes of ``static`` with ``has_mask``, then the ν_h Laplacians and
-    the quadratic drag from ``lay`` when asked."""
+def momentum_plain(u, v, static, has_mask=True, lay=None, has_lap=False, has_drag=False,
+                   acc=None, mask_out=None):
+    """(Gu, Gv) of halo-filled (Yb, Xb) velocities or (Nz, Yb, Xb) stacks, in the
+    TPU kernel's order (``pallas_mom.py:235-268``): the advective terms, masked by the
+    last two planes of ``static`` with ``has_mask``; the ν_h Laplacians and the
+    quadratic drag from ``lay`` when asked; + ``acc``; × ``mask_out``."""
     dy_cf, dx_fc, inv_az_ff, f_ff, dx_cf, inv_dx_fc, dy_fc, inv_dy_cf = static[:8]
     zeta = (dxf(dy_cf * v) - dyf(dx_fc * u)) * inv_az_ff
     q = zeta + f_ff
@@ -67,9 +115,7 @@ def momentum_plain(u, v, static, has_mask=True, lay=None, has_lap=False, has_dra
         Gu = Gu * static[8]
         Gv = Gv * static[9]
     n_lay = 6 * has_lap + 2 * has_drag
-    if not n_lay:
-        return Gu, Gv
-    planes = _lay_planes(lay, u, n_lay)
+    planes = _lay_planes(lay, u, n_lay) if n_lay else []
     if has_lap:
         lu_c, lu_f, lu_s, lv_f, lv_c, lv_s = planes[:6]
         gxu = (shift_p(u, _X) - u) * lu_c
@@ -84,17 +130,34 @@ def momentum_plain(u, v, static, has_mask=True, lay=None, has_lap=False, has_dra
         sp_v = torch.sqrt(vv + iyf(ixc(u)) ** 2)
         Gu = Gu - dr_u * sp_u * u
         Gv = Gv - dr_v * sp_v * v
+    if acc is not None:
+        Gu = Gu + acc[0]
+        Gv = Gv + acc[1]
+    if mask_out is not None:
+        Gu = Gu * mask_out[0]
+        Gv = Gv * mask_out[1]
     return Gu, Gv
 
 
-def momentum(u, v, static, has_mask=True, lay=None, has_lap=False, has_drag=False):
+def _pair(name, pair):
+    """The two tensors of an ``acc``/``mask_out`` operand, or () when it is None."""
+    if pair is None:
+        return ()
+    if not isinstance(pair, (tuple, list)) or len(pair) != 2:
+        raise ValueError(f"momentum: {name} is a pair of tensors shaped like u")
+    return tuple(pair)
+
+
+def momentum(u, v, static, has_mask=True, lay=None, has_lap=False, has_drag=False,
+             acc=None, mask_out=None):
     """(Gu, Gv) of halo-filled (Yb, Xb) velocities or (Nz, Yb, Xb) stacks: masked,
     with the 10-plane ``static``, when ``has_mask``; unmasked, with the 8-plane
     ``static``, when not; plus the fused ν_h Laplacians and quadratic drag of the
-    (Nz·L, Yb, Xb) pack ``lay`` with ``has_lap``/``has_drag``. Only cells at least
-    ``REACH`` from the array edge are meaningful (the kernel writes 0 there). The
-    launch counts as ``momentum_closures`` with a closure pack, else as ``momentum``
-    with the masks and as ``momentum_layered`` without."""
+    (Nz·L, Yb, Xb) pack ``lay`` with ``has_lap``/``has_drag``; plus the pair ``acc``;
+    times the pair ``mask_out``. Only cells at least ``REACH`` from the array edge
+    are meaningful (the kernel writes 0 there). The launch counts as
+    ``momentum_closures`` with a closure pack, else as ``momentum`` with the masks and
+    as ``momentum_layered`` without."""
     if u.dim() not in (2, 3):
         raise ValueError(f"momentum takes a (Yb, Xb) plane or an (Nz, Yb, Xb) stack, "
                          f"got shape {tuple(u.shape)}")
@@ -105,20 +168,29 @@ def momentum(u, v, static, has_mask=True, lay=None, has_lap=False, has_drag=Fals
     if (lay is None) != (n_lay == 0):
         raise ValueError("momentum: a closure pack goes with has_lap or has_drag, and "
                          "only with them")
+    acc_uv, out_uv = _pair("acc", acc), _pair("mask_out", mask_out)
     tensors = dict(u=u, v=v, static=static)
     shapes = dict(v=u.shape, static=(n_static, Yb, Xb))
     if n_lay:
         tensors["lay"] = lay
         shapes["lay"] = (nz * n_lay, Yb, Xb)
+    for key, pair in (("acc", acc_uv), ("mask_out", out_uv)):
+        for comp, t in zip("uv", pair):
+            tensors[f"{key}_{comp}"] = t
+            shapes[f"{key}_{comp}"] = u.shape
     check_operands("momentum", tensors, u.dtype, shapes)
     if not on_cuda(*tensors.values()):
-        return momentum_plain(u, v, static, has_mask, lay, has_lap, has_drag)
+        return momentum_plain(u, v, static, has_mask, lay, has_lap, has_drag, acc,
+                              mask_out)
+    plan = launch_plan(Yb, Xb, u.dtype)
     Gu = torch.empty_like(u)
     Gv = torch.empty_like(v)
+    a_u, a_v = acc_uv or (None, None)
+    m_u, m_v = out_uv or (None, None)
     call("osg_momentum", u.dtype, u.device, u.data_ptr(), v.data_ptr(),
-         static.data_ptr(), lay.data_ptr() if n_lay else None, Gu.data_ptr(),
-         Gv.data_ptr(), nz, Yb, Xb, int(has_mask), int(bool(has_lap)),
-         int(bool(has_drag)))
+         static.data_ptr(), *map(data_ptr, (lay, a_u, a_v, m_u, m_v)),
+         Gu.data_ptr(), Gv.data_ptr(), nz, Yb, Xb, int(has_mask), int(bool(has_lap)),
+         int(bool(has_drag)), plan.tile[0], plan.tile[1])
     LAUNCHES["momentum_closures" if n_lay else
              "momentum" if has_mask else "momentum_layered"] += 1
     return Gu, Gv

@@ -16,7 +16,9 @@ with and without the fused κ_h Laplacian, in its two modes:
   masked, so that u·dzu == u·dz_k; the plain version is ``models/layered.py:820-824``.
 
 κ_h adds G += (δx⁺(K_u·δx⁻c) + δy⁺(K_v·δy⁻c))·K_c (``pallas_adv.py:239-243``). A pack
-of any other size is refused, never read at another stride.
+of any other size is refused, never read at another stride. In both modes an
+additive stack ``acc``, shaped exactly like ``c``, is added last (``pallas_adv.py:244-246``):
+G + acc.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 
 from ..ops.advection import weno5_upwind_faces_from_centers
 from ..ops.operators import dxc, dxf, dyc, dyf
-from . import LAUNCHES, call, check_operands, on_cuda
+from . import LAUNCHES, call, check_operands, data_ptr, on_cuda
 
 __all__ = ["tracer_adv", "tracer_adv_plain", "STATIC_PLANES", "KAPPA_PLANES", "G_PLANES",
            "REACH"]
@@ -41,11 +43,11 @@ def _diffusion(c, k_u, k_v, k_c):
     return (dxc(dxf(c) * k_u) + dyc(dyf(c) * k_v)) * k_c
 
 
-def tracer_adv_plain(c, u, v, static, g_pack=None, dz=None):
+def tracer_adv_plain(c, u, v, static, g_pack=None, dz=None, acc=None):
     """Column mode: G = -(δx(u h_u Δy cx) + δy(v h_v Δx cy)) · mask_c/(Az h_c) of
     halo-filled (Yb, Xb) fields. Layered mode (``g_pack``, ``dz``): G = -(δx(u dz_k
     Δy cx) + δy(v dz_k Δx cy)) · IV for every tracer block of ``c``. Plus the κ_h
-    Laplacian when the pack carries its planes."""
+    Laplacian when the pack carries its planes, then ``acc``."""
     if g_pack is None:
         h_u, dy_fc, h_v, dx_cf, inv_vol_c = static[:5]
         kappa = static[5:] if static.shape[0] == 8 else None
@@ -65,15 +67,22 @@ def tracer_adv_plain(c, u, v, static, g_pack=None, dz=None):
     G = -(dxc(fx) + dyc(fy)) * inv_vol_c
     if kappa is not None:
         G = G + _diffusion(c, *kappa)
-    return G if g_pack is None else G.reshape((-1,) + G.shape[-2:])
+    if g_pack is not None:
+        G = G.reshape((-1,) + G.shape[-2:])
+    return G if acc is None else G + acc
 
 
-def tracer_adv(c, u, v, static, g_pack=None, dz=None):
+def _with_acc(tensors, acc):
+    return tensors if acc is None else dict(tensors, acc=acc)
+
+
+def tracer_adv(c, u, v, static, g_pack=None, dz=None, acc=None):
     """The tracer tendency of halo-filled fields, in column mode or, with ``g_pack``
     and ``dz``, in layered mode (module docstring), with κ_h when the pack carries
-    its planes; only cells at least ``REACH`` from the array edge are meaningful
-    (the kernel writes 0 there). The launch counts as ``tracer_adv_kappa`` with κ_h,
-    else as ``tracer_adv`` or ``tracer_adv_layered``."""
+    its planes, plus ``acc`` (shaped like ``c``) when given; only cells at least
+    ``REACH`` from the array edge are meaningful (the kernel writes 0 there). The
+    launch counts as ``tracer_adv_kappa`` with κ_h, else as ``tracer_adv`` or
+    ``tracer_adv_layered``."""
     if (g_pack is None) != (dz is None):
         raise ValueError("tracer_adv: layered mode takes both g_pack and dz")
     Yb, Xb = c.shape[-2:]
@@ -82,13 +91,16 @@ def tracer_adv(c, u, v, static, g_pack=None, dz=None):
         if n_st not in (5, 8):
             raise ValueError(f"tracer_adv: the column pack holds 5 planes, or 8 with "
                              f"κ_h, got shape {tuple(static.shape)}")
-        check_operands("tracer_adv", dict(c=c, u=u, v=v, static=static), c.dtype,
-                       dict(c=(Yb, Xb), u=(Yb, Xb), v=(Yb, Xb), static=(n_st, Yb, Xb)))
-        if not on_cuda(c, u, v, static):
-            return tracer_adv_plain(c, u, v, static)
+        tensors = _with_acc(dict(c=c, u=u, v=v, static=static), acc)
+        check_operands("tracer_adv", tensors, c.dtype,
+                       dict(c=(Yb, Xb), u=(Yb, Xb), v=(Yb, Xb), static=(n_st, Yb, Xb),
+                            acc=(Yb, Xb)))
+        if not on_cuda(*tensors.values()):
+            return tracer_adv_plain(c, u, v, static, acc=acc)
         G = torch.empty_like(c)
         call("osg_tracer_adv", c.dtype, c.device, c.data_ptr(), u.data_ptr(),
-             v.data_ptr(), static.data_ptr(), G.data_ptr(), Yb, Xb, int(n_st == 8))
+             v.data_ptr(), static.data_ptr(), data_ptr(acc), G.data_ptr(), Yb, Xb,
+             int(n_st == 8))
         LAUNCHES["tracer_adv_kappa" if n_st == 8 else "tracer_adv"] += 1
         return G
     if u.dim() != 3 or c.dim() != 3:
@@ -102,16 +114,16 @@ def tracer_adv(c, u, v, static, g_pack=None, dz=None):
     if n_st not in (nz, 4 * nz):
         raise ValueError(f"tracer_adv: the layered pack holds Nz = {nz} planes, or "
                          f"4·Nz with κ_h, got shape {tuple(static.shape)}")
-    check_operands("tracer_adv", dict(c=c, u=u, v=v, static=static, g_pack=g_pack,
-                                      dz=dz), c.dtype,
+    tensors = _with_acc(dict(c=c, u=u, v=v, static=static, g_pack=g_pack, dz=dz), acc)
+    check_operands("tracer_adv", tensors, c.dtype,
                    dict(u=(nz, Yb, Xb), v=(nz, Yb, Xb), static=(n_st, Yb, Xb),
-                        g_pack=(len(G_PLANES), Yb, Xb), dz=(nz,)))
-    if not on_cuda(c, u, v, static, g_pack, dz):
-        return tracer_adv_plain(c, u, v, static, g_pack, dz)
+                        g_pack=(len(G_PLANES), Yb, Xb), dz=(nz,), acc=c.shape))
+    if not on_cuda(*tensors.values()):
+        return tracer_adv_plain(c, u, v, static, g_pack, dz, acc)
     has_diff = n_st == 4 * nz
     G = torch.empty_like(c)
     call("osg_tracer_adv_layered", c.dtype, c.device, c.data_ptr(), u.data_ptr(),
-         v.data_ptr(), static.data_ptr(), g_pack.data_ptr(), dz.data_ptr(),
+         v.data_ptr(), static.data_ptr(), g_pack.data_ptr(), dz.data_ptr(), data_ptr(acc),
          G.data_ptr(), c.shape[0], nz, Yb, Xb, int(has_diff))
     LAUNCHES["tracer_adv_kappa" if has_diff else "tracer_adv_layered"] += 1
     return G

@@ -33,8 +33,10 @@ mutates the incoming state and makes no host sync.
 Not ported yet: the sharded step and its overlap split (ROADMAP queue 1 item 8).
 The JAX package's ``fill_mode``, ``use_pallas`` and ``block_rows`` are TPU choices
 with no counterpart; its ``OSG_CORR_KERNEL`` and ``OSG_ACC_FOLD`` switches have none
-either: on a card the corrector kernel always runs, and the ``acc``/``mask_out``
-folds are not ported.
+either: on a card the corrector kernel always runs, and the vertical kernel's
+(dGu, dGv, dGc) and the closing mask ride in the momentum and tracer kernels
+(their ``acc`` and ``mask_out`` operands) wherever ``fold_mask_out`` and
+``fold_tracer_acc`` allow, on every device.
 """
 
 from __future__ import annotations
@@ -108,7 +110,9 @@ class LayeredModel(nn.Module):
       per layer with κ_h;
     - ``dz_t``/``dzc_t``/``zc3``: the layer thicknesses, interface spacings and
       (Nz, 1, 1) layer-centre depths, and ``vert_coef``: the vertical kernel's
-      (5, Nz) layer coefficients.
+      (5, Nz) layer coefficients;
+    - ``wind_u``/``wind_v``: τ/dz_0 on layer 0, times mask_u3[0]/mask_v3[0] where
+      ``fold_mask_out`` holds, or None without wind.
 
     Static metadata as in the JAX model (``dz``, ``dzc``, ``zc`` are tuples of
     floats, surface first)."""
@@ -122,6 +126,15 @@ class LayeredModel(nn.Module):
         for name in META:
             setattr(self, name, meta[name])
         dt, dev = baro.dtype, baro.device
+        # the surface stress on layer 0, made once; pre-masked where the closing mask
+        # rides in the momentum kernel, since it is added after the kernel
+        wind_u = wind_v = None
+        if baro.wind:
+            wind_u, wind_v = baro.taux / self.dz[0], baro.tauy / self.dz[0]
+            if self.fold_mask_out:
+                wind_u, wind_v = wind_u * self.mask_u3[0], wind_v * self.mask_v3[0]
+        self.register_buffer("wind_u", wind_u)
+        self.register_buffer("wind_v", wind_v)
 
         def tensor(a):
             return torch.as_tensor(np.asarray(a, np.float64)).to(device=dev, dtype=dt)
@@ -133,6 +146,19 @@ class LayeredModel(nn.Module):
         self.register_buffer("vert_coef", tensor(vertical.coefficients(
             self.dz, self.dzc, self.nu_v if explicit else 0.0,
             self.kappa_v if explicit else 0.0)))
+
+    @property
+    def fold_mask_out(self) -> bool:
+        """True when nothing lands on Gu/Gv between the momentum kernel and the
+        closing mask but the pre-masked wind (no ν4_h, no linear drag), so that the
+        kernel applies the mask (``mask_out``)."""
+        return self.baro.nu4_h == 0.0 and self.baro.drag_type != "linear"
+
+    @property
+    def fold_tracer_acc(self) -> bool:
+        """True when no term lies between the tracer kernel's κ_h and the vertical
+        kernel's dGc (no κ4_h), so that the kernel adds dGc (``acc``)."""
+        return self.baro.kappa4_h == 0.0
 
     @property
     def has_b(self) -> bool:
@@ -545,12 +571,13 @@ def _linear_eos_buoyancy(model: LayeredModel, c):
 
 def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
     """(Gu, Gv, Gc, Gb) of halo-filled stacks, in the kernel-path assembly of the
-    JAX package (``layered.py:670-873`` with the ``acc`` fold off): the vertical
-    kernel first, then momentum (advection, ν_h and quadratic drag) plus dGu, wind on
-    layer 0, linear drag, −ν4_h·∇⁴u, the mask; the tracer kernel (advection and κ_h)
-    on c and b, −κ4_h·∇⁴c, plus dGc; then the user forcing. ``b`` is ignored (and Gb
-    is zeros) without a prognostic buoyancy; ``t`` is the model time handed to the
-    forcing functions."""
+    JAX package (``layered.py:670-873`` with the ``acc`` fold on): the vertical
+    kernel first, then momentum (advection, ν_h and quadratic drag) plus dGu in the
+    kernel, wind on layer 0, linear drag, −ν4_h·∇⁴u, the mask (in the kernel, the
+    wind pre-masked, where ``fold_mask_out`` holds); the tracer kernel (advection and
+    κ_h) on c and b, −κ4_h·∇⁴c, plus dGc (in the kernel where ``fold_tracer_acc``
+    holds); then the user forcing. ``b`` is ignored (and Gb is zeros) without a
+    prognostic buoyancy; ``t`` is the model time handed to the forcing functions."""
     g, m = model.grid, model.baro
     names = model.tracer_names
     eos = model.buoyancy == "linear_eos"
@@ -562,13 +589,14 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
         it_T=names.index("T") if eos and "T" in names else -1,
         it_S=names.index("S") if eos and "S" in names else -1,
         viscous=explicit and model.nu_v > 0.0, diffusive=explicit and model.kappa_v > 0.0)
+    fold_mask = model.fold_mask_out
     Gu, Gv = momentum.momentum(u, v, model.mom_static, has_mask=False, lay=model.mom_lay,
-                               has_lap=m.nu_h > 0.0, has_drag=m.drag_type == "quadratic")
-    Gu = Gu + dgu
-    Gv = Gv + dgv
+                               has_lap=m.nu_h > 0.0, has_drag=m.drag_type == "quadratic",
+                               acc=(dgu, dgv),
+                               mask_out=(model.mask_u3, model.mask_v3) if fold_mask else None)
     if m.wind:  # surface stress accelerates the top layer (Gu is a fresh tensor)
-        Gu[0] += m.taux / model.dz[0]
-        Gv[0] += m.tauy / model.dz[0]
+        Gu[0] += model.wind_u
+        Gv[0] += model.wind_v
     if m.drag_type == "linear":
         r_dz = torch.full_like(model.dz3, m.drag_coeff) / model.dz3
         Gu = Gu - r_dz * u * model.bot_u
@@ -576,17 +604,21 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
     if m.nu4_h > 0.0:
         Gu = Gu - m.nu4_h * biharmonic_u(g, u, model.mask_u3, model.mask_c3)
         Gv = Gv - m.nu4_h * biharmonic_v(g, v, model.mask_v3, model.mask_c3)
-    Gu = Gu * model.mask_u3
-    Gv = Gv * model.mask_v3
+    if not fold_mask:
+        Gu = Gu * model.mask_u3
+        Gv = Gv * model.mask_v3
 
     g_pack = model.vert_g[3:5]  # [dy_fc, dx_cf]
+    fold_acc = model.fold_tracer_acc
 
     def tracer_tendency(q, dg):
+        if fold_acc:  # no κ4_h: dGc rides in the kernel
+            return tracer_adv.tracer_adv(q, u, v, model.adv_pack, g_pack, model.dz_t,
+                                         acc=dg)
         G = tracer_adv.tracer_adv(q, u, v, model.adv_pack, g_pack, model.dz_t)
-        if m.kappa4_h > 0.0:
-            q4 = q.reshape((-1, model.nz) + q.shape[-2:])
-            G = G - m.kappa4_h * biharmonic_c(g, q4, model.mask_c3, model.mask_u3,
-                                              model.mask_v3).reshape(q.shape)
+        q4 = q.reshape((-1, model.nz) + q.shape[-2:])
+        G = G - m.kappa4_h * biharmonic_c(g, q4, model.mask_c3, model.mask_u3,
+                                          model.mask_v3).reshape(q.shape)
         return G + dg
 
     ncp = c.shape[0]

@@ -42,6 +42,12 @@ def _rel_err(got, want, sl):
     return float((got - want).abs().max() / want.abs().max())
 
 
+def _edge_zero(g, R):
+    """All four strips of ``R`` cells at the plane's edge are 0."""
+    return all(bool((strip == 0).all()) for strip in (
+        g[..., :R, :], g[..., -R:, :], g[..., :R], g[..., -R:]))
+
+
 def _mom_inputs(dtype, Yb=60, Xb=76, seed=0):
     r = np.random.default_rng(seed)
     u, v = r.standard_normal((2, Yb, Xb))
@@ -83,7 +89,7 @@ def test_cuda_momentum(dtype):
     for g, w in zip(got, momentum.momentum_plain(u, v, static)):
         assert _rel_err(g, w, (slice(R, -R), slice(R, -R))) <= BANDS[dtype]
         assert torch.isfinite(g).all()
-        assert (g[:R] == 0).all() and (g[:, -R:] == 0).all()
+        assert _edge_zero(g, R)
 
 
 @needs_cuda
@@ -340,6 +346,85 @@ def test_cuda_momentum_closures(dtype, nz, has_lap, has_drag):
     for g, w in zip(got, momentum.momentum_plain(u, v, st, **kw)):
         assert _rel_err(g, w, (slice(R, -R), slice(R, -R))) <= BANDS[dtype]
         assert torch.isfinite(g).all()
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nz,has_lap,has_drag,operands", [
+    (1, False, False, "acc"), (1, True, True, "both"), (4, False, False, "both"),
+    (4, False, False, "mask_out"), (4, True, True, "both"), (4, False, True, "acc"),
+    (50, True, True, "both")])
+@pytest.mark.parametrize("Yb,Xb", [(40, 52), (7, 9), (37, 131)])
+def test_cuda_momentum_operands(dtype, nz, has_lap, has_drag, operands, Yb, Xb):
+    """The tiled kernel with acc and/or mask_out in each mode, on planes smaller than
+    a tile and planes no tile divides: within the band, finite, the REACH cells 0,
+    the inputs unchanged, one launch."""
+    r = np.random.default_rng(nz + 3 * has_lap + Yb)
+    masked = nz == 1
+    shape = (Yb, Xb) if masked else (nz, Yb, Xb)
+    static = 1.0 + r.random((10 if masked else 8, Yb, Xb))
+    static[3] = 0.1 * r.standard_normal((Yb, Xb))
+    if masked:
+        static[8:] = r.random((2, Yb, Xb)) > 0.15
+    L = 6 * has_lap + 2 * has_drag
+    lay = 0.5 + r.random((nz, L, Yb, Xb))
+    lay[:, 6 * has_lap:] *= 0.1
+
+    def cu(a):
+        return torch.as_tensor(a, dtype=dtype, device="cuda")
+
+    u, v, st = cu(r.standard_normal(shape)), cu(r.standard_normal(shape)), cu(static)
+    kw = dict(has_mask=masked, lay=cu(lay.reshape(nz * L, Yb, Xb)) if L else None,
+              has_lap=has_lap, has_drag=has_drag)
+    if operands in ("acc", "both"):  # O(1e-1..1) of G, so that the band sees it
+        kw["acc"] = (cu(0.5 * r.standard_normal(shape)), cu(0.5 * r.standard_normal(shape)))
+    if operands in ("mask_out", "both"):
+        kw["mask_out"] = (cu(r.random(shape) > 0.2), cu(r.random(shape) > 0.2))
+    kept = [a.clone() for a in (u, v, st)]
+    R = momentum.REACH
+    kernels.reset_launch_counts()
+    got = momentum.momentum(u, v, st, **kw)
+    assert sum(kernels.launch_counts().values()) == 1
+    want = momentum.momentum_plain(u, v, st, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(kept, (u, v, st)))
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _edge_zero(g, R)
+        if Yb > 2 * R and Xb > 2 * R:
+            I = (slice(R, -R), slice(R, -R))
+            err = float((g[..., I[0], I[1]] - w[..., I[0], I[1]]).abs().max())
+            assert err <= BANDS[dtype] * max(float(w[..., I[0], I[1]].abs().max()), 1e-300)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nz,n_tr,kappa", [(0, 1, False), (0, 1, True), (4, 1, False),
+                                           (4, 2, True), (50, 1, True)])
+def test_cuda_tracer_adv_acc(dtype, nz, n_tr, kappa):
+    """acc added after the advective tendency and κ_h, column (nz = 0) and layered."""
+    r = np.random.default_rng(nz + n_tr + kappa)
+    Yb, Xb = 40, 52
+    if nz == 0:
+        arrays = (*r.standard_normal((3, Yb, Xb)), 1.0 + r.random((8 if kappa else 5, Yb, Xb)))
+        layered = ()
+    else:
+        S = 4 if kappa else 1
+        mask = (r.random((nz, Yb, Xb)) > 0.2).astype(np.float64)
+        pack = (mask[:, None] * (0.5 + r.random((nz, S, Yb, Xb)))).reshape(-1, Yb, Xb)
+        arrays = (r.standard_normal((n_tr * nz, Yb, Xb)),
+                  r.standard_normal((nz, Yb, Xb)) * mask,
+                  r.standard_normal((nz, Yb, Xb)) * mask, pack)
+        layered = (0.5 + r.random((2, Yb, Xb)), 50.0 * 1.1 ** np.arange(nz))
+    args = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in arrays + layered]
+    acc = torch.as_tensor(0.5 * r.standard_normal(args[0].shape), dtype=dtype, device="cuda")
+    R = tracer_adv.REACH
+    kernels.reset_launch_counts()
+    got = tracer_adv.tracer_adv(*args, acc=acc)
+    assert sum(kernels.launch_counts().values()) == 1
+    want = tracer_adv.tracer_adv_plain(*args, acc=acc)
+    assert _rel_err(got, want, (slice(R, -R), slice(R, -R))) <= BANDS[dtype]
+    assert torch.isfinite(got).all()
 
 
 @needs_cuda
