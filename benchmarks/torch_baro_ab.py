@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import os
 import subprocess
@@ -89,16 +88,7 @@ def build_b():
     """Design B's library, built with the port's nvcc flags (cached by content)."""
     from orthogonalsphericalshellgrids_tpu_torch.kernels import _build
 
-    with open(B_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_build.NVCC_FLAGS).encode())
-    out_dir = os.path.join(ROOT, "benchmarks", "_build")
-    os.makedirs(out_dir, exist_ok=True)
-    lib = os.path.join(out_dir, f"libbaro_persistent_{digest.hexdigest()[:16]}.so")
-    if not os.path.exists(lib):
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib, B_SOURCE]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{proc.stderr}")
+    lib = str(_build.standalone(B_SOURCE, os.path.join(ROOT, "benchmarks", "_build")))
     fn = ctypes.CDLL(lib).osg_barotropic_persistent_f32
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int

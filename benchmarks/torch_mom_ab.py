@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The momentum kernel against another tree's, and the tracer kernel's dGc fold
-against another tree's kernel and add; on one card.
+"""The momentum kernel against another tree's, the tracer kernel's dGc fold against
+another tree's kernel and add, and the vertical kernel against another tree's; on one
+card.
 
     python3 benchmarks/torch_mom_ab.py [--parent DIR] [--rounds 3] [--out FILE]
 
@@ -23,9 +24,17 @@ it times with CUDA events (``utils/profiling.py:time_ms``), in turns:
   for like.
 
 The layered tracer kernel too, at the front's (c, 10 planes, S = 1) and the gyre's
-(T and S, 20 planes, S = 4, kappa_h) shapes over masked velocities: this tree's
+(T and S, 20 planes, S = 4, kappa_h) shapes over masked velocities, and the front's
+call on an all-zero c (``tracer_front_zero``, its own tracer): this tree's
 ``tracer_adv`` with ``acc`` (dGc) and without, and the other tree's without, then
 with the add the fold replaces.
+
+And the vertical kernel in the front's mode (``vertical_front``: c and b, tracer_b,
+ν_v = 1e-4, κ_v = 1e-5) and the gyre's (``vertical_gyre``: T and S, the linear EOS,
+ν_v = 1e-3, κ_v = 1e-5) at (10, 690, 1450), its masks from wet-layer counts drawn
+from 0 to 10 a column: this tree's ``vertical`` on the counts, and the other tree's
+on the counts or, where that tree takes mask planes, on the S = 3 mask pack of the
+same counts.
 
 Each is first held against the plain version of its own tree (band 1e-5). Prints one
 line per number with the card's name and power limit, and one JSON object as its last
@@ -74,7 +83,7 @@ def inputs(shape, seed=2024):
     return u, v, cu(st), kw
 
 
-TRACER_SHAPES = ("tracer_front", "tracer_gyre")
+TRACER_SHAPES = ("tracer_front", "tracer_front_zero", "tracer_gyre")
 
 
 def tracer_inputs(shape, seed=7):
@@ -87,14 +96,67 @@ def tracer_inputs(shape, seed=7):
     def cu(a):
         return torch.as_tensor(a, dtype=torch.float32, device="cuda")
 
-    n_tr, S = (1, 1) if shape == "tracer_front" else (2, 4)
+    n_tr, S = (2, 4) if shape == "tracer_gyre" else (1, 1)
     mask = rng.random((NZ, YB, XB)) > 0.15
     pack = (mask[:, None] * (0.5 + rng.random((NZ, S, YB, XB)))).reshape(S * NZ, YB, XB)
-    args = (cu(rng.standard_normal((n_tr * NZ, YB, XB))),
-            cu(rng.standard_normal((NZ, YB, XB)) * mask),
+    c = rng.standard_normal((n_tr * NZ, YB, XB))
+    if shape == "tracer_front_zero":
+        c[:] = 0.0
+    args = (cu(c), cu(rng.standard_normal((NZ, YB, XB)) * mask),
             cu(rng.standard_normal((NZ, YB, XB)) * mask), cu(pack),
             cu(0.5 + rng.random((2, YB, XB))), cu(np.full(NZ, 100.0)))
     return args, cu(0.5 * rng.standard_normal((n_tr * NZ, YB, XB)))
+
+
+VERTICAL_SHAPES = ("vertical_front", "vertical_gyre")
+
+
+def vertical_inputs(shape, seed=13):
+    """((u, v, c, b, n_wet, s_pack, g, coef), keywords) of one vertical call, float32
+    on the card; ``s_pack`` is the S = 3 mask pack of the counts ``n_wet``, made here
+    so that a tree without ``wet_pack`` gets the same masks."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def cu(a):
+        return torch.as_tensor(a, dtype=torch.float32, device="cuda")
+
+    n_wet = np.minimum(rng.integers(0, NZ + 4, (YB, XB)), NZ).astype(np.int32)
+    mc = (np.arange(NZ)[:, None, None] < n_wet[None]).astype(np.float64)
+    mu, mv = mc * np.roll(mc, 1, axis=-1), mc * np.roll(mc, 1, axis=-2)
+    s_pack = np.stack([mc, mu, mv], axis=1).reshape(3 * NZ, YB, XB)
+    front = shape == "vertical_front"
+    c = rng.standard_normal(((1 if front else 2) * NZ, YB, XB))
+    if not front:
+        c[:NZ] += 10.0
+        c[NZ:] = 35.0 + 0.1 * c[NZ:]
+    dz = [10.0 * 1.3 ** k for k in range(NZ)]
+    dzc = [0.5 * (dz[k] + dz[k + 1]) for k in range(NZ - 1)]
+    nu_v = 1e-4 if front else 1e-3
+    coef = np.zeros((5, NZ))
+    coef[0] = dz
+    coef[1, :-1] = [1.0 / d for d in dzc]
+    coef[2] = [-1.0 / d for d in dz]
+    coef[3] = [nu_v / d for d in dz]
+    coef[4] = [1e-5 / d for d in dz]
+    args = (cu(rng.standard_normal((NZ, YB, XB)) * mu),
+            cu(rng.standard_normal((NZ, YB, XB)) * mv), cu(c),
+            cu(1e-3 * rng.standard_normal((NZ, YB, XB))) if front else None,
+            torch.as_tensor(n_wet, device="cuda"), cu(s_pack),
+            cu(0.5 + rng.random((5, YB, XB))), cu(coef))
+    kw = dict(mode="tracer_b" if front else "linear_eos",
+              eos=(9.81, 1.67e-4, 7.8e-4, 10.0, 35.0), it_T=-1 if front else 0,
+              it_S=-1 if front else 1, viscous=True, diffusive=True)
+    return args, kw
+
+
+def vertical_call(vertical, args, kw):
+    """The tree's ``vertical`` on the counts, or on the mask pack where it takes one."""
+    u, v, c, b, n_wet, s_pack, g, coef = args
+    masks = n_wet if hasattr(vertical, "wet_pack") else s_pack
+    return lambda: vertical.vertical(u, v, c, b, masks, g, coef, **kw)
 
 
 def held(got, want, R=3):
@@ -151,6 +213,17 @@ def time_tree(rounds):
                           for _ in range(rounds)],
             "with_glue_ms": [time_ms(lambda: tracer_adv.tracer_adv(*args) + acc)
                              for _ in range(rounds)]}
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import vertical
+
+    for shape in VERTICAL_SHAPES:
+        args, kw = vertical_inputs(shape)
+        u, v, c, b, _, s_pack, g, coef = args
+        run = vertical_call(vertical, args, kw)
+        rel = held(run(), vertical.vertical_plain(u, v, c, b, s_pack, g, coef, **kw), R=1)
+        if not rel <= BAND:
+            raise RuntimeError(f"{shape}: the tree's kernel is off its plain version: {rel}")
+        out[shape] = {"rel": rel, "kernel_ms": [time_ms(run) for _ in range(rounds)],
+                      "with_glue_ms": []}
     print(json.dumps(out))
     return 0
 
@@ -206,10 +279,24 @@ def main():
         res["shapes"][shape] = {name: {"rel": rel, "ms": []} for name in tracer_runs}
         print(f"{shape}: held against the plain version, {rel:.2e} (band {BAND:g}) "
               f"[{card}]", flush=True)
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import vertical
+
+    verticals = {}
+    for shape in VERTICAL_SHAPES:
+        vargs, vkw = vertical_inputs(shape)
+        u, v, c, b, _, s_pack, g, coef = vargs
+        run = vertical_call(vertical, vargs, vkw)
+        rel = held(run(), vertical.vertical_plain(u, v, c, b, s_pack, g, coef, **vkw), R=1)
+        if not rel <= BAND:
+            raise RuntimeError(f"{shape}: off the plain version, {rel:.3e}")
+        verticals[shape] = run
+        res["shapes"][shape] = {"this": {"rel": rel, "ms": []}}
+        print(f"{shape}: held against the plain version, {rel:.2e} (band {BAND:g}) "
+              f"[{card}]", flush=True)
     for rnd in range(args.rounds):
         if args.parent and rnd % 2 == 0:
             other = other_tree(args.parent, 1)
-            for shape in SHAPES + TRACER_SHAPES:
+            for shape in SHAPES + TRACER_SHAPES + VERTICAL_SHAPES:
                 p = res["shapes"][shape].setdefault(
                     "parent", {"rel": other[shape]["rel"], "kernel_ms": [],
                                "with_glue_ms": []})
@@ -221,19 +308,22 @@ def main():
         for shape, (targs, tacc) in tracers.items():
             for name, run in tracer_runs.items():
                 res["shapes"][shape][name]["ms"].append(time_ms(lambda: run(targs, tacc)))
+        for shape, run in verticals.items():
+            res["shapes"][shape]["this"]["ms"].append(time_ms(run))
     if args.parent:
         other = other_tree(args.parent, 1)
-        for shape in SHAPES + TRACER_SHAPES:
+        for shape in SHAPES + TRACER_SHAPES + VERTICAL_SHAPES:
             p = res["shapes"][shape]["parent"]
             p["kernel_ms"] += other[shape]["kernel_ms"]
             p["with_glue_ms"] += other[shape]["with_glue_ms"]
     for shape, row in res["shapes"].items():
         for name, r in row.items():
             if name == "parent":
+                glue = (f"; with the glue the fold replaces "
+                        f"{', '.join(f'{t:.4f}' for t in r['with_glue_ms'])} ms"
+                        if r["with_glue_ms"] else "")
                 print(f"{shape} parent: kernel {', '.join(f'{t:.4f}' for t in r['kernel_ms'])}"
-                      f" ms; with the glue the fold replaces "
-                      f"{', '.join(f'{t:.4f}' for t in r['with_glue_ms'])} ms [{card}]",
-                      flush=True)
+                      f" ms{glue} [{card}]", flush=True)
             else:
                 print(f"{shape} {name}: {', '.join(f'{t:.4f}' for t in r['ms'])} ms [{card}]",
                       flush=True)

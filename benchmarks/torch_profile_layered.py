@@ -56,8 +56,8 @@ from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import (  # noqa: E
 DT = 40.0
 # the device kernels of csrc/ (names as the profiler reports them)
 PORT_KERNELS = ("halo_fill_kernel", "halo_fill_copy_kernel", "subcycle_kernel",
-                "momentum_kernel", "tracer_adv_kernel", "tracer_adv_layered_kernel",
-                "w_kernel", "vertical_kernel", "corrector_kernel")
+                "momentum_kernel", "tracer_adv_kernel", "vertical_kernel",
+                "corrector_kernel")
 
 
 @contextlib.contextmanager
@@ -67,7 +67,13 @@ def plain_layered():
     from orthogonalsphericalshellgrids_tpu_torch.kernels import corrector, vertical
 
     saved = vertical.vertical, corrector.corrector
-    vertical.vertical = vertical.vertical_plain
+
+    def vertical_plain(u, v, c, b, n_wet, g_pack, coef, **kw):
+        s_pack = vertical.wet_pack(n_wet, u.shape[0], 3 if kw.get("viscous") else 1,
+                                   u.dtype)
+        return vertical.vertical_plain(u, v, c, b, s_pack, g_pack, coef, **kw)
+
+    vertical.vertical = vertical_plain
     corrector.corrector = corrector.corrector_plain
     try:
         with plain_kernels():

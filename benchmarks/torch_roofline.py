@@ -46,17 +46,17 @@ NZ = 10
 INNER = (690 - 6) * (1450 - 6)
 # per call on the main paths: (upwind WENO-5 reconstructions, barotropic
 # point-substeps). Momentum reconstructs q at the u and v points (2 a cell and
-# layer); tracer advection recomputes both x and both y faces of its cell (4 a cell
-# and plane). The kernels' bytes are not kept here: chip_smoke.py counts them from
-# the real operands.
+# layer); tracer advection needs each face once, one x face and one y face a cell
+# (2 a cell and plane). The kernels' bytes are not kept here: chip_smoke.py counts
+# them from the real operands.
 MAIN_PATH = {
     "barotropic": (0, N_SUB * EXT),
     "momentum": (2 * INNER, 0),
     "momentum_layered": (2 * INNER * NZ, 0),
     "momentum_closures": (2 * INNER * NZ, 0),
-    "tracer_adv": (4 * INNER, 0),
-    "tracer_adv_layered": (4 * INNER * NZ, 0),            # the front's c
-    "tracer_adv_kappa": (4 * INNER * 2 * NZ, 0),          # the gyre's T and S
+    "tracer_adv": (2 * INNER, 0),
+    "tracer_adv_layered": (2 * INNER * NZ, 0),            # the front's c
+    "tracer_adv_kappa": (2 * INNER * 2 * NZ, 0),          # the gyre's T and S
 }
 
 BARO_TILE, BARO_ITER, BARO_TILES_PER_SM = (8, 128), 512, 12  # the substep probe's run

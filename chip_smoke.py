@@ -60,19 +60,25 @@ off: within the band, finite everywhere, inputs unchanged, and each wrapped halo
 column bitwise equal to the column it copies.
 
 Phase 2 also holds the layered kernels against their plain versions: the vertical
-column kernel at (10, 690, 1450) in its three modes and at Nz = 50, the layered
-momentum kernel at Nz = 10 without and with the front's acc (dGu, dGv) and closing
-mask, the layered tracer kernel with 1 and 2 tracers, and the halo fill on a
-10-plane stack; and the gyre's modes: momentum with the nu_h and drag planes on one
-layer and on 10 (with acc and the closing mask, the gyre's call), tracer advection
-with kappa_h in column and layered mode, and the corrector with and without b. Then
-the acc/mask_out operands in every mode of the momentum kernel and the acc of the
-tracer kernel, at float32 and float64, on the main shape and on three planes the
-momentum tiles do not divide, from (7, 9) (smaller than one tile) to (135, 171):
-within the band, finite, the edge cells 0, the inputs unchanged. The momentum rows of
-the kernel table time the calls the main paths make: one masked layer (Bickley), Nz
-= 10 with acc and mask_out (front), and with the closure planes too (gyre); the
-layered tracer rows the front's c and the gyre's T and S with acc (dGc).
+kernel (its masks from a plane of wet-layer counts, the plain version on the mask
+pack of the same counts) at (10, 690, 1450) in its three modes, at Nz = 50 and at
+Nz = 4 on three planes no tile divides, with and without nu_v and kappa_v; the
+layered momentum kernel at Nz = 10 without and with the front's acc (dGu, dGv) and
+closing mask, the layered tracer kernel with 1 and 2 tracers (the front's call timed
+on random and on all-zero c), and the halo fill on a 10-plane stack; and the gyre's
+modes: momentum with the nu_h and drag planes on one layer and on 10 (with acc and
+the closing mask, the gyre's call), tracer advection with kappa_h in column and
+layered mode, and the corrector with and without b. Then the acc/mask_out operands
+in every mode of the momentum kernel and every mode of the tracer kernel with and
+without acc, at float32 and float64, on the main shape and on three planes the
+tiles do not divide, from (7, 9) (smaller than one tile) to (135, 171): within the
+band, finite, the edge cells 0, the inputs unchanged. The momentum rows of the
+kernel table time the calls the main paths make: one masked layer (Bickley), Nz = 10
+with acc and mask_out (front), and with the closure planes too (gyre); the layered
+tracer rows the front's c and the gyre's T and S with acc (dGc); the vertical rows
+the front's tracer_b and the gyre's linear EOS, both with nu_v and kappa_v. Phases 5
+and 7 time the layered tracer call on the path's own fields (the front's all-zero c,
+the gyre's land) beside random fields.
 
 Prints the kernel table as one JSON line (with each kernel's bound: the larger of
 its bytes, every input read once and every output written once, over 3.35 TB/s and
@@ -96,6 +102,9 @@ from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import (  # noqa: E
     host_syncs, smi_line, time_ms)
 
 FILL_SHAPES = {"base": (690, 1450), "ext": (724, 1484)}
+# planes the tiles of the momentum, tracer and vertical kernels do not divide, from
+# one smaller than any tile
+ODD_PLANES = [(7, 9), (37, 131), (135, 171)]
 BANDS = {"float32": 1e-5, "float64": 1e-12}
 REPLACES = {
     "halo_fill": "orthogonalsphericalshellgrids_tpu/ops/pallas_fill.py:238",
@@ -148,6 +157,12 @@ def rel_err(got, want, sl):
     return float((g - w).abs().max()), float((g - w).abs().max() / w.abs().max())
 
 
+def edge_zero(g, R):
+    """All four strips of ``R`` cells at the plane's edge are 0."""
+    return all(bool((strip == 0).all()) for strip in (
+        g[..., :R, :], g[..., -R:, :], g[..., :R], g[..., -R:]))
+
+
 def nbytes(*tensors):
     """Bytes of the tensors (None skipped): each read or written once."""
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
@@ -164,12 +179,13 @@ def bound(n_bytes, flops):
 # operations per output value, counted from each kernel's arithmetic: the fill's
 # sign; per substep and cell the barotropic divergence, gradients and
 # updates; momentum's vorticity, two WENO-5 reconstructions and KE gradient (+40
-# with the closure planes); tracer advection's four face reconstructions (+12 with
-# kappa_h); the vertical pass per layer and tracer block; the corrector's AB2 update
-# (+4 with acc and mask_out)
+# with the closure planes); tracer advection's two face reconstructions a cell (each
+# face once: one x face and one y face, 70 operations each) and the flux divergence
+# (+12 with kappa_h); the vertical pass per layer and tracer block; the corrector's
+# AB2 update (+4 with acc and mask_out)
 FLOPS = {"halo_fill": 1, "halo_fill_copy": 1, "barotropic": 30, "momentum": 300,
-         "momentum_layered": 304, "momentum_closures": 344, "tracer_adv": 300,
-         "tracer_adv_layered": 300, "tracer_adv_kappa": 312, "vertical": 40,
+         "momentum_layered": 304, "momentum_closures": 344, "tracer_adv": 160,
+         "tracer_adv_layered": 160, "tracer_adv_kappa": 172, "vertical": 40,
          "corrector": 8}
 
 
@@ -376,14 +392,24 @@ def phase2_layered(card):
             f"of place (CC, FC, CF); out of place {t_k:.4f} ms kernel, {t_p:.4f} ms "
             f"plain [{card}]")
 
-        # the vertical column kernel: three modes at the front's shape, and Nz = 50
-        cases = [("none", 10, (Yb, Xb), False, False),
-                 ("tracer_b", 10, (Yb, Xb), True, True),
-                 ("linear_eos", 10, (Yb, Xb), False, False),
-                 ("tracer_b", 50, (200, 300), True, True)]
-        for mode, nz, (ny, nx), mixing, front in cases:
-            S = 3 if mixing else 1
-            mu, mv = masks((nz, ny, nx)), masks((nz, ny, nx))
+        # the vertical kernel, its masks from wet-layer counts drawn from 0 to Nz a
+        # column: three modes at the front's shape (tracer_b with nu_v and kappa_v, the
+        # front's call; linear EOS with them, the gyre's), Nz = 50 (the interfaces in
+        # chunks), and three planes no tile divides in every mode with and without
+        # nu_v and kappa_v: within the band, finite, the edge cells 0, inputs unchanged
+        cases = [("none", 10, (Yb, Xb), False, None),
+                 ("tracer_b", 10, (Yb, Xb), True, "vertical"),
+                 ("linear_eos", 10, (Yb, Xb), True, "vertical_linear_eos"),
+                 ("linear_eos", 10, (Yb, Xb), False, None),
+                 ("tracer_b", 50, (200, 300), True, None)]
+        cases += [(mode, 4, shape, mixing, None) for shape in ODD_PLANES
+                  for mode in vertical.MODES for mixing in (False, True)]
+        odd = []
+        for mode, nz, (ny, nx), mixing, row in cases:
+            n_wet = torch.as_tensor(np.minimum(rng.integers(0, nz + 3, (ny, nx)), nz),
+                                    dtype=torch.int32, device="cuda")
+            _, mu, mv = vertical.wet_pack(n_wet, nz, 3, dt).reshape(
+                nz, 3, ny, nx).transpose(0, 1)
             u, v = rnd((nz, ny, nx)) * mu, rnd((nz, ny, nx)) * mv
             n_c = 2 if mode == "linear_eos" else 1
             c = rnd((n_c * nz, ny, nx))
@@ -391,8 +417,6 @@ def phase2_layered(card):
                 c[:nz] += 10.0
                 c[nz:] = 35.0 + 0.1 * c[nz:]
             b = rnd((nz, ny, nx)) if mode == "tracer_b" else None
-            mc = masks((nz, ny, nx))
-            sp = torch.stack([mc, mu, mv][:S], dim=1).reshape(S * nz, ny, nx).contiguous()
             g = rnd((5, ny, nx), lo=0.5)
             dzs = [100.0] * nz
             coef = torch.as_tensor(vertical.coefficients(
@@ -400,27 +424,43 @@ def phase2_layered(card):
                 dtype=dt, device="cuda")
             kw = dict(mode=mode, eos=eos, it_T=0 if n_c == 2 else -1,
                       it_S=1 if n_c == 2 else -1, viscous=mixing, diffusive=mixing)
-            args = (u, v, c, b, sp, g, coef)
+            args = (u, v, c, b, n_wet, g, coef)
+            kept = [a.clone() for a in args if a is not None]
+            s_pack = vertical.wet_pack(n_wet, nz, 3 if mixing else 1, dt)
+            got = vertical.vertical(*args, **kw)
+            want = vertical.vertical_plain(u, v, c, b, s_pack, g, coef, **kw)
+            torch.cuda.synchronize()
             I = (slice(1, -1), slice(1, -1))
-            errs = [rel_err(gk, wp, I) for gk, wp in zip(vertical.vertical(*args, **kw),
-                                                         vertical.vertical_plain(*args, **kw))]
+            errs = [rel_err(gk, wp, I) for gk, wp in zip(got, want)]
             ea, er = max(e[0] for e in errs), max(e[1] for e in errs)
-            check(er <= BANDS[name], f"vertical {mode} Nz={nz} {name}: rel err {er:.3e}")
+            edge = all(edge_zero(gk, vertical.REACH) and bool(torch.isfinite(gk).all())
+                       for gk in got)
+            check(er <= BANDS[name] and edge and all(
+                torch.equal(a, k) for a, k in zip((a for a in args if a is not None), kept)),
+                f"vertical {mode} Nz={nz} ({ny}, {nx}) mixing={mixing} {name}: rel err "
+                f"{er:.3e}, finite with the edge 0 {edge}, inputs unchanged")
+            if (ny, nx) in ODD_PLANES:
+                odd.append(er)
+                continue
             t_k = time_ms(lambda: vertical.vertical(*args, **kw))
-            t_p = time_ms(lambda: vertical.vertical_plain(*args, **kw), n=3, reps=3)
-            log(f"phase 2: vertical {mode} S={S} {name} on ({nz}, {ny}, {nx}) with "
-                f"{n_c + (b is not None)} tracer blocks: max abs err {ea:.3e}, max rel "
-                f"err {er:.3e} (band {BANDS[name]:g}); {t_k:.4f} ms kernel, {t_p:.4f} ms "
-                f"plain [{card}]")
-            if name == "float32" and nz == 10 and mode != "none":
+            t_p = time_ms(lambda: vertical.vertical_plain(u, v, c, b, s_pack, g, coef, **kw),
+                          n=3, reps=3)
+            log(f"phase 2: vertical {mode} {name} on ({nz}, {ny}, {nx}) with "
+                f"{n_c + (b is not None)} tracer blocks{', nu_v and kappa_v' if mixing else ''}"
+                f": max abs err {ea:.3e}, max rel err {er:.3e} (band {BANDS[name]:g}); "
+                f"{t_k:.4f} ms kernel, {t_p:.4f} ms plain [{card}]")
+            if name == "float32" and row is not None:
                 # dGu, dGv and dGc have the shapes of u, v and c (+ b); the front's
                 # mode is the table's row, the gyre's (linear EOS) has its bound in
                 # phase 9
-                key = "vertical" if front else "vertical_linear_eos"
                 n_out = c.numel() + (b.numel() if b is not None else 0)
-                results[key] = (ea, t_k, t_p, bound(
+                results[row] = (ea, t_k, t_p, bound(
                     nbytes(*args) + nbytes(u, v, c, b),
                     FLOPS["vertical"] * (u.numel() + n_out)))
+        log(f"phase 2: vertical {name} on {', '.join(str(p) for p in ODD_PLANES)} at Nz "
+            f"= 4, three modes with and without nu_v and kappa_v: max rel err "
+            f"{max(odd):.3e} (band {BANDS[name]:g}), finite, edge cells 0, inputs "
+            f"unchanged [{card}]")
 
         # layered momentum at Nz = 10 (8 shared planes, no masks), without operands
         # and with the front's: acc (dGu, dGv, O(1e-1..1) of G) and the closing mask
@@ -467,10 +507,15 @@ def phase2_layered(card):
                   f"{er:.3e}")
             t_k = time_ms(lambda: tracer_adv.tracer_adv(*args, **kw))
             t_p = time_ms(lambda: tracer_adv.tracer_adv_plain(*args, **kw), n=5)
+            # the same call on an all-zero c (the front's own tracer): IEEE division's
+            # slow path on zero dividends would show here
+            zargs = (torch.zeros_like(c),) + args[1:]
+            t_z = time_ms(lambda: tracer_adv.tracer_adv(*zargs, **kw))
             log(f"phase 2: tracer_adv_layered {name} with {n_tr} tracer stack(s) on "
                 f"({10 * n_tr}, 690, 1450){' with acc' if kw else ''}: max abs err "
                 f"{ea:.3e}, max rel err {er:.3e} (band {BANDS[name]:g}); {t_k:.4f} ms "
-                f"kernel, {t_p:.4f} ms plain [{card}]")
+                f"kernel on random c, {t_z:.4f} ms on an all-zero c, {t_p:.4f} ms plain "
+                f"[{card}]")
             if name == "float32" and n_tr == 1:
                 results["tracer_adv_layered"] = (ea, t_k, t_p, bound(
                     nbytes(*args, kw["acc"]) + nbytes(c),
@@ -605,17 +650,17 @@ def phase2_gyre(card):
 
 
 def phase2_operands(card):
-    """acc/mask_out in every mode of the momentum kernel and acc in every mode of the
-    tracer kernel, at float32 and float64, on the main shape and on three planes the
-    momentum tiles do not divide: within the band, finite, the edge cells 0, the
-    inputs unchanged."""
+    """acc/mask_out in every mode of the momentum kernel and every mode of the tracer
+    kernel with and without acc, at float32 and float64, on the main shape and on
+    three planes the tiles do not divide: within the band, finite, the edge cells 0,
+    the inputs unchanged."""
     import numpy as np
     import torch
 
     from orthogonalsphericalshellgrids_tpu_torch.kernels import momentum, tracer_adv
 
     R = momentum.REACH
-    shapes = [FILL_SHAPES["base"], (7, 9), (37, 131), (135, 171)]
+    shapes = [FILL_SHAPES["base"]] + ODD_PLANES
     # (layers, has_lap, has_drag, acc, mask_out); 1 is one masked layer
     modes = [(1, False, False, True, True), (1, True, True, True, False),
              (10, False, False, True, True), (10, False, False, False, True),
@@ -666,30 +711,41 @@ def phase2_operands(card):
                           f"momentum {name} {shape} lap={lap} drag={drag} acc={acc} "
                           f"mask_out={out}: rel err {er:.3e}, edge zeros {edge}")
                     errs.append(er)
-        Yb, Xb = FILL_SHAPES["base"]
-        I = (slice(R, -R), slice(R, -R))
-        mask = masks((10, Yb, Xb))
-        u3, v3 = rnd((10, Yb, Xb)) * mask, rnd((10, Yb, Xb)) * mask
-        g2, dz = rnd((2, Yb, Xb), lo=0.5), torch.full((10,), 100.0, dtype=dt, device="cuda")
-        cases = [(rnd((Yb, Xb)), rnd((Yb, Xb)), rnd((Yb, Xb)), rnd((S, Yb, Xb), lo=1.0))
-                 for S in (5, 8)]
-        cases += [(rnd((n_tr * 10, Yb, Xb)), u3, v3,
-                   (mask[:, None] * rnd((10, S, Yb, Xb), lo=0.5)).reshape(S * 10, Yb, Xb),
-                   g2, dz) for n_tr, S in ((1, 1), (2, 1), (2, 4))]
-        for args in cases:
-            a = rnd(args[0].shape, 0.5)
-            g = tracer_adv.tracer_adv(*args, acc=a)
-            er = rel_err(g, tracer_adv.tracer_adv_plain(*args, acc=a), I)[1]
-            check(er <= BANDS[name] and bool(torch.isfinite(g).all()),
-                  f"tracer_adv acc {name} {tuple(args[0].shape)} pack "
-                  f"{tuple(args[3].shape)}: rel err {er:.3e}")
-            errs.append(er)
+        # the tracer kernel in every mode with and without acc: column (5 and 8
+        # planes) and layered (1 and 2 tracer blocks, S = 1 and 4) over masked
+        # velocities, 10 layers
+        R = tracer_adv.REACH
+        for Yb, Xb in shapes:
+            I = (slice(R, -R), slice(R, -R))
+            mask = masks((10, Yb, Xb))
+            u3, v3 = rnd((10, Yb, Xb)) * mask, rnd((10, Yb, Xb)) * mask
+            g2 = rnd((2, Yb, Xb), lo=0.5)
+            dz = torch.full((10,), 100.0, dtype=dt, device="cuda")
+            cases = [(rnd((Yb, Xb)), rnd((Yb, Xb)), rnd((Yb, Xb)), rnd((S, Yb, Xb), lo=1.0))
+                     for S in (5, 8)]
+            cases += [(rnd((n_tr * 10, Yb, Xb)), u3, v3,
+                       (mask[:, None] * rnd((10, S, Yb, Xb), lo=0.5)).reshape(S * 10, Yb, Xb),
+                       g2, dz) for n_tr in (1, 2) for S in (1, 4)]
+            for args in cases:
+                for a in (None, rnd(args[0].shape, 0.5)):
+                    kept = [x.clone() for x in args]
+                    g = tracer_adv.tracer_adv(*args, acc=a)
+                    want = tracer_adv.tracer_adv_plain(*args, acc=a)
+                    torch.cuda.synchronize()
+                    er = rel_err(g, want, I)[1] if min(Yb, Xb) > 2 * R + 1 else 0.0
+                    edge = edge_zero(g, R)
+                    check(er <= BANDS[name] and bool(torch.isfinite(g).all()) and edge and
+                          all(torch.equal(x, k) for x, k in zip(args, kept)),
+                          f"tracer_adv {name} {tuple(args[0].shape)} pack "
+                          f"{tuple(args[3].shape)} acc={a is not None}: rel err {er:.3e}, "
+                          f"edge zeros {edge}")
+                    errs.append(er)
         worst[name] = max(errs)
-        log(f"phase 2: operands {name}: momentum with acc/mask_out in 7 modes on "
-            f"{', '.join(str(sh) for sh in shapes)} and tracer_adv with acc in column "
-            f"(5 and 8 planes) and layered mode (1 and 2 tracers, S = 1 and 4): max rel "
-            f"err {worst[name]:.3e} (band {BANDS[name]:g}), finite, edge cells 0, inputs "
-            f"unchanged [{card}]")
+        log(f"phase 2: operands {name}: momentum with acc/mask_out in 7 modes and "
+            f"tracer_adv with and without acc in column (5 and 8 planes) and layered "
+            f"mode (1 and 2 tracers, S = 1 and 4) on {', '.join(str(sh) for sh in shapes)}"
+            f": max rel err {worst[name]:.3e} (band {BANDS[name]:g}), finite, edge cells "
+            f"0, inputs unchanged [{card}]")
     return worst
 
 
@@ -817,7 +873,19 @@ def phase5_layered_path(card, n_steps=10, warm=3):
     log(f"phase 5: {n_steps} front steps after {warm} warm-up at dt = {dt:g} s: "
         f"{ms:.4f} ms/step ({pts / ms / 1e6:.4f} G grid-points/s), launches {counts}, "
         f"max|u| {umax:.6f}, b in [{bmin:.6e}, {bmax:.6e}] [{card}]")
+    tracer_on_own_fields(card, "phase 5", model, state)
     return counts, ms
+
+
+def tracer_on_own_fields(card, phase, model, state):
+    """The layered tracer call on the path's own fields (the front's all-zero c and
+    its b; the gyre's land-masked T and S) beside random fields of the same shape:
+    the slow path of IEEE division on zero dividends would show as a gap."""
+    from benchmarks.torch_profile_layered import tracer_operands
+
+    for label, r in tracer_operands(model, state).items():
+        log(f"{phase}: tracer_adv on {label}: {r['ms']:.4f} ms ({r['zero_share']:.1%} "
+            f"exact zeros in c) [{card}]")
 
 
 def phase6_layered_parity(card):
@@ -905,6 +973,7 @@ def phase7_gyre_path(card, n_steps=10, warm=3):
         f"max|u| {float(state.u.abs().max()):.6f}, T in [{float(T.min()):.4f}, "
         f"{float(T.max()):.4f}], S in [{float(S.min()):.4f}, {float(S.max()):.4f}] "
         f"[{card}]")
+    tracer_on_own_fields(card, "phase 7", model, state)
     return counts, ms, model, state0
 
 

@@ -18,7 +18,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["library", "build_seconds"]
+__all__ = ["library", "build_seconds", "standalone"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -40,10 +40,10 @@ _SIGNATURES = {
     "osg_halo_fill_copy": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "osg_barotropic": [_P] * 10 + [_I] * 9 + [_P],
     "osg_momentum": [_P] * 10 + [_I] * 8 + [_P],
-    "osg_tracer_adv": [_P] * 6 + [_I] * 3 + [_P],
-    "osg_tracer_adv_layered": [_P] * 8 + [_I] * 5 + [_P],
+    "osg_tracer_adv": [_P] * 6 + [_I] * 5 + [_P],
+    "osg_tracer_adv_layered": [_P] * 8 + [_I] * 7 + [_P],
     "osg_corrector": [_P] + [_I] * 5 + [_P],
-    "osg_vertical": [_P] * 11 + [_I] * 11 + [_D] * 5 + [_P],
+    "osg_vertical": [_P] * 10 + [_I] * 13 + [_D] * 5 + [_P],
 }
 
 _lock = threading.Lock()
@@ -107,6 +107,28 @@ def _compile(srcs, out):
         for obj in objs:
             obj.unlink(missing_ok=True)
     return time.perf_counter() - t0
+
+
+def standalone(source, out_dir):
+    """The path of a shared library built from one CUDA source outside ``csrc/`` (a
+    benchmark's own kernel) with the port's flags and ``csrc/`` on the include path,
+    cached in ``out_dir`` by the content of the source, the flags and the headers."""
+    source, out_dir = Path(source), Path(out_dir)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in [source, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(p.read_bytes())
+    out = out_dir / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-shared", "-o", str(tmp), str(source)]
+        try:
+            _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                         text=True))])
+            os.replace(tmp, out)
+        finally:
+            tmp.unlink(missing_ok=True)
+    return out
 
 
 def library():

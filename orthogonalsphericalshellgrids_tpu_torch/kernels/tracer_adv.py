@@ -19,9 +19,19 @@ with and without the fused κ_h Laplacian, in its two modes:
 of any other size is refused, never read at another stride. In both modes an
 additive stack ``acc``, shaped exactly like ``c``, is added last (``pallas_adv.py:244-246``):
 G + acc.
+
+The kernel runs in tiles (``launch_plan``): each CTA owns a tile of output cells and
+copies its operands into shared memory ahead of use: c over the tile and the stencil's
+``REACH`` and ``acc`` per plane, u and v at the tile's faces, IV and the κ_h planes per
+layer, the metric planes once. It reconstructs each face of the tile once and forms
+the cells' divergence from the stored fluxes; in layered mode it loops over the
+layers, and per layer over the tracer blocks, with the next plane's copies in flight.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -29,14 +39,62 @@ from ..ops.advection import weno5_upwind_faces_from_centers
 from ..ops.operators import dxc, dxf, dyc, dyf
 from . import LAUNCHES, call, check_operands, data_ptr, on_cuda
 
-__all__ = ["tracer_adv", "tracer_adv_plain", "STATIC_PLANES", "KAPPA_PLANES", "G_PLANES",
-           "REACH"]
+__all__ = ["tracer_adv", "tracer_adv_plain", "launch_plan", "STATIC_PLANES",
+           "KAPPA_PLANES", "G_PLANES", "REACH"]
 
 STATIC_PLANES = ("h_u", "dy_fc", "h_v", "dx_cf", "inv_vol_c")
 # κ_h·(Δy/Δx)_fc·m_u, κ_h·(Δx/Δy)_cf·m_v, m_c/Az_cc
 KAPPA_PLANES = ("k_u", "k_v", "k_c")
 G_PLANES = ("dy_fc", "dx_cf")
 REACH = 3  # the kernel writes 0 within this many cells of the edge (its stencil's reach)
+
+# The output tile of one CTA of csrc/tracer_adv.cu for each dtype, (rows, columns); the
+# source holds the same numbers and refuses a plan made for others.
+TILE = {torch.float32: (16, 32), torch.float64: (16, 32)}
+THREADS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How ``tracer_adv`` runs on the card: one launch over the (rows, columns)
+    ``grid`` of ``tile``s; a CTA of ``threads`` threads copies c over its ``window``
+    (the tile and a ring of ``REACH`` cells, zero outside the array) and its other
+    operands into shared memory, reconstructs the tile's x faces (rows of columns + 1)
+    and y faces (rows + 1 of columns) once and forms each cell from them.
+    ``smem_bytes[layered, kappa, acc]`` is its shared memory in each mode (layered
+    mode keeps two buffers of what a plane and a layer copy)."""
+
+    tile: tuple
+    window: tuple
+    grid: tuple
+    threads: int
+    smem_bytes: dict
+
+
+def _smem(tile, itemsize, layered, kappa, acc):
+    """Bytes of shared memory of one CTA: ``csrc/tracer_adv.cu:Layout``."""
+    TY, TX = tile
+    window = (TY + 2 * REACH) * (TX + 2 * REACH)
+    faces, cells, nb = TY * (TX + 1) + (TY + 1) * TX, TY * TX, 2 if layered else 1
+    # windows, fluxes, velocities, lengths (+ column thicknesses), IV, κ_h planes, acc
+    n = (nb * window + faces + nb * faces + faces + (0 if layered else faces)
+         + nb * cells + (nb * (faces + cells) if kappa else 0) + (nb * cells if acc else 0))
+    return n * itemsize
+
+
+def _plan(Yb, Xb, tile, itemsize):
+    TY, TX = tile
+    modes = [(lay, kap, acc) for lay in (False, True) for kap in (False, True)
+             for acc in (False, True)]
+    return LaunchPlan(tile=(TY, TX), window=(TY + 2 * REACH, TX + 2 * REACH),
+                      grid=(-(-Yb // TY), -(-Xb // TX)), threads=THREADS,
+                      smem_bytes={m: _smem(tile, itemsize, *m) for m in modes})
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(Yb, Xb, dtype):
+    """The launch plan for (Yb, Xb) planes of ``dtype``."""
+    return _plan(Yb, Xb, TILE[dtype], torch.empty((), dtype=dtype).element_size())
 
 
 def _diffusion(c, k_u, k_v, k_c):
@@ -97,10 +155,11 @@ def tracer_adv(c, u, v, static, g_pack=None, dz=None, acc=None):
                             acc=(Yb, Xb)))
         if not on_cuda(*tensors.values()):
             return tracer_adv_plain(c, u, v, static, acc=acc)
+        plan = launch_plan(Yb, Xb, c.dtype)
         G = torch.empty_like(c)
         call("osg_tracer_adv", c.dtype, c.device, c.data_ptr(), u.data_ptr(),
              v.data_ptr(), static.data_ptr(), data_ptr(acc), G.data_ptr(), Yb, Xb,
-             int(n_st == 8))
+             int(n_st == 8), *plan.tile)
         LAUNCHES["tracer_adv_kappa" if n_st == 8 else "tracer_adv"] += 1
         return G
     if u.dim() != 3 or c.dim() != 3:
@@ -121,9 +180,10 @@ def tracer_adv(c, u, v, static, g_pack=None, dz=None, acc=None):
     if not on_cuda(*tensors.values()):
         return tracer_adv_plain(c, u, v, static, g_pack, dz, acc)
     has_diff = n_st == 4 * nz
+    plan = launch_plan(Yb, Xb, c.dtype)
     G = torch.empty_like(c)
     call("osg_tracer_adv_layered", c.dtype, c.device, c.data_ptr(), u.data_ptr(),
          v.data_ptr(), static.data_ptr(), g_pack.data_ptr(), dz.data_ptr(), data_ptr(acc),
-         G.data_ptr(), c.shape[0], nz, Yb, Xb, int(has_diff))
+         G.data_ptr(), c.shape[0], nz, Yb, Xb, int(has_diff), *plan.tile)
     LAUNCHES["tracer_adv_kappa" if has_diff else "tracer_adv_layered"] += 1
     return G

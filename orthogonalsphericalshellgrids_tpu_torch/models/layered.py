@@ -89,7 +89,7 @@ class LayeredState:
 # pack ``mom_lay``, which is None without ν_h and quadratic drag), and its static
 # metadata
 BUFFERS = ("mask_c3", "mask_u3", "mask_v3", "dzu", "dzv", "inv_h_u", "inv_h_v", "bot_u",
-           "bot_v", "adv_pack", "mom_static", "vert_pack", "vert_g")
+           "bot_v", "adv_pack", "mom_static", "vert_g")
 META = ("nz", "dz", "dzc", "zc", "forcing", "buoyancy", "kappa_v", "nu_v", "vert_impl",
         "tracer_names", "g_b", "alpha_T", "beta_S", "T0", "S0")
 
@@ -103,7 +103,9 @@ class LayeredModel(nn.Module):
     - ``dzu``/``dzv``: dz·mask, the thicknesses the horizontal fluxes carry;
       ``inv_h_u``/``inv_h_v``: 1 / Σ dzu, 1 / Σ dzv (0 on land);
     - ``bot_u``/``bot_v``: deepest-wet-layer indicators;
-    - ``vert_pack`` (Nz·S) and ``vert_g`` (5 planes): the vertical kernel's packs;
+    - ``n_wet``: the (Yb, Xb) int32 wet-layer counts from which the vertical kernel
+      recovers every mask (in place of the JAX model's ``vert_pack``), and ``vert_g``
+      (5 planes): the vertical kernel's metric pack;
       ``mom_static``: the momentum kernel's 8 metric planes; ``mom_lay``: its
       (Nz·L) closure pack (6 ν_h planes, then 2 drag planes, per layer) or None;
       ``adv_pack``: the tracer kernel's (Nz·S) pack, [IV] or [IV, K_u, K_v, K_c]
@@ -123,6 +125,7 @@ class LayeredModel(nn.Module):
         for name in BUFFERS:
             self.register_buffer(name, arrays[name])
         self.register_buffer("mom_lay", arrays.get("mom_lay"))
+        self.register_buffer("n_wet", arrays["n_wet"])
         for name in META:
             setattr(self, name, meta[name])
         dt, dev = baro.dtype, baro.device
@@ -332,8 +335,6 @@ def make_layered_model(
         return torch.stack(parts, dim=1).reshape((-1,) + mask_c3.shape[1:])
 
     vert_impl = vertical_time_discretization == "implicit"
-    # the u/v mask planes ride only when the explicit ν_v needs them (S = 3)
-    vparts = [mask_c3] + ([mask_u3, mask_v3] if nu_v > 0.0 and not vert_impl else [])
     arrays = dict(
         mask_c3=mask_c3, mask_u3=mask_u3, mask_v3=mask_v3, dzu=dzu, dzv=dzv,
         inv_h_u=_inv(torch.sum(dzu, dim=0)), inv_h_v=_inv(torch.sum(dzv, dim=0)),
@@ -341,7 +342,7 @@ def make_layered_model(
         mom_lay=layer_major(lay_parts) if lay_parts else None,
         mom_static=torch.stack([grid.dy_cf, grid.dx_fc, baro.inv_az_ff, baro.f_ff,
                                 grid.dx_cf, baro.inv_dx_fc, grid.dy_fc, baro.inv_dy_cf]),
-        vert_pack=layer_major(vparts),
+        n_wet=vertical.wet_counts(wet).to(dev),
         vert_g=torch.stack([_inv(grid.az_cc), baro.inv_dx_fc, baro.inv_dy_cf,
                             grid.dy_fc, grid.dx_cf]))
     meta = dict(
@@ -366,6 +367,7 @@ def layered_from_jax_arrays(arrays: dict, meta: dict, device) -> LayeredModel:
     generation."""
     baro = from_jax_arrays(arrays["baro"], meta["baro"], device)
     data = {n: torch.from_numpy(np.array(arrays[n])).to(device) for n in BUFFERS}
+    data["n_wet"] = vertical.wet_counts(np.array(arrays["mask_c3"])).to(device)
     if arrays.get("mom_lay") is not None:
         data["mom_lay"] = torch.from_numpy(np.array(arrays["mom_lay"])).to(device)
     return LayeredModel(baro, data, {n: meta[n] for n in META})
@@ -583,7 +585,7 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
     eos = model.buoyancy == "linear_eos"
     explicit = not model.vert_impl
     dgu, dgv, dgc = vertical.vertical(
-        u, v, c, b if model.has_b else None, model.vert_pack, model.vert_g,
+        u, v, c, b if model.has_b else None, model.n_wet, model.vert_g,
         model.vert_coef, mode=model.buoyancy,
         eos=(model.g_b, model.alpha_T, model.beta_S, model.T0, model.S0),
         it_T=names.index("T") if eos and "T" in names else -1,

@@ -219,7 +219,7 @@ def _unfolded_tendencies(model, u, v, c, b, t=0.0):
     eos = model.buoyancy == "linear_eos"
     explicit = not model.vert_impl
     dgu, dgv, dgc = vertical.vertical(
-        u, v, c, b if model.has_b else None, model.vert_pack, model.vert_g,
+        u, v, c, b if model.has_b else None, model.n_wet, model.vert_g,
         model.vert_coef, mode=model.buoyancy,
         eos=(model.g_b, model.alpha_T, model.beta_S, model.T0, model.S0),
         it_T=names.index("T") if eos and "T" in names else -1,

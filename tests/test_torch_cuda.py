@@ -224,34 +224,54 @@ def test_cuda_steps_match_cpu_float64():
                                             ("linear_eos", 4, True), ("linear_eos", 4, False),
                                             ("tracer_b", 50, True)])
 def test_cuda_vertical(dtype, mode, nz, mixing):
+    """One launch against the plain version on the mask pack built from the same
+    wet-layer counts (drawn from 0 to Nz a column), on a plane no tile divides."""
+    _vertical_case(dtype, mode, nz, mixing, 2 if mode == "linear_eos" else 1)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode,n_c", [("tracer_b", 2), ("linear_eos", 3), ("none", 4)])
+def test_cuda_vertical_more_tracers(dtype, mode, n_c):
+    """Three and four tracer blocks: the kernel carries the first two in registers and
+    reads the others at each layer."""
+    _vertical_case(dtype, mode, 6, True, n_c)
+
+
+def _vertical_case(dtype, mode, nz, mixing, n_c):
     r = np.random.default_rng(nz)
     Yb, Xb = 40, 52
-    mc, mu, mv = (r.random((3, nz, Yb, Xb)) > 0.2).astype(np.float64)
-    n_c = 2 if mode == "linear_eos" else 1
+    n_wet = np.minimum(r.integers(0, nz + 3, (Yb, Xb)), nz).astype(np.int32)
+    _, mu, mv = vertical.wet_pack(torch.as_tensor(n_wet), nz, 3,
+                                   torch.float64).reshape(nz, 3, Yb, Xb).transpose(0, 1)
     c = r.standard_normal((n_c * nz, Yb, Xb))
     if mode == "linear_eos":
         c[:nz] += 10.0
-        c[nz:] = 35.0 + 0.1 * c[nz:]
-    S = 3 if mixing else 1
-    sp = np.stack([mc, mu, mv][:S], axis=1).reshape(S * nz, Yb, Xb)
+        c[nz:2 * nz] = 35.0 + 0.1 * c[nz:2 * nz]
     dz = [50.0 * 1.05 ** k for k in range(nz)]
     dzc = [0.5 * (dz[k] + dz[k + 1]) for k in range(nz - 1)]
     coef = vertical.coefficients(dz, dzc, 1e-3 if mixing else 0.0, 1e-5 if mixing else 0.0)
-    arrays = [r.standard_normal((nz, Yb, Xb)) * mu, r.standard_normal((nz, Yb, Xb)) * mv, c,
-              r.standard_normal((nz, Yb, Xb)) if mode == "tracer_b" else None, sp,
-              0.5 + r.random((5, Yb, Xb)), coef]
+    arrays = [r.standard_normal((nz, Yb, Xb)) * mu.numpy(),
+              r.standard_normal((nz, Yb, Xb)) * mv.numpy(), c,
+              r.standard_normal((nz, Yb, Xb)) if mode == "tracer_b" else None]
     args = [None if a is None else torch.as_tensor(a, dtype=dtype, device="cuda")
             for a in arrays]
+    g, coef = (torch.as_tensor(a, dtype=dtype, device="cuda")
+               for a in (0.5 + r.random((5, Yb, Xb)), coef))
+    n_wet = torch.as_tensor(n_wet, device="cuda")
     kw = dict(mode=mode, eos=(9.81, 1.67e-4, 7.8e-4, 10.0, 35.0),
-              it_T=0 if n_c == 2 else -1, it_S=1 if n_c == 2 else -1, viscous=mixing,
-              diffusive=mixing)
+              it_T=0 if mode == "linear_eos" else -1, it_S=1 if mode == "linear_eos" else -1,
+              viscous=mixing, diffusive=mixing)
+    kept = [a.clone() for a in args if a is not None]
     kernels.reset_launch_counts()
-    got = vertical.vertical(*args, **kw)
+    got = vertical.vertical(*args, n_wet, g, coef, **kw)
     assert kernels.launch_counts()["vertical"] == 1
-    for g, w in zip(got, vertical.vertical_plain(*args, **kw)):
-        assert _rel_err(g, w, (slice(1, -1), slice(1, -1))) <= BANDS[dtype]
-        assert torch.isfinite(g).all()
-        assert (g[:, 0] == 0).all() and (g[:, :, -1] == 0).all()
+    s_pack = vertical.wet_pack(n_wet, nz, 3 if mixing else 1, dtype)
+    for g_, w in zip(got, vertical.vertical_plain(*args, s_pack, g, coef, **kw)):
+        assert _rel_err(g_, w, (slice(1, -1), slice(1, -1))) <= BANDS[dtype]
+        assert torch.isfinite(g_).all()
+        assert _edge_zero(g_, vertical.REACH)
+    assert all(torch.equal(a, b) for a, b in zip(kept, (a for a in args if a is not None)))
 
 
 @needs_cuda
@@ -425,6 +445,7 @@ def test_cuda_tracer_adv_acc(dtype, nz, n_tr, kappa):
     want = tracer_adv.tracer_adv_plain(*args, acc=acc)
     assert _rel_err(got, want, (slice(R, -R), slice(R, -R))) <= BANDS[dtype]
     assert torch.isfinite(got).all()
+    assert _edge_zero(got, R)
 
 
 @needs_cuda

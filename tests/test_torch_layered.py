@@ -122,7 +122,7 @@ def test_vertical_plain_matches_pallas(mode, mixing):
         it_T=0 if mode == "linear_eos" else -1, it_S=1 if mode == "linear_eos" else -1,
         it_B=1 if mode == "tracer_b" else -1, nu_v=nu_v, kappa_v=kappa_v, interpret=True)
     tb = mode == "tracer_b"
-    got = vertical.vertical(
+    got = vertical.vertical_plain(
         _t(u), _t(v), _t(c[:nz] if tb else c), _t(c[nz:]) if tb else None, _t(spack),
         _t(g), _t(vertical.coefficients(dz, dzc, nu_v, kappa_v)), mode=mode, eos=eos,
         it_T=0 if mode == "linear_eos" else -1, it_S=1 if mode == "linear_eos" else -1,
@@ -147,10 +147,11 @@ def test_vertical_plain_matches_xla_operators(mode):
     b = c[n_c * nz:] if mode == "tracer_b" else None
     model = _OperatorModel(mc, mu, mv, g, dz, dzc, names, eos)
     spack = np.stack([mc, mu, mv], axis=1).reshape(3 * nz, Yb, Xb)
-    got = vertical.vertical(_t(u), _t(v), _t(cc), None if b is None else _t(b),
-                            _t(spack), _t(g), _t(vertical.coefficients(dz, dzc, 1e-3, 1e-5)),
-                            mode=mode, eos=eos, it_T=0 if n_c == 2 else -1,
-                            it_S=1 if n_c == 2 else -1, viscous=True, diffusive=True)
+    got = vertical.vertical_plain(_t(u), _t(v), _t(cc), None if b is None else _t(b),
+                                  _t(spack), _t(g),
+                                  _t(vertical.coefficients(dz, dzc, 1e-3, 1e-5)),
+                                  mode=mode, eos=eos, it_T=0 if n_c == 2 else -1,
+                                  it_S=1 if n_c == 2 else -1, viscous=True, diffusive=True)
     u, v, cc, mc3, mu3, mv3 = (_t(a) for a in (u, v, cc, mc, mu, mv))
     dz3, dzc3 = model.dz3, model.dzc3
     w = TL.vertical_velocity(model, u, v)
@@ -239,12 +240,13 @@ def test_layered_wrappers_reject_bad_operands():
                           has_mask=False)
     g5 = torch.zeros((5, Yb, Xb), dtype=torch.float64)
     coef = torch.zeros((5, nz), dtype=torch.float64)
-    with pytest.raises(ValueError):  # explicit ν_v needs S = 3
+    n_wet = torch.zeros((Yb, Xb), dtype=torch.int32)
+    with pytest.raises(ValueError):  # the masks come as int32 wet-layer counts, not planes
         vertical.vertical(z, z, z, None, z, g5, coef, viscous=True)
     with pytest.raises(ValueError):  # tracer_b takes b
-        vertical.vertical(z, z, z, None, z, g5, coef, mode="tracer_b")
+        vertical.vertical(z, z, z, None, n_wet, g5, coef, mode="tracer_b")
     with pytest.raises(TypeError):
-        vertical.vertical(z.float(), z, z, None, z, g5, coef)
+        vertical.vertical(z.float(), z, z, None, n_wet, g5, coef)
 
 
 @pytest.mark.parametrize("name", ["dxc", "dxf", "dyc", "dyf", "ixc", "ixf", "iyc", "iyf",
