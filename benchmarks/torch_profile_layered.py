@@ -55,8 +55,8 @@ from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import (  # noqa: E
 
 DT = 40.0
 # the device kernels of csrc/ (names as the profiler reports them)
-PORT_KERNELS = ("halo_fill_kernel", "halo_fill_copy_kernel", "subcycle_kernel",
-                "momentum_kernel", "tracer_adv_kernel", "vertical_kernel",
+PORT_KERNELS = ("group_fill_kernel", "group_restore_kernel", "halo_fill_copy_kernel",
+                "subcycle_kernel", "momentum_kernel", "tracer_adv_kernel", "vertical_kernel",
                 "corrector_kernel")
 
 

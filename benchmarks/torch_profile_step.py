@@ -58,6 +58,8 @@ def plain_kernels():
                                           Hx, Hy)
 
     swaps = [(halo_fill, "fill_halos", fill),
+             (halo_fill, "fill_halos_group", halo_fill.fill_halos_group_plain),
+             (halo_fill, "restore_strips_group", halo_fill.restore_strips_group_plain),
              (momentum, "momentum", momentum.momentum_plain),
              (tracer_adv, "tracer_adv", tracer_adv.tracer_adv_plain),
              (barotropic, "barotropic_substeps", barotropic.barotropic_substeps_plain)]

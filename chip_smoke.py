@@ -53,6 +53,16 @@ Phase 11 the reference's run (BASELINE.md:13): the 180 x 90 float64 Bickley jet,
          output; steps, wall time, final invariants, finite fields, the tracer
          range and its conservation.
 
+Phase 2 holds the halo fills first: the group fill with save, the group fill without
+save and the group restore against their plain versions, bitwise at float32 and
+float64, on the Bickley group (u, v, c on (690, 1450); eta, U, V views of one
+(3, 724, 1484) buffer; and its GU/GV group), the front's (u, v, c, b at Nz = 10) and
+the gyre's (u, v at Nz = 10, T and S as 20 planes) with eta, U, V, and three fields on
+planes no block divides; the restore gives every input back bitwise. Each launch is
+timed beside its plain version and beside a clone of the group's bytes. The single
+in-place fill (a group of one) and the out-of-place fill of the diagnostics are held
+on every main-path plane.
+
 Phase 2 holds the barotropic kernel, beside the main shape, on five planes from
 (26, 28) (smaller than one tile) to (135, 171), none of which the tiles divide, at 7,
 17, 21, 31 and 36 substeps (launches shorter than the others), with the wrap on and
@@ -108,7 +118,9 @@ ODD_PLANES = [(7, 9), (37, 131), (135, 171)]
 BANDS = {"float32": 1e-5, "float64": 1e-12}
 REPLACES = {
     "halo_fill": "orthogonalsphericalshellgrids_tpu/ops/pallas_fill.py:238",
-    "halo_fill_copy": "orthogonalsphericalshellgrids_tpu/ops/pallas_fill.py:292",
+    "halo_restore": "orthogonalsphericalshellgrids_tpu/ops/pallas_fill.py:292",
+    # the same fill into a fresh buffer, for the diagnostics (phases 4 and 11)
+    "halo_fill_copy": "orthogonalsphericalshellgrids_tpu/ops/pallas_fill.py:238",
     "barotropic": "orthogonalsphericalshellgrids_tpu/ops/pallas_baro.py:242",
     "momentum": "orthogonalsphericalshellgrids_tpu/ops/pallas_mom.py:281",
     "tracer_adv": "orthogonalsphericalshellgrids_tpu/ops/pallas_adv.py:258",
@@ -124,19 +136,22 @@ REPLACES = {
     "stream_probe": "orthogonalsphericalshellgrids_tpu/utils/profiling.py:49",
     "fma_ceiling": "benchmarks/weno_sol.py:215",
 }
-SOURCE_FILE = {"halo_fill_copy": "halo_fill", "momentum_layered": "momentum",
-               "tracer_adv_layered": "tracer_adv", "momentum_closures": "momentum",
-               "tracer_adv_kappa": "tracer_adv", "baro_substep_sol": "probes",
-               "weno_probe": "probes", "stream_probe": "probes", "fma_ceiling": "probes"}
+SOURCE_FILE = {"halo_restore": "halo_fill", "halo_fill_copy": "halo_fill",
+               "momentum_layered": "momentum", "tracer_adv_layered": "tracer_adv",
+               "momentum_closures": "momentum", "tracer_adv_kappa": "tracer_adv",
+               "baro_substep_sol": "probes", "weno_probe": "probes", "stream_probe": "probes",
+               "fma_ceiling": "probes"}
 SOURCES = {name: "orthogonalsphericalshellgrids_tpu_torch/csrc/{}.cu".format(
     SOURCE_FILE.get(name, name)) for name in REPLACES}
 # the kernels each main path must launch: the Bickley jet (phase 3), the baroclinic
-# front (phase 5) and the gyre (phase 7)
-BICKLEY = ("halo_fill", "halo_fill_copy", "barotropic", "momentum", "tracer_adv")
-FRONT = ("halo_fill", "halo_fill_copy", "barotropic", "vertical", "momentum_layered",
+# front (phase 5) and the gyre (phase 7); the out-of-place fill of the diagnostics
+# runs in the reference's 50-day run (phase 11)
+BICKLEY = ("halo_fill", "halo_restore", "barotropic", "momentum", "tracer_adv")
+FRONT = ("halo_fill", "halo_restore", "barotropic", "vertical", "momentum_layered",
          "tracer_adv_layered", "corrector")
-GYRE = ("halo_fill", "halo_fill_copy", "barotropic", "vertical", "momentum_closures",
+GYRE = ("halo_fill", "halo_restore", "barotropic", "vertical", "momentum_closures",
         "tracer_adv_kappa", "corrector")
+DIAGNOSTICS = ("halo_fill_copy",)
 # the kernels the ceilings measurement must launch (phase 9)
 PROBES = ("baro_substep_sol", "weno_probe", "stream_probe", "fma_ceiling")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
@@ -177,16 +192,16 @@ def bound(n_bytes, flops):
 
 
 # operations per output value, counted from each kernel's arithmetic: the fill's
-# sign; per substep and cell the barotropic divergence, gradients and
-# updates; momentum's vorticity, two WENO-5 reconstructions and KE gradient (+40
-# with the closure planes); tracer advection's two face reconstructions a cell (each
-# face once: one x face and one y face, 70 operations each) and the flux divergence
-# (+12 with kappa_h); the vertical pass per layer and tracer block; the corrector's
-# AB2 update (+4 with acc and mask_out)
-FLOPS = {"halo_fill": 1, "halo_fill_copy": 1, "barotropic": 30, "momentum": 300,
-         "momentum_layered": 304, "momentum_closures": 344, "tracer_adv": 160,
-         "tracer_adv_layered": 160, "tracer_adv_kappa": 172, "vertical": 40,
-         "corrector": 8}
+# sign (the restore only moves data); per substep and cell the barotropic
+# divergence, gradients and updates; momentum's vorticity, two WENO-5
+# reconstructions and KE gradient (+40 with the closure planes); tracer advection's
+# two face reconstructions a cell (each face once: one x face and one y face, 70
+# operations each) and the flux divergence (+12 with kappa_h); the vertical pass per
+# layer and tracer block; the corrector's AB2 update (+4 with acc and mask_out)
+FLOPS = {"halo_fill": 1, "halo_restore": 0, "halo_fill_copy": 1, "barotropic": 30,
+         "momentum": 300, "momentum_layered": 304, "momentum_closures": 344,
+         "tracer_adv": 160, "tracer_adv_layered": 160, "tracer_adv_kappa": 172,
+         "vertical": 40, "corrector": 8}
 
 
 def phase2_kernels(card):
@@ -237,11 +252,7 @@ def phase2_kernels(card):
             f"kernel, {t_p:.4f} ms plain; out of place {t_kc:.4f} ms kernel, "
             f"{t_pc:.4f} ms plain (clone + fill) [{card}]")
         if name == "float32":
-            # in place: each halo cell read from its source and written; out of
-            # place: the plane read and written
-            n_halo = A.numel() - Nx * Ny
-            results["halo_fill"] = (0.0, t_k, t_p, bound(2 * n_halo * A.element_size(),
-                                                         FLOPS["halo_fill"] * n_halo))
+            # out of place: the plane read and written
             results["halo_fill_copy"] = (0.0, t_kc, t_pc, bound(
                 2 * nbytes(A), FLOPS["halo_fill_copy"] * A.numel()))
 
@@ -348,6 +359,147 @@ def phase2_kernels(card):
             results["tracer_adv"] = (ea, t_k, t_p, bound(
                 nbytes(c, u, v, sa) + nbytes(c), FLOPS["tracer_adv"] * c.numel()))
     return results
+
+
+def fill_groups(rnd):
+    """The fill groups of the main paths at full width, η, U and V views of one
+    (3, 724, 1484) buffer as the barotropic kernel returns them, and a group of three
+    fields on planes no block of 256 threads divides: {name: (state group, the GU/GV
+    group or None)}."""
+    from orthogonalsphericalshellgrids_tpu_torch.ops.location import CC, CF, FC, FF
+
+    (Yb, Xb), (Ye, Xe) = FILL_SHAPES["base"], FILL_SHAPES["ext"]
+
+    def base(K, loc, sign):
+        return (rnd((Yb, Xb) if K is None else (K, Yb, Xb)), loc, sign, 1440, 680, 5, 5)
+
+    def ext():
+        buf = rnd((3, Ye, Xe))
+        return [(buf[0], CC, 1, 1440, 680, 22, 22), (buf[1], FC, -1, 1440, 680, 22, 22),
+                (buf[2], CF, -1, 1440, 680, 22, 22)]
+
+    forcing = [(rnd((Ye, Xe)), FC, -1, 1440, 680, 22, 22),
+               (rnd((Ye, Xe)), CF, -1, 1440, 680, 22, 22)]
+    uv = [(FC, -1), (CF, -1)]
+    return {
+        "Bickley": ([base(None, *a) for a in uv + [(CC, 1)]] + ext(), forcing),
+        "front": ([base(10, *a) for a in uv + [(CC, 1), (CC, 1)]] + ext(), None),
+        "gyre": ([base(10, *a) for a in uv] + [base(20, CC, 1)] + ext(), None),
+        "odd": ([(rnd((3, 13 + 6, 18 + 8)), FC, -1, 18, 13, 4, 3),
+                 (rnd((137 + 4, 172 + 6)), CF, -1, 172, 137, 3, 2),
+                 (rnd((2, 9 + 2, 10 + 4)), FF, 1, 10, 9, 2, 1)], None),
+    }
+
+
+def fill_cells(fields):
+    """(cells the group fill writes, distinct cells it reads): the written cells of the
+    plan's packed order, and the sources of their values, found by filling a plane of
+    distinct ids with the plain fill."""
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import halo_fill
+
+    written = read = 0
+    for A, loc, sign, Nx, Ny, Hx, Hy in fields:
+        K = A.shape[0] if A.dim() == 3 else 1
+        Yb, Xb = A.shape[-2:]
+        ids = torch.arange(1, Yb * Xb + 1, dtype=torch.float64).view(Yb, Xb)
+        halo_fill.fill_halos_plain(ids, loc, sign, Nx, Ny, Hx, Hy)
+        y, x = halo_fill.plane_cells(*halo_fill._geometry("fill", A, loc, Nx, Ny, Hx,
+                                                          Hy)[1:])
+        written += K * y.size
+        read += K * int(ids[y, x].abs().unique().numel())
+    return written, read
+
+
+def phase2_fill_groups(card):
+    """The group fill with save, the fill without save and the group restore against
+    their plain versions, bitwise, on each main path's group and on the odd group, at
+    float32 and float64; each launch timed beside its plain version. Returns the
+    kernel-table rows (the Bickley group's state fill and restore) and the other
+    groups' times."""
+    import numpy as np
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch import kernels
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import halo_fill
+
+    results, times = {}, {}
+    for name in ("float32", "float64"):
+        dt = getattr(torch, name)
+        rng = np.random.default_rng(11)
+
+        def rnd(shape):
+            return torch.as_tensor(rng.standard_normal(shape), dtype=dt, device="cuda")
+
+        for group, (fields, forcing) in fill_groups(rnd).items():
+            before = [f[0].clone() for f in fields]
+            plain = [(f[0].clone(),) + f[1:] for f in fields]
+            want, want_saved = halo_fill.fill_halos_group_plain(plain, save=True)
+            want = [w.clone() for w in want]  # plain's fields are restored below
+            kernels.reset_launch_counts()
+            got, saved = halo_fill.fill_halos_group(fields, save=True)
+            torch.cuda.synchronize()
+            check(all(torch.equal(g, w) for g, w in zip(got, want)) and
+                  torch.equal(saved, want_saved),
+                  f"group fill with save {group} {name}: fields and strips bitwise")
+            halo_fill.restore_strips_group(fields, saved)
+            halo_fill.restore_strips_group_plain(plain, want_saved)
+            torch.cuda.synchronize()
+            check(all(torch.equal(f[0], b) and torch.equal(p[0], b)
+                      for f, p, b in zip(fields, plain, before)),
+                  f"group restore {group} {name}: every field bitwise as before")
+            got, none = halo_fill.fill_halos_group(fields)
+            torch.cuda.synchronize()
+            check(none is None and all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"group fill without save {group} {name} bitwise")
+            halo_fill.restore_strips_group(fields, saved)
+            counts = kernels.launch_counts()
+            check(counts["halo_fill"] == 2 and counts["halo_restore"] == 2 and
+                  sum(counts.values()) == 4, f"group {group}: one launch a call, {counts}")
+            if name == "float64":
+                log(f"phase 2: fill group {group} {name} ({len(fields)} fields): fill "
+                    f"with save, restore and fill without save bitwise, inputs restored "
+                    f"[{card}]")
+                continue
+            # the kernels' device time: the host enqueues each window while the card
+            # spins; the plain versions wait for the card (ops/zipper.py copies its
+            # index vectors from the host), so they are timed as called
+            runs = {"fill_save": lambda: halo_fill.fill_halos_group(fields, True),
+                    "restore": lambda: halo_fill.restore_strips_group(fields, saved),
+                    "clone": lambda: [f[0].clone() for f in fields]}
+            plain_runs = {
+                "fill_save_plain": lambda: halo_fill.fill_halos_group_plain(fields, True),
+                "restore_plain": lambda: halo_fill.restore_strips_group_plain(fields, saved)}
+            if forcing is not None:
+                runs["fill"] = lambda: halo_fill.fill_halos_group(forcing)
+                plain_runs["fill_plain"] = lambda: halo_fill.fill_halos_group_plain(forcing)
+            t = {k: time_ms(fn, ahead=True) for k, fn in runs.items()}
+            t.update({k: time_ms(fn) for k, fn in plain_runs.items()})
+            t["fill_save_called"] = time_ms(runs["fill_save"])
+            written, read = fill_cells(fields)
+            size = fields[0][0].element_size()
+            b_fill, b_restore = bound(size * (3 * written + read), written), bound(
+                2 * size * written, 0)
+            log(f"phase 2: fill group {group} {name} ({len(fields)} fields, "
+                f"{sum(f[0].numel() for f in fields)} cells, {written} written, {read} "
+                f"read): fill with save, restore and fill without save bitwise, inputs "
+                f"restored; kernels' device time with the host ahead: fill with save "
+                f"{t['fill_save']:.4f} ms kernel, {t['fill_save_plain']:.4f} ms plain "
+                f"(bound {b_fill[0]:.5f} ms, {b_fill[2]} bytes); restore "
+                f"{t['restore']:.4f} ms kernel, {t['restore_plain']:.4f} ms plain (bound "
+                f"{b_restore[0]:.5f} ms, {b_restore[2]} bytes); clone of the group "
+                f"{t['clone']:.4f} ms"
+                + (f"; GU/GV fill {t['fill']:.4f} ms kernel, {t['fill_plain']:.4f} ms "
+                   f"plain" if forcing is not None else "")
+                + f"; fill with save as called {t['fill_save_called']:.4f} ms [{card}]")
+            times[group] = dict(t, written=written, read=read)
+            if group == "Bickley":
+                results["halo_fill"] = (0.0, t["fill_save"], t["fill_save_plain"], b_fill)
+                results["halo_restore"] = (0.0, t["restore"], t["restore_plain"],
+                                           b_restore)
+            del fields, forcing, plain, want, want_saved, saved
+    return results, times
 
 
 def phase2_layered(card):
@@ -776,7 +928,7 @@ def phase3_main_path(card, n_steps=20, warm=3):
     counts = kernels.launch_counts()
     ms = start.elapsed_time(end) / n_steps
     expected = {k: 0 for k in counts}
-    expected.update(halo_fill=2 * n_steps, halo_fill_copy=6 * n_steps, momentum=n_steps,
+    expected.update(halo_fill=2 * n_steps, halo_restore=n_steps, momentum=n_steps,
                     tracer_adv=n_steps, barotropic=n_steps)
     check(counts == expected, f"launch counts {counts} != {expected}")
     check(tuple(state.u.shape) == (690, 1450) and tuple(state.eta.shape) == (724, 1484),
@@ -859,7 +1011,7 @@ def phase5_layered_path(card, n_steps=10, warm=3):
     counts = kernels.launch_counts()
     ms = start.elapsed_time(end) / n_steps
     expected = {k: 0 for k in counts}
-    expected.update(halo_fill_copy=7 * n_steps, halo_fill=2 * n_steps, vertical=n_steps,
+    expected.update(halo_fill=2 * n_steps, halo_restore=n_steps, vertical=n_steps,
                     momentum_layered=n_steps, tracer_adv_layered=2 * n_steps,
                     barotropic=n_steps, corrector=n_steps)
     check(counts == expected, f"layered launch counts {counts} != {expected}")
@@ -956,7 +1108,7 @@ def phase7_gyre_path(card, n_steps=10, warm=3):
     counts = kernels.launch_counts()
     ms = start.elapsed_time(end) / n_steps
     expected = {k: 0 for k in counts}
-    expected.update(halo_fill_copy=6 * n_steps, halo_fill=2 * n_steps, vertical=n_steps,
+    expected.update(halo_fill=2 * n_steps, halo_restore=n_steps, vertical=n_steps,
                     momentum_closures=n_steps, tracer_adv_kappa=n_steps, corrector=n_steps,
                     barotropic=n_steps)
     check(counts == expected, f"gyre launch counts {counts} != {expected}")
@@ -1223,7 +1375,7 @@ def phase10_simulation(card, model, state0, n_iter=60, n_time=100, warm=3):
         else:
             times[which].append(wall_ms(runs[which]))
     expected = {k: 0 for k in counts}
-    expected.update(halo_fill_copy=6 * n_time, halo_fill=2 * n_time, vertical=n_time,
+    expected.update(halo_fill=2 * n_time, halo_restore=n_time, vertical=n_time,
                     momentum_closures=n_time, tracer_adv_kappa=n_time, corrector=n_time,
                     barotropic=n_time)
     check(counts == expected, f"Simulation launch counts {counts} != {expected}")
@@ -1373,6 +1525,7 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
 
     kres = phase2_kernels(card)
+    kres.update(phase2_fill_groups(card)[0])
     kres.update(phase2_layered(card))
     kres.update(phase2_gyre(card))
     phase2_operands(card)
@@ -1386,13 +1539,14 @@ def main():
     kres.update(probe_rows)
     phase10_simulation(card, gyre_model, gyre_state0)
     del gyre_model, gyre_state0
-    phase11_bickley_50_days(card)
+    diag_counts = phase11_bickley_50_days(card)
 
     # each path must have launched every kernel it runs; a row reports the count of
     # the last path that runs it (the gyre's for every kernel of the gyre)
     launches = {}
     for path, names, cnt in (("Bickley", BICKLEY, counts), ("front", FRONT, front_counts),
-                             ("gyre", GYRE, gyre_counts), ("ceilings", PROBES, probe_counts)):
+                             ("gyre", GYRE, gyre_counts), ("ceilings", PROBES, probe_counts),
+                             ("50-day run", DIAGNOSTICS, diag_counts)):
         check(all(cnt[n] > 0 for n in names), f"{path} path launched {cnt}")
         launches.update({n: cnt[n] for n in names})
     table = [{"name": name, "route": "cuda", "source": SOURCES[name],

@@ -14,8 +14,8 @@ from ._build import library
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "launch_counts"]
 
-LAUNCHES = {"halo_fill": 0, "halo_fill_copy": 0, "barotropic": 0, "momentum": 0,
-            "tracer_adv": 0, "vertical": 0, "momentum_layered": 0,
+LAUNCHES = {"halo_fill": 0, "halo_restore": 0, "halo_fill_copy": 0, "barotropic": 0,
+            "momentum": 0, "tracer_adv": 0, "vertical": 0, "momentum_layered": 0,
             "tracer_adv_layered": 0, "momentum_closures": 0, "tracer_adv_kappa": 0,
             "corrector": 0, "baro_substep_sol": 0, "weno_probe": 0, "stream_probe": 0,
             "fma_ceiling": 0}

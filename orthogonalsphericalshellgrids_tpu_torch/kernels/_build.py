@@ -30,13 +30,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _L = ctypes.c_int64
+_T = ctypes.POINTER(ctypes.c_int64)
 # C entry points and their argument types (each returns cudaGetLastError()).
 _SIGNATURES = {
     "osg_stream_probe": [_P, _P, _L, _P],
     "osg_fma_ceiling": [_P, _P, _L, _I, _P],
     "osg_weno_probe": [_P, _P, _I, _I, _I, _I, _P],
     "osg_baro_substep_sol": [_P] * 4 + [_I] * 4 + [_P],
-    "osg_halo_fill": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "osg_halo_fill_group": [_T, _I, _P, _I, _P],
+    "osg_halo_restore_group": [_T, _I, _P, _P],
     "osg_halo_fill_copy": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "osg_barotropic": [_P] * 10 + [_I] * 9 + [_P],
     "osg_momentum": [_P] * 10 + [_I] * 8 + [_P],

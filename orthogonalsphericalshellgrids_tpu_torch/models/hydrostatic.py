@@ -20,9 +20,11 @@ masks, column depths and the kernels' operand stacks, on the base and the extend
 free-surface grid); the state is a frozen dataclass of tensors; the dynamics are
 plain functions. The four hot operations go through ``kernels/``: on a CUDA device
 they launch the hand-written kernels, on the CPU they run the plain PyTorch
-versions. ``step`` never mutates the incoming state: the prognostic fields are
-filled out of place, into fresh buffers, and only the forcing planes the step makes
-itself are filled in place.
+versions. ``step`` fills the halos of the incoming state's prognostic fields in
+place and writes their saved pre-fill strips back before it returns, and nothing
+between the two reads the unfilled fields, so the state is bitwise unchanged on
+return, also when the step raises; the output writer copies to the host on the
+simulation thread, so no other stream sees the window.
 
 Not ported yet (``make_model`` raises ``NotImplementedError``; ROADMAP queue 1):
 several tracers and the other advection schemes.
@@ -438,6 +440,13 @@ def _fill(grid, A, loc, sign):
                                 inplace=False)
 
 
+def _forcing_ext(grid_ext: TripolarGrid, GU, GV):
+    """Fill the halos of the step's own extended-grid forcing planes GU (face-x) and
+    GV (face-y) in place, one group; returns them."""
+    ext = (grid_ext.Nx, grid_ext.Ny, grid_ext.Hx, grid_ext.Hy)
+    return halo_fill.fill_halos_group([(GU, FC, -1, *ext), (GV, CF, -1, *ext)])[0]
+
+
 def barotropic_substeps(model: HydrostaticModel, eta, U, V, GU, GV, dt,
                         wrap_x_each_substep=True):
     """SM05-averaged forward-backward substepping of (η, U, V) on the extended-halo
@@ -453,41 +462,44 @@ def barotropic_substeps(model: HydrostaticModel, eta, U, V, GU, GV, dt,
 def step(model: HydrostaticModel, state: State, dt) -> State:
     """One time step (the reference call stack, SURVEY.md §3.4): halo fills, WENO
     tendencies, quasi-AB2 extrapolation, the exchange-free barotropic subcycle, the
-    single-layer corrector (u = U/H) and the tracer update. ``state`` is not
-    modified."""
+    single-layer corrector (u = U/H) and the tracer update.
+
+    The halos of ``state``'s u, v, c, η, U and V are filled in place, their pre-fill
+    strips saved (one group fill), and written back (one restore) after the
+    barotropic subcycle, the last reader of the filled fields, and before anything
+    reads the unfilled ones; the restore runs even when the step raises. ``state``
+    is bitwise unchanged on return."""
     g, ge, ib = model.grid, model.grid_ext, model.ib
     # a number becomes a device scalar by a fill launch; copying it from the host
     # (torch.as_tensor) would wait for the stream to drain on every step
     dt = (dt.to(device=model.device, dtype=model.dtype) if torch.is_tensor(dt) else
           torch.full((), float(dt), dtype=model.dtype, device=model.device))
 
-    u = _fill(g, state.u, FC, -1)
-    v = _fill(g, state.v, CF, -1)
-    c = _fill(g, state.c, CC, 1)
-    eta_f = _fill(ge, state.eta, CC, 1)
-    U_f = _fill(ge, state.U, FC, -1)
-    V_f = _fill(ge, state.V, CF, -1)
+    base, ext = (g.Nx, g.Ny, g.Hx, g.Hy), (ge.Nx, ge.Ny, ge.Hx, ge.Hy)
+    fields = [(state.u, FC, -1, *base), (state.v, CF, -1, *base), (state.c, CC, 1, *base),
+              (state.eta, CC, 1, *ext), (state.U, FC, -1, *ext), (state.V, CF, -1, *ext)]
+    _, saved = halo_fill.fill_halos_group(fields, save=True)
+    try:
+        first = state.iteration == 0
+        w1 = torch.where(first, model.ab2[0], model.ab2[2])
+        w2 = torch.where(first, model.ab2[1], model.ab2[3])
 
-    first = state.iteration == 0
-    w1 = torch.where(first, model.ab2[0], model.ab2[2])
-    w2 = torch.where(first, model.ab2[1], model.ab2[3])
+        Gu, Gv, Gc = tendencies(model, state.u, state.v, state.c, t=state.t)
+        Gu_s = w1 * Gu - w2 * state.Gu
+        Gv_s = w1 * Gv - w2 * state.Gv
+        Gc_s = w1 * Gc - w2 * state.Gc
 
-    Gu, Gv, Gc = tendencies(model, u, v, c, t=state.t)
-    Gu_s = w1 * Gu - w2 * state.Gu
-    Gv_s = w1 * Gv - w2 * state.Gv
-    Gc_s = w1 * Gc - w2 * state.Gc
+        # depth-integrated forcing, valid through the widened halo after its fill
+        GU, GV = _forcing_ext(ge, embed_ext(g, ge, ib.h_u * Gu_s),
+                              embed_ext(g, ge, ib.h_v * Gv_s))
+
+        # with the x-halo widened to >= n_sub + 1 the loop needs no per-substep x-wrap
+        n_sub = model.weights.shape[0]
+        eta_a, U_a, V_a = barotropic_substeps(model, state.eta, state.U, state.V, GU, GV,
+                                              dt, wrap_x_each_substep=ge.Hx < n_sub + 1)
+    finally:
+        halo_fill.restore_strips_group(fields, saved)
     c_new = (state.c + dt * Gc_s) * ib.mask_c
-
-    # depth-integrated forcing, valid through the widened halo after its fill
-    GU_f = halo_fill.fill_halos(embed_ext(g, ge, ib.h_u * Gu_s), FC, -1, ge.Nx, ge.Ny,
-                                ge.Hx, ge.Hy)
-    GV_f = halo_fill.fill_halos(embed_ext(g, ge, ib.h_v * Gv_s), CF, -1, ge.Nx, ge.Ny,
-                                ge.Hx, ge.Hy)
-
-    # with the x-halo widened to >= n_sub + 1 the loop needs no per-substep x-wrap
-    n_sub = model.weights.shape[0]
-    eta_a, U_a, V_a = barotropic_substeps(model, eta_f, U_f, V_f, GU_f, GV_f, dt,
-                                          wrap_x_each_substep=ge.Hx < n_sub + 1)
 
     # single-layer corrector: the velocity is the barotropic velocity
     u_new = crop_ext(g, ge, U_a) * model.inv_h_u * ib.mask_u

@@ -27,8 +27,12 @@ Counterpart: ``orthogonalsphericalshellgrids_tpu/models/layered.py``
 Layout: layer axis leading, ``(Nz, Yb, Xb)`` with k = 0 the surface layer; several
 tracers stack tracer-major as ``(n·Nz, Yb, Xb)``. The model is an ``nn.Module``
 that holds the port's ``HydrostaticModel`` as ``baro``; its arrays are registered
-buffers and the state is a frozen dataclass of tensors. ``layered_step`` never
-mutates the incoming state and makes no host sync.
+buffers and the state is a frozen dataclass of tensors. ``layered_step`` makes no
+host sync. It fills the halos of the incoming state's prognostic fields in place (one
+group fill that saves the pre-fill strips) and writes the strips back (one restore)
+before it returns; nothing between the two reads the unfilled fields, so the state
+is bitwise unchanged on return, also when the step raises. The output writer copies
+to the host on the simulation thread, so no other stream sees the window.
 
 Not ported yet: the sharded step and its overlap split (ROADMAP queue 1 item 8).
 The JAX package's ``fill_mode``, ``use_pallas`` and ``block_rows`` are TPU choices
@@ -53,7 +57,7 @@ from ..kernels import corrector, halo_fill, momentum, tracer_adv, vertical
 from ..ops.closures import _ratio, biharmonic_c, biharmonic_u, biharmonic_v
 from ..ops.location import CC, CF, FC
 from ..ops.operators import dxc, dyc
-from .hydrostatic import (ForcingFields, HydrostaticModel, _fill, _inv,
+from .hydrostatic import (ForcingFields, HydrostaticModel, _forcing_ext, _inv,
                           barotropic_substeps, crop_ext, embed_ext, from_jax_arrays,
                           make_model)
 from .split_explicit import SplitExplicitFreeSurface
@@ -650,38 +654,40 @@ def layered_step(model: LayeredModel, state: LayeredState, dt) -> LayeredState:
     predictor, the split-explicit corrector and the tracer update: one corrector
     kernel on a card, or, when the vertical solve is implicit (it sits between the
     predictor and the corrector), the torch chain with the solve, as in the JAX
-    package (``layered.py:1128-1176``). ``state`` is not modified."""
+    package (``layered.py:1128-1176``).
+
+    The halos of ``state``'s u, v, c, (b), η, U and V are filled in place, their
+    pre-fill strips saved (one group fill), and written back (one restore) after the
+    barotropic subcycle, the last reader of the filled fields, and before anything
+    reads the unfilled ones; the restore runs even when the step raises. ``state``
+    is bitwise unchanged on return."""
     g, ge, m = model.grid, model.grid_ext, model.baro
     # a number becomes a device scalar by a fill launch; copying it from the host
     # would wait for the stream to drain on every step
     dt = (dt.to(device=model.device, dtype=model.dtype) if torch.is_tensor(dt) else
           torch.full((), float(dt), dtype=model.dtype, device=model.device))
 
-    u = _fill(g, state.u, FC, -1)
-    v = _fill(g, state.v, CF, -1)
-    c = _fill(g, state.c, CC, 1)
-    b = _fill(g, state.b, CC, 1) if model.has_b else state.b
-    eta_f = _fill(ge, state.eta, CC, 1)
-    U_f = _fill(ge, state.U, FC, -1)
-    V_f = _fill(ge, state.V, CF, -1)
+    fields = _state_fields(model, state)
+    _, saved = halo_fill.fill_halos_group(fields, save=True)
+    try:
+        Gu, Gv, Gc, Gb = layered_tendencies(model, state.u, state.v, state.c, state.b,
+                                            t=state.t)
 
-    Gu, Gv, Gc, Gb = layered_tendencies(model, u, v, c, b, t=state.t)
+        first = state.iteration == 0
+        w1 = torch.where(first, m.ab2[0], m.ab2[2])
+        w2 = torch.where(first, m.ab2[1], m.ab2[3])
+        Gu_s = w1 * Gu - w2 * state.Gu
+        Gv_s = w1 * Gv - w2 * state.Gv
 
-    first = state.iteration == 0
-    w1 = torch.where(first, m.ab2[0], m.ab2[2])
-    w2 = torch.where(first, m.ab2[1], m.ab2[3])
-    Gu_s = w1 * Gu - w2 * state.Gu
-    Gv_s = w1 * Gv - w2 * state.Gv
-
-    # the thickness-weighted depth integral of the baroclinic forcing drives the
-    # subcycle, valid through the widened halo after its fill
-    GU_f = halo_fill.fill_halos(embed_ext(g, ge, torch.sum(Gu_s * model.dzu, dim=0)), FC,
-                                -1, ge.Nx, ge.Ny, ge.Hx, ge.Hy)
-    GV_f = halo_fill.fill_halos(embed_ext(g, ge, torch.sum(Gv_s * model.dzv, dim=0)), CF,
-                                -1, ge.Nx, ge.Ny, ge.Hx, ge.Hy)
-    n_sub = m.weights.shape[0]
-    eta_a, U_a, V_a = barotropic_substeps(m, eta_f, U_f, V_f, GU_f, GV_f, dt,
-                                          wrap_x_each_substep=ge.Hx < n_sub + 1)
+        # the thickness-weighted depth integral of the baroclinic forcing drives the
+        # subcycle, valid through the widened halo after its fill
+        GU, GV = _forcing_ext(ge, embed_ext(g, ge, torch.sum(Gu_s * model.dzu, dim=0)),
+                              embed_ext(g, ge, torch.sum(Gv_s * model.dzv, dim=0)))
+        n_sub = m.weights.shape[0]
+        eta_a, U_a, V_a = barotropic_substeps(m, state.eta, state.U, state.V, GU, GV, dt,
+                                              wrap_x_each_substep=ge.Hx < n_sub + 1)
+    finally:
+        halo_fill.restore_strips_group(fields, saved)
 
     if model.vert_impl and (model.nu_v > 0.0 or model.kappa_v > 0.0):
         u_new, v_new, c_new, b_new = _implicit_update(model, state, Gu, Gv, Gc, Gb,
@@ -699,6 +705,18 @@ def layered_step(model: LayeredModel, state: LayeredState, dt) -> LayeredState:
         u=u_new, v=v_new, eta=eta_a, U=U_a, V=V_a, c=c_new, b=b_new, Gu=Gu, Gv=Gv, Gc=Gc,
         Gb=Gb if model.has_b else state.Gb, t=state.t + dt,
         iteration=state.iteration + 1)
+
+
+def _state_fields(model: LayeredModel, state: LayeredState):
+    """The fill group of ``state``'s prognostic fields: u, v, c, b (where it is
+    prognostic) on the base grid, η, U, V on the extended one."""
+    g, ge = model.grid, model.grid_ext
+    base, ext = (g.Nx, g.Ny, g.Hx, g.Hy), (ge.Nx, ge.Ny, ge.Hx, ge.Hy)
+    fields = [(state.u, FC, -1, *base), (state.v, CF, -1, *base), (state.c, CC, 1, *base)]
+    if model.has_b:
+        fields.append((state.b, CC, 1, *base))
+    return fields + [(state.eta, CC, 1, *ext), (state.U, FC, -1, *ext),
+                     (state.V, CF, -1, *ext)]
 
 
 def _implicit_update(model: LayeredModel, state: LayeredState, Gu, Gv, Gc, Gb, U_a, V_a,

@@ -86,27 +86,46 @@ def device_sync(tree):
     return tree
 
 
-def time_ms(fn, n=20, reps=5, warm=3, device="cuda"):
+def time_ms(fn, n=20, reps=5, warm=3, device="cuda", ahead=False):
     """Milliseconds per call of ``fn``: ``n`` back-to-back calls a window, the median
     of ``reps`` windows, after ``warm`` calls. CUDA events around each window on a
     card (a call whose host-side enqueue takes longer than its device work, a small
-    kernel, is timed at the enqueue rate); the host clock around a finished window
-    on the CPU. The one timer of ``chip_smoke.py`` and ``benchmarks/torch_*.py``."""
+    kernel, is timed at the enqueue rate, unless ``ahead``: then the card first
+    spins until the host has enqueued the whole window, so the window times the
+    device work alone, and a window the host did not get ahead of is spun again
+    longer); the host clock around a finished window on the CPU. The one timer of
+    ``chip_smoke.py`` and ``benchmarks/torch_*.py``."""
     on_card = torch.device(device).type == "cuda"
     for _ in range(warm):
         fn()
     if on_card:
         torch.cuda.synchronize(device)
+    hold_ms = 0.0
+    if on_card and ahead:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        hold_ms = 2.0 * (time.perf_counter() - t0) * 1e3 + 0.2
+        torch.cuda.synchronize(device)
     times = []
-    for _ in range(reps):
+    while len(times) < reps:
         if on_card:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            if ahead:
+                torch.cuda._sleep(int(hold_ms * _cycles_per_ms(device)))
             start.record()
             for _ in range(n):
                 fn()
+            held = not start.query()
             end.record()
             end.synchronize()
+            if ahead and not held:
+                hold_ms *= 2.0
+                if hold_ms > 5000.0:
+                    raise RuntimeError("time_ms: the host never got ahead of the card; "
+                                       "does fn wait for it?")
+                continue
             ms = start.elapsed_time(end)
         else:
             t0 = time.perf_counter()
@@ -116,6 +135,26 @@ def time_ms(fn, n=20, reps=5, warm=3, device="cuda"):
         times.append(ms / n)
     times.sort()
     return times[len(times) // 2]
+
+
+_CYCLES = {}
+
+
+def _cycles_per_ms(device):
+    """Clock cycles per millisecond of ``torch.cuda._sleep`` on ``device``, from one
+    timed spin (cached)."""
+    key = str(torch.device(device))
+    if key not in _CYCLES:
+        cycles = 20_000_000
+        torch.cuda._sleep(cycles)  # the first call may load the kernel
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        _CYCLES[key] = cycles / start.elapsed_time(end)
+    return _CYCLES[key]
 
 
 def smi_line():

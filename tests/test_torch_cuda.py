@@ -7,8 +7,9 @@ no jax, so it runs on a machine without the JAX package:
 
 Bands (``max |kernel - plain| / max |plain|`` over the valid cells; the kernels follow
 the plain versions' arithmetic order and differ only where nvcc contracts a multiply
-and an add into one FMA): float32 1e-5, float64 1e-12. The halo fill moves data and
-multiplies by ±1, so both its modes are held bitwise.
+and an add into one FMA): float32 1e-5, float64 1e-12. The halo fills move data and
+multiply by ±1, so the group fill (with and without its save), the group restore
+and the out-of-place fill are held bitwise.
 """
 
 import os
@@ -78,6 +79,121 @@ def test_cuda_fill_bitwise(dtype, loc, sign):
         torch.cuda.synchronize()
         assert torch.equal(got, want)
         assert torch.equal(copy, want) and torch.equal(A, A0)
+
+
+def _fill_group(path, dtype):
+    """The fill group of a path at small geometry, on the card: the state's fields
+    on 48 x 40 planes at halo 5, and η, U, V as views of one (3, Ye, Xe) buffer at
+    halo 22; ``odd``: three fields on planes no block of 256 threads divides."""
+    r = np.random.default_rng(len(path))
+
+    def cu(shape):
+        return torch.as_tensor(r.standard_normal(shape), dtype=dtype, device="cuda")
+
+    if path == "odd":
+        return [(cu((3, 13 + 2 * 3, 18 + 2 * 4)), FC, -1, 18, 13, 4, 3),
+                (cu((14 + 2 * 2, 22 + 2 * 3)), CF, -1, 22, 14, 3, 2),
+                (cu((2, 9 + 2 * 1, 10 + 2 * 2)), FF, 1, 10, 9, 2, 1)]
+    stacks = {"bickley": [(None, FC, -1), (None, CF, -1), (None, CC, 1)],
+              "front": [(3, FC, -1), (3, CF, -1), (3, CC, 1), (3, CC, 1)],
+              "gyre": [(3, FC, -1), (3, CF, -1), (6, CC, 1)]}[path]
+    fields = [(cu((50, 58) if K is None else (K, 50, 58)), loc, s, 48, 40, 5, 5)
+              for K, loc, s in stacks]
+    ext = cu((3, 84, 92))
+    return fields + [(ext[0], CC, 1, 48, 40, 22, 22), (ext[1], FC, -1, 48, 40, 22, 22),
+                     (ext[2], CF, -1, 48, 40, 22, 22)]
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("path", ["bickley", "front", "gyre", "odd"])
+def test_cuda_group_fill_and_restore_bitwise(dtype, path):
+    """One launch fills the group, with and without the save, bitwise the plain
+    version's fields and strips; one launch restores every field bitwise."""
+    fields = _fill_group(path, dtype)
+    before = [f[0].clone() for f in fields]
+    plain = [(f[0].clone(),) + f[1:] for f in fields]
+    want, want_saved = halo_fill.fill_halos_group_plain(plain, save=True)
+    kernels.reset_launch_counts()
+    got, saved = halo_fill.fill_halos_group(fields, save=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(saved, want_saved)
+    halo_fill.restore_strips_group(fields, saved)
+    torch.cuda.synchronize()
+    assert all(torch.equal(f[0], b) for f, b in zip(fields, before))
+    got, none = halo_fill.fill_halos_group(fields)
+    torch.cuda.synchronize()
+    assert none is None and all(torch.equal(g, w) for g, w in zip(got, want))
+    halo_fill.restore_strips_group_plain(plain, want_saved)
+    assert all(torch.equal(f[0], b) for f, b in zip(plain, before))
+    want_counts = {k: 0 for k in kernels.LAUNCHES}
+    want_counts.update(halo_fill=2, halo_restore=1)
+    assert kernels.launch_counts() == want_counts
+
+
+@needs_cuda
+def test_cuda_group_entries_refuse_another_plan():
+    """The C entries check the table against the geometry: a wrong cell count, first
+    block or strip offset is refused at launch, and nothing is written."""
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import call
+
+    fields = _fill_group("front", torch.float32)
+    before = [f[0].clone() for f in fields]
+    geoms, _ = halo_fill._group("t", fields)
+    plan = halo_fill.group_plan(geoms)
+    saved = torch.empty(plan.n_saved, device="cuda")
+    for col in (11, 12, 13):  # cells, first block, first strip offset of field 1
+        table = halo_fill._table(fields, geoms)
+        table[14 + col] += 1
+        with pytest.raises(RuntimeError):
+            call("osg_halo_fill_group", torch.float32, saved.device, table, len(fields),
+                 saved.data_ptr(), 1)
+        with pytest.raises(RuntimeError):
+            call("osg_halo_restore_group", torch.float32, saved.device, table,
+                 len(fields), saved.data_ptr())
+    torch.cuda.synchronize()
+    assert all(torch.equal(f[0], b) for f, b in zip(fields, before))
+
+
+@needs_cuda
+@pytest.mark.parametrize("path", ["bickley", "front"])
+def test_cuda_steps_leave_the_state_as_it_was(path):
+    """Three float64 steps through the kernels with η, U and V views of one buffer:
+    each incoming state is bitwise as it was; then a step whose forcing raises
+    after the fill leaves it so too."""
+    import dataclasses
+
+    def boom(*args):
+        raise ValueError("forcing failed")
+
+    if path == "bickley":
+        from examples.bickley_jet_torch import build
+
+        model, state = build(48, 40, dtype=torch.float64, substeps=12, device="cuda")
+        step = TH.step
+    else:
+        from examples.wind_driven_ts_gyre_torch import build
+
+        model, state = build(48, 40, 3, dtype=torch.float64, substeps=12, device="cuda")
+        step = TL.layered_step
+    for i in range(4):
+        buf = torch.stack([state.eta, state.U, state.V])
+        state = dataclasses.replace(state, eta=buf[0], U=buf[1], V=buf[2])
+        snap = {f.name: getattr(state, f.name).clone() for f in dataclasses.fields(state)}
+        if i < 3:
+            new = step(model, state, 120.0)
+        else:
+            forcing = model.forcing
+            model.forcing = (("u", boom),)
+            try:
+                with pytest.raises(ValueError, match="forcing failed"):
+                    step(model, state, 120.0)
+            finally:
+                model.forcing = forcing
+        torch.cuda.synchronize()
+        assert all(torch.equal(getattr(state, k), v) for k, v in snap.items())
+        state = new
 
 
 @needs_cuda
@@ -204,7 +320,7 @@ def test_cuda_steps_match_cpu_float64():
     kernels.reset_launch_counts()
     gpu_out = TH.multi_step(gpu_m, gpu_s, 120.0, 5)
     want = {k: 0 for k in kernels.LAUNCHES}
-    want.update(halo_fill=10, halo_fill_copy=30, barotropic=5, momentum=5, tracer_adv=5)
+    want.update(halo_fill=10, halo_restore=5, barotropic=5, momentum=5, tracer_adv=5)
     assert kernels.launch_counts() == want
     cpu_out = TH.multi_step(cpu_m, cpu_s, 120.0, 5)
     g = cpu_m.grid
@@ -322,7 +438,7 @@ def test_cuda_layered_steps_match_cpu_float64():
     kernels.reset_launch_counts()
     gpu_out = TL.layered_multi_step(gpu_m, gpu_s, 120.0, 3)
     want = {k: 0 for k in kernels.LAUNCHES}
-    want.update(halo_fill=6, halo_fill_copy=21, barotropic=3, vertical=3,
+    want.update(halo_fill=6, halo_restore=3, barotropic=3, vertical=3,
                 momentum_layered=3, tracer_adv_layered=6, corrector=3)
     assert kernels.launch_counts() == want
     cpu_out = TL.layered_multi_step(cpu_m, cpu_s, 120.0, 3)
@@ -518,7 +634,7 @@ def test_cuda_gyre_steps_match_cpu_float64():
     kernels.reset_launch_counts()
     gpu_out = TL.layered_multi_step(gpu_m, gpu_s, 60.0, 3)
     want = {k: 0 for k in kernels.LAUNCHES}
-    want.update(halo_fill=6, halo_fill_copy=18, barotropic=3, vertical=3,
+    want.update(halo_fill=6, halo_restore=3, barotropic=3, vertical=3,
                 momentum_closures=3, tracer_adv_kappa=3, corrector=3)
     assert kernels.launch_counts() == want
     cpu_out = TL.layered_multi_step(cpu_m, cpu_s, 60.0, 3)
@@ -612,7 +728,7 @@ def test_cuda_simulation_through_the_kernels():
     kernels.reset_launch_counts()
     gpu_out, gpu_sim = run("cuda")
     want = {k: 0 for k in kernels.LAUNCHES}
-    want.update(halo_fill=20, halo_fill_copy=60, barotropic=10, vertical=10,
+    want.update(halo_fill=20, halo_restore=10, barotropic=10, vertical=10,
                 momentum_closures=10, tracer_adv_kappa=10, corrector=10)
     assert kernels.launch_counts() == want
     cpu_out, cpu_sim = run("cpu")

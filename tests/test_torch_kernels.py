@@ -65,8 +65,9 @@ def test_fill_plain_matches_pallas_bitwise(H, loc, sign):
 
 @pytest.mark.parametrize("loc,sign", [(CC, 1), (FC, -1), (CF, -1), (FF, 1)])
 def test_fill_out_of_place_matches_pallas_bitwise(loc, sign):
-    """The out-of-place fill (the port's stand-in for fill + restore_strips_pallas)
-    leaves its input as it was and returns the filled field."""
+    """The out-of-place fill (the diagnostics' fill; the steps fill in place and
+    restore, tests/test_torch_fill_group.py) leaves its input as it was and returns
+    the filled field."""
     Nx, Ny, H = 48, 40, 22
     A = _rng(7).standard_normal((Ny + 2 * H, Nx + 2 * H))
     want = np.asarray(fill_halos_pallas(jnp.asarray(A), loc, sign, Nx, Ny, H, H,
