@@ -52,6 +52,17 @@ Phase 11 the reference's run (BASELINE.md:13): the 180 x 90 float64 Bickley jet,
          50 days through Simulation with the CFL-0.3 wizard (max dt 3 h) and daily
          output; steps, wall time, final invariants, finite fields, the tracer
          range and its conservation.
+Phase 12 the y-partitioned runs (parallel/distributed.py): (a) the shard-aware
+         group fill, its pack and its restore against their plain versions, bitwise
+         at float32 and float64, in the four roles of 4 ranks on the Bickley and the
+         gyre groups at ny = 170 and ny = 22 (the extended halo); (b) phase 3's
+         Bickley jet in 4 shards (ny = 170) through LocalExchange, 20 steps at
+         dt = 60 s, bitwise equal to the serial multi_step from the same state, each
+         shard launching barotropic, momentum and tracer_adv once a step, and no host
+         synchronization; (c) phase 7's gyre in 4 shards, 3 steps at dt = 40 s,
+         bitwise equal to serial; (d) a 1-rank NCCL process group through
+         ProcessGroupExchange, bitwise equal to the serial step with no host
+         synchronization. ms/step of (b) and (c) beside phases 3 and 7.
 
 Phase 2 holds the halo fills first: the group fill with save, the group fill without
 save and the group restore against their plain versions, bitwise at float32 and
@@ -121,6 +132,11 @@ REPLACES = {
     "halo_restore": "orthogonalsphericalshellgrids_tpu/ops/pallas_fill.py:292",
     # the same fill into a fresh buffer, for the diagnostics (phases 4 and 11)
     "halo_fill_copy": "orthogonalsphericalshellgrids_tpu/ops/pallas_fill.py:238",
+    # the group fill in a shard's role, with the received rows (phase 12); the JAX
+    # package's sharded step fills with XLA there (ops/spmd.py:50-111)
+    "halo_fill_shard": "orthogonalsphericalshellgrids_tpu/ops/pallas_fill.py:238",
+    # the send rows of a shard's group, the concatenations of ops/spmd.py:75-76 (XLA)
+    "halo_pack": "orthogonalsphericalshellgrids_tpu/ops/spmd.py:75",
     "barotropic": "orthogonalsphericalshellgrids_tpu/ops/pallas_baro.py:242",
     "momentum": "orthogonalsphericalshellgrids_tpu/ops/pallas_mom.py:281",
     "tracer_adv": "orthogonalsphericalshellgrids_tpu/ops/pallas_adv.py:258",
@@ -137,6 +153,7 @@ REPLACES = {
     "fma_ceiling": "benchmarks/weno_sol.py:215",
 }
 SOURCE_FILE = {"halo_restore": "halo_fill", "halo_fill_copy": "halo_fill",
+               "halo_fill_shard": "halo_fill", "halo_pack": "halo_fill",
                "momentum_layered": "momentum", "tracer_adv_layered": "tracer_adv",
                "momentum_closures": "momentum", "tracer_adv_kappa": "tracer_adv",
                "baro_substep_sol": "probes", "weno_probe": "probes", "stream_probe": "probes",
@@ -152,6 +169,12 @@ FRONT = ("halo_fill", "halo_restore", "barotropic", "vertical", "momentum_layere
 GYRE = ("halo_fill", "halo_restore", "barotropic", "vertical", "momentum_closures",
         "tracer_adv_kappa", "corrector")
 DIAGNOSTICS = ("halo_fill_copy",)
+# the kernels each shard of the y-partitioned gyre launches once a step (phase 12)
+GYRE_SHARD = ("barotropic", "vertical", "momentum_closures", "tracer_adv_kappa",
+              "corrector")
+# the kernels each shard of the y-partitioned Bickley jet launches (phase 12)
+SHARDED = ("halo_pack", "halo_fill_shard", "halo_restore", "barotropic", "momentum",
+           "tracer_adv")
 # the kernels the ceilings measurement must launch (phase 9)
 PROBES = ("baro_substep_sol", "weno_probe", "stream_probe", "fma_ceiling")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
@@ -198,7 +221,8 @@ def bound(n_bytes, flops):
 # two face reconstructions a cell (each face once: one x face and one y face, 70
 # operations each) and the flux divergence (+12 with kappa_h); the vertical pass per
 # layer and tracer block; the corrector's AB2 update (+4 with acc and mask_out)
-FLOPS = {"halo_fill": 1, "halo_restore": 0, "halo_fill_copy": 1, "barotropic": 30,
+FLOPS = {"halo_fill": 1, "halo_restore": 0, "halo_fill_copy": 1, "halo_fill_shard": 1,
+         "halo_pack": 0, "barotropic": 30,
          "momentum": 300, "momentum_layered": 304, "momentum_closures": 344,
          "tracer_adv": 160, "tracer_adv_layered": 160, "tracer_adv_kappa": 172,
          "vertical": 40, "corrector": 8}
@@ -902,7 +926,8 @@ def phase2_operands(card):
 
 
 def phase3_main_path(card, n_steps=20, warm=3):
-    """The 1/4-degree Bickley jet through the kernels; returns the launch counts."""
+    """The 1/4-degree Bickley jet through the kernels; returns the launch counts,
+    ms/step, and the model with its initial state for phase 12."""
     import torch
 
     from examples.bickley_jet_torch import build
@@ -911,6 +936,7 @@ def phase3_main_path(card, n_steps=20, warm=3):
 
     t0 = time.perf_counter()
     model, state = build(1440, 680, dtype=torch.float32, substeps=30, device="cuda")
+    state0 = state
     torch.cuda.synchronize()
     log(f"phase 3: built the 1440 x 680 model in {time.perf_counter() - t0:.1f} s "
         f"(base {tuple(state.u.shape)}, free surface {tuple(state.eta.shape)}, "
@@ -941,7 +967,7 @@ def phase3_main_path(card, n_steps=20, warm=3):
     log(f"phase 3: {n_steps} steps after {warm} warm-up: {ms:.4f} ms/step "
         f"({1440 * 680 / ms / 1e6:.4f} G grid-points/s), launches {counts}, "
         f"max|u| {umax:.4f}, c in [{cmin:.6f}, {cmax:.6f}] [{card}]")
-    return counts, ms
+    return counts, ms, model, state0
 
 
 def phase4_parity(card):
@@ -1504,6 +1530,310 @@ def phase11_bickley_50_days(card, days=50.0):
     return counts
 
 
+def shard_groups(rnd, n, ny):
+    """The Bickley and gyre fill groups of ``n`` ranks of ``ny`` rows at the
+    1/4-degree width: {group: [the fields of rank k]}, each rank's fields the rows
+    [k·ny, k·ny + ny + 2·H) of fields drawn over n·ny rows, its η, U, V views of one
+    (3, ny + 44, 1484) buffer."""
+    from orthogonalsphericalshellgrids_tpu_torch.ops.location import CC, CF, FC
+
+    Nx, H, He = 1440, 5, 22
+    out = {}
+    for group, stacks in (("Bickley", [(None, FC, -1), (None, CF, -1), (None, CC, 1)]),
+                          ("gyre", [(10, FC, -1), (10, CF, -1), (20, CC, 1)])):
+        base = [(rnd(((K or 1), n * ny + 2 * H, Nx + 2 * H)), loc, sign)
+                for K, loc, sign in stacks]
+        ext = rnd((3, n * ny + 2 * He, Nx + 2 * He))
+        ranks = []
+        for k in range(n):
+            fields = []
+            for (A, loc, sign), (K, *_) in zip(base, stacks):
+                rows = A[:, k * ny:k * ny + ny + 2 * H].clone()
+                fields.append((rows if K else rows[0], loc, sign, Nx, ny, H, H))
+            buf = ext[:, k * ny:k * ny + ny + 2 * He].clone()
+            fields += [(buf[0], CC, 1, Nx, ny, He, He), (buf[1], FC, -1, Nx, ny, He, He),
+                       (buf[2], CF, -1, Nx, ny, He, He)]
+            ranks.append(fields)
+        out[group] = ranks
+    return out
+
+
+def shard_fill_cells(fields, role):
+    """(cells the shard fill writes, distinct cells it reads, of the fields and the
+    received rows), found by filling planes of distinct ids with the plain fill."""
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import halo_fill
+
+    written = read = 0
+    for A, loc, sign, Nx, Ny, Hx, Hy in fields:
+        K = A.shape[0] if A.dim() == 3 else 1
+        Yb, Xb = A.shape[-2:]
+        ids = torch.arange(1, Yb * Xb + 1, dtype=torch.float64).view(Yb, Xb)
+        has_s, has_n = halo_fill.receives(role)
+        strip = Hy * Xb
+        south = -torch.arange(1, strip + 1, dtype=torch.float64) if has_s else None
+        north = -torch.arange(strip + 1, 2 * strip + 1, dtype=torch.float64) \
+            if has_n else None
+        geom = halo_fill._geometry("fill", A, loc, Nx, Ny, Hx, Hy, role)
+        y, x = halo_fill.plane_cells(*geom[1:])
+        halo_fill.fill_halos_group_plain([(ids, loc, sign, Nx, Ny, Hx, Hy)], role=role,
+                                         south=south, north=north)
+        written += K * y.size
+        read += K * int(ids[y, x].abs().unique().numel())
+    return written, read
+
+
+def phase12a_shard_fills(card):
+    """The shard-aware group fill with save, its pack and its restore against their
+    plain versions, bitwise at float32 and float64, for every rank of 4 on the
+    Bickley and gyre groups at ny = 170 and at ny = 22 (the extended halo): each
+    rank's rows received from its neighbours' packs. The Bickley group's middle rank
+    timed at float32, beside its plain versions. Returns the kernel-table rows."""
+    import numpy as np
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch import kernels
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import halo_fill
+
+    n, results = 4, {}
+    for name in ("float32", "float64"):
+        dt = getattr(torch, name)
+        rng = np.random.default_rng(12)
+
+        def rnd(shape):
+            return torch.as_tensor(rng.standard_normal(shape), dtype=dt, device="cuda")
+
+        for ny in (170, 22):
+            for group, ranks in shard_groups(rnd, n, ny).items():
+                roles = [halo_fill.role_of(k, n) for k in range(n)]
+                before = [[f[0].clone() for f in fields] for fields in ranks]
+                plain = [[(f[0].clone(),) + f[1:] for f in fields] for fields in ranks]
+                kernels.reset_launch_counts()
+                sends = [halo_fill.pack_strips(f, r) for f, r in zip(ranks, roles)]
+                want_sends = [halo_fill.pack_strips_plain(f, r) for f, r in zip(plain, roles)]
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(sends, want_sends)),
+                      f"pack {group} ny={ny} {name} bitwise")
+                part = sends[0].numel() // 2
+                saved, want_saved = [], []
+                for k, r in enumerate(roles):
+                    rows = dict(south=sends[k - 1][:part] if k > 0 else None,
+                                north=sends[k + 1][part:] if k + 1 < n else None)
+                    saved.append(halo_fill.fill_halos_group(ranks[k], True, r, **rows)[1])
+                    want_saved.append(halo_fill.fill_halos_group_plain(
+                        plain[k], True, r, **{s: None if b is None else b.clone()
+                                              for s, b in rows.items()})[1])
+                torch.cuda.synchronize()
+                check(all(torch.equal(f[0], p[0]) for fs, ps in zip(ranks, plain)
+                          for f, p in zip(fs, ps)) and
+                      all(torch.equal(a, b) for a, b in zip(saved, want_saved)),
+                      f"shard fill with save {group} ny={ny} {name}: fields and strips "
+                      "bitwise in every role")
+                for k, r in enumerate(roles):
+                    halo_fill.restore_strips_group(ranks[k], saved[k], r)
+                    halo_fill.restore_strips_group_plain(plain[k], want_saved[k], r)
+                torch.cuda.synchronize()
+                check(all(torch.equal(f[0], b) and torch.equal(p[0], b)
+                          for fs, ps, bs in zip(ranks, plain, before)
+                          for f, p, b in zip(fs, ps, bs)),
+                      f"shard restore {group} ny={ny} {name}: every field as before")
+                counts = kernels.launch_counts()
+                check(counts["halo_pack"] == n and counts["halo_fill_shard"] == n and
+                      counts["halo_restore"] == n and sum(counts.values()) == 3 * n,
+                      f"shard group {group}: one launch a call, {counts}")
+                role_names = ", ".join(halo_fill.ROLE_NAMES[r] for r in roles)
+                log(f"phase 12a: {group} group, 4 ranks of ny = {ny} ({role_names}), "
+                    f"{name}: pack, fill with "
+                    f"save and restore bitwise their plain versions, inputs restored "
+                    f"[{card}]")
+                if name != "float32" or ny != 170 or group != "Bickley":
+                    continue
+                fields, role = ranks[1], roles[1]
+                rows = dict(south=sends[0][:part], north=sends[2][part:])
+                _, sv = halo_fill.fill_halos_group(fields, True, role, **rows)
+                halo_fill.restore_strips_group(fields, sv, role)
+                slices = [f[0][..., f[4]:f[4] + f[6], :] for f in fields] + \
+                    [f[0][..., f[6]:2 * f[6], :] for f in fields]
+                t = dict(
+                    pack=time_ms(lambda: halo_fill.pack_strips(fields, role), ahead=True),
+                    pack_plain=time_ms(lambda: halo_fill.pack_strips_plain(fields, role)),
+                    cat=time_ms(lambda: torch.cat([x.reshape(-1) for x in slices])),
+                    fill=time_ms(lambda: halo_fill.fill_halos_group(fields, True, role,
+                                                                    **rows), ahead=True),
+                    fill_plain=time_ms(lambda: halo_fill.fill_halos_group_plain(
+                        fields, True, role, **rows)),
+                    restore=time_ms(lambda: halo_fill.restore_strips_group(fields, sv, role),
+                                    ahead=True))
+                halo_fill.restore_strips_group(fields, sv, role)
+                written, read = shard_fill_cells(fields, role)
+                size = fields[0][0].element_size()
+                b_fill = bound(size * (3 * written + read), written)
+                b_pack = bound(2 * 2 * part * size, 0)
+                log(f"phase 12a: middle rank of the Bickley group (ny = 170), float32, "
+                    f"device time with the host ahead: pack {t['pack']:.4f} ms kernel, "
+                    f"{t['pack_plain']:.4f} ms plain, torch.cat {t['cat']:.4f} ms (bound "
+                    f"{b_pack[0]:.5f} ms, {b_pack[2]} bytes); fill with save "
+                    f"{t['fill']:.4f} ms kernel, {t['fill_plain']:.4f} ms plain ({written} "
+                    f"written, {read} read; bound {b_fill[0]:.5f} ms, {b_fill[2]} bytes); "
+                    f"restore {t['restore']:.4f} ms [{card}]")
+                results["halo_fill_shard"] = (0.0, t["fill"], t["fill_plain"], b_fill)
+                results["halo_pack"] = (0.0, t["pack"], t["pack_plain"], b_pack, t["cat"])
+            del ranks, plain, before
+    return results
+
+
+def device_busy(run, state, n):
+    """(state after ``n`` calls of ``run`` under ``torch.profiler``, device operations
+    a step, device busy ms a step: the union of device activity, the idle share of the
+    window's span; the profiler slows the host, so the share is an upper bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            state = run(state)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(bool(spans), "the profiler saw device activity")
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return state, len(spans) / n, busy / 1e3 / n, 1.0 - busy / (spans[-1][1] - spans[0][0])
+
+
+def phase12_sharded(card, bickley, gyre, n=4):
+    """Phase 3's Bickley jet (20 steps at dt = 60 s) and phase 7's gyre (3 steps at
+    dt = 40 s) in ``n`` y-shards through LocalExchange, each gathered state bitwise
+    equal to the serial run from the same state, each shard's launches counted, no
+    host synchronization; then the serial step inside an initialized 1-rank NCCL
+    group (with one rank the step takes the serial route, so ProcessGroupExchange
+    makes no NCCL operation). Returns the Bickley run's launch counts."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from orthogonalsphericalshellgrids_tpu_torch import kernels, parallel
+    from orthogonalsphericalshellgrids_tpu_torch.models import (layered_multi_step,
+                                                                 layered_step, multi_step,
+                                                                 step)
+
+    def interiors_equal(model, got, want, names):
+        for name in names:
+            grid = model.grid_ext if name in ("eta", "U", "V") else model.grid
+            check(torch.equal(grid.interior(getattr(got, name)),
+                              grid.interior(getattr(want, name))),
+                  f"sharded {name} bitwise equal to serial")
+
+    results = {}
+    for path, (model, state0, serial_ms), n_steps, dt in (("Bickley", bickley, 20, 60.0),
+                                                          ("gyre", gyre, 3, 40.0)):
+        layered = path == "gyre"
+        distribute = parallel.distribute_layered if layered else parallel.distribute
+        make_fn = parallel.sharded_layered_step_fn if layered else parallel.sharded_step_fn
+        mesh = parallel.make_mesh(n)
+        dist_model, dist_state = distribute(model, state0, mesh)
+        make_fn(mesh, dist_model)(dist_state, dt)  # loads the exchange's path
+        torch.cuda.synchronize()
+        fn = make_fn(mesh, dist_model)
+        kernels.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        s = dist_state
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(n_steps):
+            s = fn(s, dt)
+        end.record()
+        end.synchronize()
+        wall = (time.perf_counter() - t0) / n_steps * 1e3
+        counts = kernels.launch_counts()
+        per_shard = [dict(own) for own in fn.launches]
+        ms = start.elapsed_time(end) / n_steps
+        with host_syncs() as n_syncs:
+            fn(s, dt)
+            syncs = n_syncs()
+        check(syncs == 0, f"sharded {path} step: {syncs} host synchronizations")
+        serial_step = layered_step if layered else step
+        _, ops, busy, idle = device_busy(lambda x: fn(x, dt), s, 5)
+        _, s_ops, s_busy, s_idle = device_busy(lambda x: serial_step(model, x, dt),
+                                               state0, 5)
+        serial = (layered_multi_step if layered else multi_step)(model, state0, dt, n_steps)
+        gathered = (parallel.gather_layered_state if layered else parallel.gather_state)(
+            s, model, n)
+        interiors_equal(model, gathered, serial,
+                        ("u", "v", "c", "eta", "U", "V", "Gu", "Gv", "Gc"))
+        each = GYRE_SHARD if layered else ("barotropic", "momentum", "tracer_adv")
+        for i, own in enumerate(per_shard):
+            check(all(own[k] == n_steps for k in each) and own["halo_restore"] == n_steps
+                  and own["halo_pack"] == own["halo_fill_shard"] == 2 * n_steps
+                  and own["halo_fill"] == 0, f"sharded {path} shard {i} launched {own}")
+        fn.close()
+        log(f"phase 12{'c' if layered else 'b'}: the 1/4-degree {path} in {n} y-shards "
+            f"(rows {tuple(dist_state[0].u.shape)[-2:]} a shard) through LocalExchange, "
+            f"{n_steps} steps at dt = {dt:g} s: gathered bitwise equal to the serial "
+            f"run; {ms:.4f} ms/step on the card's clock ({wall:.4f} ms/step on the "
+            f"host's), serial {serial_ms:.4f} ms/step (phase {7 if layered else 3}); "
+            f"each shard launched {', '.join(each)} once a step; exchange launches a "
+            f"step: {counts['halo_pack'] // n_steps} packs, "
+            f"{counts['halo_fill_shard'] // n_steps} shard fills, "
+            f"{counts['halo_restore'] // n_steps} restores; host synchronizations 0; "
+            f"profiler, 5 steps: {ops:.0f} device ops, {busy:.4f} ms device busy a step, "
+            f"idle share {idle:.3f} (serial {s_ops:.0f} ops, {s_busy:.4f} ms, "
+            f"{s_idle:.3f}); launches {counts} [{card}]")
+        results[path] = counts
+        del dist_model, dist_state, s, serial, gathered
+
+    # (d) one rank of an NCCL group: the step takes the serial route (ops/spmd._serial),
+    # so this checks the serial step inside the group; no NCCL operation is made
+    model, state0, _ = bickley
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "store"),
+                                rank=0, world_size=1)
+        try:
+            mesh = parallel.ProcessGroupExchange()
+            dist_model, dist_state = parallel.distribute(model, state0, mesh)
+            fn = parallel.sharded_step_fn(mesh, dist_model)
+            s = fn(dist_state, 60.0)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            with host_syncs() as n_syncs:
+                for _ in range(3):
+                    s = fn(s, 60.0)
+                syncs = n_syncs()
+            counts = kernels.launch_counts()
+        finally:
+            dist.destroy_process_group()
+    serial = multi_step(model, state0, 60.0, 4)
+    check(all(torch.equal(getattr(s[0], name), getattr(serial, name))
+              for name in ("u", "v", "c", "eta", "U", "V", "Gu", "Gv", "Gc", "t")),
+          "1-rank NCCL step bitwise equal to the serial step")
+    check(syncs == 0, f"1-rank NCCL step: {syncs} host synchronizations")
+    check(counts["halo_fill"] == 6 and counts["halo_restore"] == 3 and
+          counts["halo_pack"] == 0 and counts["halo_fill_shard"] == 0,
+          f"1-rank NCCL step launched {counts}")
+    log(f"phase 12d: the sharded step of a 1-rank NCCL process group (ProcessGroupExchange"
+        f"), 4 steps of the 1/4-degree Bickley jet: with one rank it takes the serial "
+        f"route and makes no NCCL operation; bitwise equal to the serial step, the serial "
+        f"launches ({counts['halo_fill'] // 3} fills and {counts['halo_restore'] // 3} "
+        f"restore a step, no pack), host synchronizations 0 [{card}]")
+    log("phase 12: not measured: any multi-GPU number (one card); not run: "
+        "ProcessGroupExchange's NCCL send and receive, so its stream wait and the absence "
+        "of host synchronization there are unverified (NCCL refuses two ranks on one GPU; "
+        "the exchange between ranks runs here through LocalExchange and on the CPU "
+        "through gloo in tests/test_torch_distributed.py)")
+    return results["Bickley"]
+
+
 def main():
     import torch
 
@@ -1529,22 +1859,27 @@ def main():
     kres.update(phase2_layered(card))
     kres.update(phase2_gyre(card))
     phase2_operands(card)
-    counts, _ = phase3_main_path(card)
+    counts, bickley_ms, bickley_model, bickley_state0 = phase3_main_path(card)
     phase4_parity(card)
     front_counts, _ = phase5_layered_path(card)
     phase6_layered_parity(card)
-    gyre_counts, _, gyre_model, gyre_state0 = phase7_gyre_path(card)
+    gyre_counts, gyre_ms, gyre_model, gyre_state0 = phase7_gyre_path(card)
     phase8_gyre_parity(card)
     probe_rows, probe_counts = phase9_probes(card, kres)
     kres.update(probe_rows)
     phase10_simulation(card, gyre_model, gyre_state0)
-    del gyre_model, gyre_state0
     diag_counts = phase11_bickley_50_days(card)
+    kres.update(phase12a_shard_fills(card))
+    shard_counts = phase12_sharded(card, (bickley_model, bickley_state0, bickley_ms),
+                                   (gyre_model, gyre_state0, gyre_ms))
+    del bickley_model, bickley_state0, gyre_model, gyre_state0
 
     # each path must have launched every kernel it runs; a row reports the count of
-    # the last path that runs it (the gyre's for every kernel of the gyre)
+    # the last path that runs it (the gyre's for every kernel of the gyre; the
+    # sharded Bickley jet's for the pack and the shard fill)
     launches = {}
-    for path, names, cnt in (("Bickley", BICKLEY, counts), ("front", FRONT, front_counts),
+    for path, names, cnt in (("sharded Bickley", SHARDED, shard_counts),
+                             ("Bickley", BICKLEY, counts), ("front", FRONT, front_counts),
                              ("gyre", GYRE, gyre_counts), ("ceilings", PROBES, probe_counts),
                              ("50-day run", DIAGNOSTICS, diag_counts)):
         check(all(cnt[n] > 0 for n in names), f"{path} path launched {cnt}")

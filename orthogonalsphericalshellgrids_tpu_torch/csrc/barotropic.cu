@@ -32,7 +32,11 @@
 // that never reach the tile; a neighbour outside the window is clamped to the cell
 // itself, and cells outside the array hold 0, so every value stays finite. A tile's
 // cells are written only by its CTA, and the sums run in substep order, so the
-// result is deterministic and independent of the tile plan. On the H100 the window
+// result is deterministic and independent of the tile plan: the y-flux is rounded
+// before its difference (mul_rn), since a thread's last row takes its northern flux
+// from shared memory, where nvcc would otherwise fuse the product of the rows below
+// into the difference, and a cell's eta would then depend on its row in the tile (a
+// y-partitioned run tiles each rank's rows from its own first row). On the H100 the window
 // of 64 x 48 at float32 takes 0.19 ms, its load phase and its compute phase one
 // after the other (one 512-thread CTA an SM at 126 registers); the ring makes 2.9x
 // the point-substeps of the plane. A persistent variant that copied the next tile's
@@ -76,6 +80,10 @@ template <>
 struct Window<double> {
   static constexpr int WX = 32, NTY = 8, PT = 4;
 };
+
+// a product rounded on its own, never fused into a following add
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
 __device__ __forceinline__ int pmod(int a, int n) {
   const int r = a % n;
@@ -156,7 +164,7 @@ __global__ void __launch_bounds__(Window<T>::WX * Window<T>::NTY, 1)
 #pragma unroll
     for (int r = 0; r < PT; ++r) {
       fx[r] = dy[r] * U[r];
-      fy[r] = dx[r] * V[r];
+      fy[r] = mul_rn(dx[r], V[r]);
       T pub = fx[r];
       if (seam) pub = seam_dy[y0 + r] * (m == 0 ? seam_u0[y0 + r] : U[r]);
       fx_s[y0 + r][tx] = pub;

@@ -3,31 +3,65 @@
 Each wrapper takes the plain version for a tensor on the CPU and launches its kernel
 for a tensor on a CUDA device; there is no other route. ``LAUNCHES`` counts kernel
 launches per wrapper (a C entry call counts once), so a run can show that it went
-through the kernels.
+through the kernels; ``counting`` also counts the launches of one thread (one shard
+of a y-partitioned run stepped in its own thread).
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
 from ._build import library
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "launch_counts"]
+__all__ = ["LAUNCHES", "reset_launch_counts", "launch_counts", "count", "counting"]
 
-LAUNCHES = {"halo_fill": 0, "halo_restore": 0, "halo_fill_copy": 0, "barotropic": 0,
+LAUNCHES = {"halo_fill": 0, "halo_restore": 0, "halo_fill_copy": 0, "halo_pack": 0,
+            "halo_fill_shard": 0, "barotropic": 0,
             "momentum": 0, "tracer_adv": 0, "vertical": 0, "momentum_layered": 0,
             "tracer_adv_layered": 0, "momentum_closures": 0, "tracer_adv_kappa": 0,
             "corrector": 0, "baro_substep_sol": 0, "weno_probe": 0, "stream_probe": 0,
             "fma_ceiling": 0}
 
 
+_lock = threading.Lock()
+_thread = threading.local()
+
+
 def reset_launch_counts():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def launch_counts():
-    return dict(LAUNCHES)
+    with _lock:
+        return dict(LAUNCHES)
+
+
+def count(name):
+    """Count one launch of kernel ``name``: in ``LAUNCHES`` (under a lock, since the
+    shards of one process launch from several threads) and in the counts of the
+    calling thread's ``counting`` block, if any."""
+    with _lock:
+        LAUNCHES[name] += 1
+    own = getattr(_thread, "counts", None)
+    if own is not None:
+        own[name] += 1
+
+
+@contextlib.contextmanager
+def counting(counts):
+    """Inside the block, add each launch the calling thread makes to ``counts`` (a
+    dict with the keys of ``LAUNCHES``) as well."""
+    outer = getattr(_thread, "counts", None)
+    _thread.counts = counts
+    try:
+        yield counts
+    finally:
+        _thread.counts = outer
 
 
 def on_cuda(*tensors):

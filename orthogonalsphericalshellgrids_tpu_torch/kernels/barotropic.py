@@ -18,7 +18,7 @@ import torch
 
 from ..ops import zipper
 from ..ops.operators import dxc, dxf, dyc, dyf
-from . import LAUNCHES, call, check_operands, on_cuda
+from . import call, check_operands, count, on_cuda
 
 __all__ = ["barotropic_substeps", "barotropic_substeps_plain", "launch_plan",
            "STATIC_PLANES"]
@@ -129,5 +129,5 @@ def barotropic_substeps(static, eta, U, V, GU, GV, dtau, weights, Nx, Hx,
          U.data_ptr(), V.data_ptr(), GU.data_ptr(), GV.data_ptr(), work.data_ptr(),
          acc.data_ptr(), dtau.data_ptr(), weights.data_ptr(), int(n_sub), Ye, Xe, Nx, Hx,
          int(wrap_x_each_substep), plan.k, plan.window[1], plan.window[0])
-    LAUNCHES["barotropic"] += 1
+    count("barotropic")
     return acc[0], acc[1], acc[2]

@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES, call, check_operands, on_cuda
+from . import call, check_operands, count, on_cuda
 
 __all__ = ["corrector", "corrector_plain", "predictor_plain", "depth_mean_plain",
            "tracer_update_plain"]
@@ -109,5 +109,5 @@ def corrector(u0, Gu, Gu_old, v0, Gv, Gv_old, c0, Gc, Gc_old, dzu, dzv, mask_c,
                                           for t in ptrs))
     call("osg_corrector", u0.dtype, u0.device, arr, c0.shape[0], nz, Yb, Xb,
          U_a.stride(0))
-    LAUNCHES["corrector"] += 1
+    count("corrector")
     return u, v, c, b_new

@@ -29,7 +29,7 @@ import torch
 
 from ..ops.advection import weno5_upwind_centers_from_faces
 from ..ops.operators import dxf, dyf, ixc, ixf, iyc, iyf, shift_m, shift_p
-from . import LAUNCHES, call, check_operands, data_ptr, on_cuda
+from . import call, check_operands, count, data_ptr, on_cuda
 
 __all__ = ["momentum", "momentum_plain", "launch_plan", "STATIC_PLANES",
            "LAYERED_PLANES", "LAP_PLANES", "DRAG_PLANES", "REACH"]
@@ -191,6 +191,6 @@ def momentum(u, v, static, has_mask=True, lay=None, has_lap=False, has_drag=Fals
          static.data_ptr(), *map(data_ptr, (lay, a_u, a_v, m_u, m_v)),
          Gu.data_ptr(), Gv.data_ptr(), nz, Yb, Xb, int(has_mask), int(bool(has_lap)),
          int(bool(has_drag)), plan.tile[0], plan.tile[1])
-    LAUNCHES["momentum_closures" if n_lay else
-             "momentum" if has_mask else "momentum_layered"] += 1
+    count("momentum_closures" if n_lay else
+          "momentum" if has_mask else "momentum_layered")
     return Gu, Gv

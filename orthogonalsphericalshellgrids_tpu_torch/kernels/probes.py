@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.advection import _weno5_left
-from . import LAUNCHES, call, check_operands, on_cuda
+from . import call, check_operands, count, on_cuda
 
 __all__ = ["baro_substep_sol", "baro_substep_sol_plain", "weno_probe", "weno_probe_plain",
            "stream_probe", "stream_probe_plain", "fma_ceiling", "fma_ceiling_plain",
@@ -91,7 +91,7 @@ def baro_substep_sol(spack, dpack, dtau, n_iter):
     out = torch.empty((B, 3, Wt, Xt), dtype=dt, device=spack.device)
     call("osg_baro_substep_sol", dt, spack.device, spack.data_ptr(), dpack.data_ptr(),
          dtau.data_ptr(), out.data_ptr(), B, Wt, Xt, int(n_iter))
-    LAUNCHES["baro_substep_sol"] += 1
+    count("baro_substep_sol")
     return out
 
 
@@ -132,7 +132,7 @@ def weno_probe(x, n_iter, upwind=True):
     out = torch.empty_like(x)
     call("osg_weno_probe", x.dtype, x.device, x.data_ptr(), out.data_ptr(), W, Xe,
          int(n_iter), int(bool(upwind)))
-    LAUNCHES["weno_probe"] += 1
+    count("weno_probe")
     return out
 
 
@@ -151,7 +151,7 @@ def stream_probe(x, out=None):
     if x.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError("stream_probe: x and out must be 16-byte aligned")
     call("osg_stream_probe", x.dtype, x.device, x.data_ptr(), out.data_ptr(), x.numel())
-    LAUNCHES["stream_probe"] += 1
+    count("stream_probe")
     return out
 
 
@@ -182,5 +182,5 @@ def fma_ceiling(x, n_iter):
     out = torch.empty_like(x)
     call("osg_fma_ceiling", x.dtype, x.device, x.data_ptr(), out.data_ptr(), x.numel(),
          int(n_iter))
-    LAUNCHES["fma_ceiling"] += 1
+    count("fma_ceiling")
     return out

@@ -37,7 +37,7 @@ import torch
 
 from ..ops.advection import weno5_upwind_faces_from_centers
 from ..ops.operators import dxc, dxf, dyc, dyf
-from . import LAUNCHES, call, check_operands, data_ptr, on_cuda
+from . import call, check_operands, count, data_ptr, on_cuda
 
 __all__ = ["tracer_adv", "tracer_adv_plain", "launch_plan", "STATIC_PLANES",
            "KAPPA_PLANES", "G_PLANES", "REACH"]
@@ -160,7 +160,7 @@ def tracer_adv(c, u, v, static, g_pack=None, dz=None, acc=None):
         call("osg_tracer_adv", c.dtype, c.device, c.data_ptr(), u.data_ptr(),
              v.data_ptr(), static.data_ptr(), data_ptr(acc), G.data_ptr(), Yb, Xb,
              int(n_st == 8), *plan.tile)
-        LAUNCHES["tracer_adv_kappa" if n_st == 8 else "tracer_adv"] += 1
+        count("tracer_adv_kappa" if n_st == 8 else "tracer_adv")
         return G
     if u.dim() != 3 or c.dim() != 3:
         raise ValueError("tracer_adv: layered mode takes (P, Yb, Xb) tracers over "
@@ -185,5 +185,5 @@ def tracer_adv(c, u, v, static, g_pack=None, dz=None, acc=None):
     call("osg_tracer_adv_layered", c.dtype, c.device, c.data_ptr(), u.data_ptr(),
          v.data_ptr(), static.data_ptr(), g_pack.data_ptr(), dz.data_ptr(), data_ptr(acc),
          G.data_ptr(), c.shape[0], nz, Yb, Xb, int(has_diff), *plan.tile)
-    LAUNCHES["tracer_adv_kappa" if has_diff else "tracer_adv_layered"] += 1
+    count("tracer_adv_kappa" if has_diff else "tracer_adv_layered")
     return G

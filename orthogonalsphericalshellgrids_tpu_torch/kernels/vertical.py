@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..ops.operators import shift_m, shift_p
-from . import LAUNCHES, call, check_operands, on_cuda
+from . import call, check_operands, count, on_cuda
 
 __all__ = ["vertical", "vertical_plain", "coefficients", "wet_counts", "wet_pack",
            "launch_plan", "MODES", "REACH"]
@@ -295,5 +295,5 @@ def vertical(u, v, c, b, n_wet, g_pack, coef, mode="none",
          coef.data_ptr(), dgu.data_ptr(), dgv.data_ptr(), dgc.data_ptr(), nz, n_c, n_tr,
          Yb, Xb, MODES[mode], int(it_T), int(it_S), int(bool(viscous)),
          int(bool(diffusive)), *plan.tile, plan.chunk, *(float(x) for x in eos))
-    LAUNCHES["vertical"] += 1
+    count("vertical")
     return dgu, dgv, dgc

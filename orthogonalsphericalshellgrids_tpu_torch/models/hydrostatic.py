@@ -26,6 +26,12 @@ between the two reads the unfilled fields, so the state is bitwise unchanged on
 return, also when the step raises; the output writer copies to the host on the
 simulation thread, so no other stream sees the window.
 
+With ``spmd`` (``ops/spmd.py``) ``step`` runs on one rank of a y-partitioned run
+(``parallel/distributed.py``): the same code on the rank's rows, with the fills
+exchanged. Each fill packs the rank's send rows, exchanges them and fills its group
+in the rank's role (u, v, c, η, U, V with save, then GU and GV); the restore follows
+the role's plan. With one shard it is the serial step, launch for launch.
+
 Not ported yet (``make_model`` raises ``NotImplementedError``; ROADMAP queue 1):
 several tracers and the other advection schemes.
 """
@@ -48,6 +54,7 @@ from ..kernels import barotropic, halo_fill, momentum, tracer_adv
 from ..ops.closures import _ratio, biharmonic_c, biharmonic_u, biharmonic_v
 from ..ops.location import CC, CF, FC
 from ..ops.operators import dxf, dyf
+from ..ops.spmd import fill_group, restore_group
 from .split_explicit import SplitExplicitFreeSurface
 
 __all__ = ["HydrostaticModel", "State", "ForcingFields", "make_model", "from_jax_arrays",
@@ -440,11 +447,11 @@ def _fill(grid, A, loc, sign):
                                 inplace=False)
 
 
-def _forcing_ext(grid_ext: TripolarGrid, GU, GV):
+def _forcing_ext(grid_ext: TripolarGrid, GU, GV, spmd=None):
     """Fill the halos of the step's own extended-grid forcing planes GU (face-x) and
-    GV (face-y) in place, one group; returns them."""
+    GV (face-y) in place, one group (exchanged on a rank of ``spmd``); returns them."""
     ext = (grid_ext.Nx, grid_ext.Ny, grid_ext.Hx, grid_ext.Hy)
-    return halo_fill.fill_halos_group([(GU, FC, -1, *ext), (GV, CF, -1, *ext)])[0]
+    return fill_group([(GU, FC, -1, *ext), (GV, CF, -1, *ext)], spmd)[0]
 
 
 def barotropic_substeps(model: HydrostaticModel, eta, U, V, GU, GV, dt,
@@ -459,7 +466,7 @@ def barotropic_substeps(model: HydrostaticModel, eta, U, V, GU, GV, dt,
                                           wrap_x_each_substep)
 
 
-def step(model: HydrostaticModel, state: State, dt) -> State:
+def step(model: HydrostaticModel, state: State, dt, spmd=None) -> State:
     """One time step (the reference call stack, SURVEY.md §3.4): halo fills, WENO
     tendencies, quasi-AB2 extrapolation, the exchange-free barotropic subcycle, the
     single-layer corrector (u = U/H) and the tracer update.
@@ -468,7 +475,11 @@ def step(model: HydrostaticModel, state: State, dt) -> State:
     strips saved (one group fill), and written back (one restore) after the
     barotropic subcycle, the last reader of the filled fields, and before anything
     reads the unfilled ones; the restore runs even when the step raises. ``state``
-    is bitwise unchanged on return."""
+    is bitwise unchanged on return.
+
+    ``spmd`` (``ops/spmd.Spmd``) runs the step on one rank of a y-partitioned run:
+    ``model`` and ``state`` are the rank's (``parallel/distributed.py``), and both
+    fills exchange rows with the neighbouring ranks."""
     g, ge, ib = model.grid, model.grid_ext, model.ib
     # a number becomes a device scalar by a fill launch; copying it from the host
     # (torch.as_tensor) would wait for the stream to drain on every step
@@ -478,7 +489,7 @@ def step(model: HydrostaticModel, state: State, dt) -> State:
     base, ext = (g.Nx, g.Ny, g.Hx, g.Hy), (ge.Nx, ge.Ny, ge.Hx, ge.Hy)
     fields = [(state.u, FC, -1, *base), (state.v, CF, -1, *base), (state.c, CC, 1, *base),
               (state.eta, CC, 1, *ext), (state.U, FC, -1, *ext), (state.V, CF, -1, *ext)]
-    _, saved = halo_fill.fill_halos_group(fields, save=True)
+    _, saved = fill_group(fields, spmd, save=True)
     try:
         first = state.iteration == 0
         w1 = torch.where(first, model.ab2[0], model.ab2[2])
@@ -491,14 +502,14 @@ def step(model: HydrostaticModel, state: State, dt) -> State:
 
         # depth-integrated forcing, valid through the widened halo after its fill
         GU, GV = _forcing_ext(ge, embed_ext(g, ge, ib.h_u * Gu_s),
-                              embed_ext(g, ge, ib.h_v * Gv_s))
+                              embed_ext(g, ge, ib.h_v * Gv_s), spmd)
 
         # with the x-halo widened to >= n_sub + 1 the loop needs no per-substep x-wrap
         n_sub = model.weights.shape[0]
         eta_a, U_a, V_a = barotropic_substeps(model, state.eta, state.U, state.V, GU, GV,
                                               dt, wrap_x_each_substep=ge.Hx < n_sub + 1)
     finally:
-        halo_fill.restore_strips_group(fields, saved)
+        restore_group(fields, saved, spmd)
     c_new = (state.c + dt * Gc_s) * ib.mask_c
 
     # single-layer corrector: the velocity is the barotropic velocity

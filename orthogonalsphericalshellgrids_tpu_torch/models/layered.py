@@ -34,7 +34,10 @@ before it returns; nothing between the two reads the unfilled fields, so the sta
 is bitwise unchanged on return, also when the step raises. The output writer copies
 to the host on the simulation thread, so no other stream sees the window.
 
-Not ported yet: the sharded step and its overlap split (ROADMAP queue 1 item 8).
+With ``spmd`` (``ops/spmd.py``) ``layered_step`` runs on one rank of a
+y-partitioned run (``parallel/distributed.py``), its fills exchanged as in the
+single-layer step. Not ported yet: the overlap split of the sharded step (ROADMAP
+queue 1).
 The JAX package's ``fill_mode``, ``use_pallas`` and ``block_rows`` are TPU choices
 with no counterpart; its ``OSG_CORR_KERNEL`` and ``OSG_ACC_FOLD`` switches have none
 either: on a card the corrector kernel always runs, and the vertical kernel's
@@ -53,10 +56,11 @@ import torch
 from torch import nn
 
 from ..grids.tripolar import TripolarGrid
-from ..kernels import corrector, halo_fill, momentum, tracer_adv, vertical
+from ..kernels import corrector, momentum, tracer_adv, vertical
 from ..ops.closures import _ratio, biharmonic_c, biharmonic_u, biharmonic_v
 from ..ops.location import CC, CF, FC
 from ..ops.operators import dxc, dyc
+from ..ops.spmd import fill_group, restore_group
 from .hydrostatic import (ForcingFields, HydrostaticModel, _forcing_ext, _inv,
                           barotropic_substeps, crop_ext, embed_ext, from_jax_arrays,
                           make_model)
@@ -648,7 +652,7 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
     return Gu, Gv, Gc, Gb
 
 
-def layered_step(model: LayeredModel, state: LayeredState, dt) -> LayeredState:
+def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None) -> LayeredState:
     """One layered time step: halo fills, tendencies, quasi-AB2, the barotropic
     subcycle driven by the thickness-weighted baroclinic forcing, then the AB2
     predictor, the split-explicit corrector and the tracer update: one corrector
@@ -660,7 +664,8 @@ def layered_step(model: LayeredModel, state: LayeredState, dt) -> LayeredState:
     pre-fill strips saved (one group fill), and written back (one restore) after the
     barotropic subcycle, the last reader of the filled fields, and before anything
     reads the unfilled ones; the restore runs even when the step raises. ``state``
-    is bitwise unchanged on return."""
+    is bitwise unchanged on return. ``spmd`` runs the step on one rank of a
+    y-partitioned run, as in ``models/hydrostatic.py:step``."""
     g, ge, m = model.grid, model.grid_ext, model.baro
     # a number becomes a device scalar by a fill launch; copying it from the host
     # would wait for the stream to drain on every step
@@ -668,7 +673,7 @@ def layered_step(model: LayeredModel, state: LayeredState, dt) -> LayeredState:
           torch.full((), float(dt), dtype=model.dtype, device=model.device))
 
     fields = _state_fields(model, state)
-    _, saved = halo_fill.fill_halos_group(fields, save=True)
+    _, saved = fill_group(fields, spmd, save=True)
     try:
         Gu, Gv, Gc, Gb = layered_tendencies(model, state.u, state.v, state.c, state.b,
                                             t=state.t)
@@ -682,12 +687,12 @@ def layered_step(model: LayeredModel, state: LayeredState, dt) -> LayeredState:
         # the thickness-weighted depth integral of the baroclinic forcing drives the
         # subcycle, valid through the widened halo after its fill
         GU, GV = _forcing_ext(ge, embed_ext(g, ge, torch.sum(Gu_s * model.dzu, dim=0)),
-                              embed_ext(g, ge, torch.sum(Gv_s * model.dzv, dim=0)))
+                              embed_ext(g, ge, torch.sum(Gv_s * model.dzv, dim=0)), spmd)
         n_sub = m.weights.shape[0]
         eta_a, U_a, V_a = barotropic_substeps(m, state.eta, state.U, state.V, GU, GV, dt,
                                               wrap_x_each_substep=ge.Hx < n_sub + 1)
     finally:
-        halo_fill.restore_strips_group(fields, saved)
+        restore_group(fields, saved, spmd)
 
     if model.vert_impl and (model.nu_v > 0.0 or model.kappa_v > 0.0):
         u_new, v_new, c_new, b_new = _implicit_update(model, state, Gu, Gv, Gc, Gb,

@@ -106,19 +106,32 @@ def wrap_x(A, Nx, Hx):
     return A
 
 
-def fill_halos(A, loc, sign, Nx, Ny, Hx, Hy, south="zero_gradient", inplace=False):
+def fill_halos(A, loc, sign, Nx, Ny, Hx, Hy, south="zero_gradient", inplace=False,
+               from_south=None, from_north=None):
     """Fused halo fill — south fill, north zipper fold, then periodic x-wrap — the
     single-device ``fill_halo_regions!`` of the reference on a tripolar grid.
 
     ``south="zero_gradient"`` copies the first interior row into the south halo;
-    ``"none"`` leaves it (grid-construction path)."""
+    ``"none"`` leaves it (grid-construction path).
+
+    On one rank of a y-partitioned run (``ops/spmd.py``) ``from_south`` and
+    ``from_north`` are the ``(..., Hy, Nx+2Hx)`` rows received from the ranks below
+    and above: they become the south and north halo rows in place of the south fill
+    and the fold, in the order of the JAX package's ``ops/spmd.py``: the south rows,
+    then the north rows or the fold (which, on a top rank of Ny = Hy rows, reads a
+    received south row), then the x-wrap, which derives every written row's x-halo
+    from its interior columns."""
     if south not in ("zero_gradient", "none"):
         raise ValueError(f"Unknown south fill mode {south!r}")
     if not inplace:
         A = A.clone() if _is_torch(A) else np.array(A, copy=True)
-    if south == "zero_gradient" and Hy > 0:
+    if from_south is not None:
+        A[..., 0:Hy, :] = from_south
+    elif south == "zero_gradient" and Hy > 0:
         A[..., 0:Hy, :] = A[..., Hy : Hy + 1, :]
-    if Hy > 0:
+    if from_north is not None:
+        A[..., Hy + Ny : Hy + Ny + Hy, :] = from_north
+    elif Hy > 0:
         full, y0 = fold_strip(A, loc, sign, Nx, Ny, Hx, Hy)
         A[..., y0 : Hy + Ny + Hy, :] = full
     return wrap_x(A, Nx, Hx)

@@ -5,7 +5,9 @@ The leaves are written in the JAX package's flatten order, which is the dataclas
 field order of ``State`` and ``LayeredState`` (the same in both packages), under the
 same names ``leaf_0`` ... ``leaf_<n-1>``: a checkpoint written by either package loads
 into the other. orbax has no counterpart here, so a path that does not end in
-``.npz`` raises.
+``.npz`` raises. A y-partitioned run (``parallel/distributed.py``) writes one
+checkpoint a rank, ``<stem>.rank<k>.npz`` (``save_sharded_checkpoint``), and resumes
+from them bitwise (``load_sharded_checkpoint``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,10 @@ import os
 import numpy as np
 import torch
 
-__all__ = ["save_checkpoint", "load_checkpoint"]
+from .output import rank_filename
+
+__all__ = ["save_checkpoint", "load_checkpoint", "save_sharded_checkpoint",
+           "load_sharded_checkpoint"]
 
 
 def _check_npz(path: str) -> None:
@@ -52,3 +57,20 @@ def load_checkpoint(path: str, like):
         values = {f.name: torch.from_numpy(np.array(data[f"leaf_{i}"])).to(
             getattr(like, f.name).device) for i, f in enumerate(fields)}
     return type(like)(**values)
+
+
+def save_sharded_checkpoint(path: str, dist_state, dist_model) -> None:
+    """Write each shard's state of a y-partitioned run to its rank's checkpoint,
+    ``<stem>.rank<k>.npz`` (``save_checkpoint``); ``dist_model`` gives the ranks."""
+    _check_npz(path)
+    for state, model in zip(dist_state, dist_model):
+        save_checkpoint(rank_filename(path, model.shard[0]), state)
+
+
+def load_sharded_checkpoint(path: str, like, dist_model):
+    """The shards' states written by ``save_sharded_checkpoint``: one for each model
+    of ``dist_model``, from its rank's checkpoint; ``like`` is a list of states of
+    the same class and devices."""
+    _check_npz(path)
+    return [load_checkpoint(rank_filename(path, model.shard[0]), s)
+            for s, model in zip(like, dist_model)]

@@ -7,7 +7,10 @@ formats, so that either package reads the other's output:
 - ``OutputWriter``: a zip of ``.npy`` members, one per field and snapshot
   (``c.000004.npy``) plus ``times.000004.npy``, appended in O(snapshot) time; with
   ``async_write=True`` the compression and disk IO run on a writer thread.
-- ``NetCDFWriter``: NetCDF3 (64-bit offset) through ``scipy.io.netcdf_file``.
+- ``NetCDFWriter``: NetCDF3 (64-bit offset) through ``scipy.io.netcdf_file``;
+- ``ShardedOutputWriter``: the y-partitioned runs' output, one archive a rank
+  (``<stem>.rank<k>.npz``) holding that rank's interior rows; ``FieldTimeSeries``
+  stitches the ranks' archives back into the global interior.
 
 Every output is copied to the host on the simulation thread before ``__call__``
 returns (``tensor.detach().cpu()``, a fresh copy also for CPU tensors): a later step
@@ -15,9 +18,6 @@ may write into the same storage, and only host copies reach the writer thread. T
 copy is the one place a writer waits for the card. With ``with_halos=False`` a field
 whose last two dims are the base or the widened grid's halo-inclusive shape is cropped
 to its interior; a leading layer dim is kept.
-
-``ShardedOutputWriter`` belongs to the distributed paths, which the port does not
-have yet, and with it the per-rank stitching of ``FieldTimeSeries``.
 """
 
 from __future__ import annotations
@@ -31,7 +31,18 @@ from typing import Callable
 import numpy as np
 import torch
 
-__all__ = ["OutputWriter", "NetCDFWriter", "FieldTimeSeries", "read_netcdf_series"]
+__all__ = ["OutputWriter", "NetCDFWriter", "ShardedOutputWriter", "FieldTimeSeries",
+           "read_netcdf_series", "rank_filename"]
+
+
+_SHARD_MEMBER = "shard.npy"  # (rank, number of ranks) of a ShardedOutputWriter archive
+
+
+def rank_filename(filename: str, k: int) -> str:
+    """The archive of rank ``k`` of a y-partitioned run: ``<stem>.rank<k><ext>``
+    (``.npz`` without an extension)."""
+    stem, ext = os.path.splitext(filename)
+    return f"{stem}.rank{k}{ext or '.npz'}"
 
 
 def _host(x) -> np.ndarray:
@@ -135,6 +146,49 @@ class OutputWriter:
         self._raise_pending()
 
 
+class ShardedOutputWriter:
+    """Output of a y-partitioned run (``parallel/distributed.py``), one archive a rank
+    as the reference writes one file a rank (``examples/distributed_bickley_jet.jl:
+    83-87``): each snapshot appends every shard's interior rows to
+    ``rank_filename(filename, k)``, in ``OutputWriter``'s format; the global array is
+    never assembled. ``dist_model`` is the list of the shards this process holds
+    (their ``shard`` gives the rank and the number of ranks, their grids the local
+    sizes); each archive records its (rank, number of ranks), so that
+    ``FieldTimeSeries(filename, name)`` stitches exactly one run's archives."""
+
+    def __init__(self, filename: str, dist_model):
+        self.filename = filename
+        self.models = list(dist_model)
+        self._count = 0
+        for m in self.models:  # a new run replaces the ranks' archives
+            with zipfile.ZipFile(self.rank_filename(m.shard[0]), "w") as z:
+                with z.open(_SHARD_MEMBER, "w") as f:
+                    np.lib.format.write_array(f, np.asarray(m.shard, dtype=np.int64))
+
+    def rank_filename(self, k: int) -> str:
+        return rank_filename(self.filename, k)
+
+    def write(self, t: float, arrays: dict) -> None:
+        """Append one snapshot: ``arrays`` maps a name to the list of the shards'
+        tensors (in the order of ``dist_model``), each cropped to its rank's interior
+        (base or extended halo alike: the interior is the centred ``ny`` rows and
+        ``Nx`` columns)."""
+        for i, m in enumerate(self.models):
+            g = m.grid
+            arrs = {}
+            for name, parts in arrays.items():
+                block = _host(parts[i])
+                hy = (block.shape[-2] - g.Ny) // 2
+                hx = (block.shape[-1] - g.Nx) // 2
+                arrs[name] = block[..., hy:hy + g.Ny, hx:hx + g.Nx]
+            _append_snapshot(self.rank_filename(m.shard[0]), self._count, t, arrs,
+                             zipfile.ZIP_DEFLATED)
+        self._count += 1
+
+    def close(self) -> None:
+        pass
+
+
 class NetCDFWriter:
     """NetCDF output: one UNLIMITED ``time`` dimension, one record variable per
     output, and ``lam_cc``/``phi_cc`` coordinate variables for base-interior fields.
@@ -205,12 +259,47 @@ def read_netcdf_series(filename: str, name: str):
                 np.array(nc.variables[name][:]))
 
 
+def _shard_of(path: str, filename: str) -> tuple:
+    """(rank, number of ranks) that a ``ShardedOutputWriter`` archive records."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"{filename!r}: neither it nor its rank archive "
+                                f"{path!r} exists")
+    with zipfile.ZipFile(path) as z:
+        if _SHARD_MEMBER not in z.namelist():
+            raise ValueError(f"{path!r} records no rank ({_SHARD_MEMBER}): it is not a "
+                             "ShardedOutputWriter archive")
+        with z.open(_SHARD_MEMBER) as f:
+            return tuple(int(v) for v in np.lib.format.read_array(f))
+
+
 class FieldTimeSeries:
     """Reader for OutputWriter dumps (the reference's FieldTimeSeries):
     ``fts = FieldTimeSeries(path, "c")``; ``fts.times``, ``fts[i]``, ``len(fts)``,
-    ``fts.data``, as numpy arrays."""
+    ``fts.data``, as numpy arrays.
+
+    Also reads ``ShardedOutputWriter`` output: given the base filename (with no
+    archive of its own), the interiors of ranks 0 .. n-1 are stitched along the row
+    axis in rank order, n read from rank 0's archive. A missing rank, or an archive
+    that another run left (of another number of ranks), raises; archives of ranks
+    n and above are not read."""
 
     def __init__(self, filename: str, name: str):
+        if not os.path.exists(filename):
+            n = _shard_of(rank_filename(filename, 0), filename)[1]
+            ranks = [rank_filename(filename, k) for k in range(n)]
+            for k, f in enumerate(ranks):
+                got = _shard_of(f, filename)
+                if got != (k, n):
+                    raise ValueError(f"{f!r} records rank {got[0]} of {got[1]}, not rank "
+                                     f"{k} of the {n}-rank run of {filename!r}")
+            parts = [FieldTimeSeries(f, name) for f in ranks]
+            self.times = parts[0].times
+            for p in parts[1:]:
+                if not np.array_equal(p.times, self.times):
+                    raise ValueError(f"the ranks' archives of {filename!r} hold other "
+                                     "snapshot times")
+            self._data = np.concatenate([p._data for p in parts], axis=-2)
+            return
         with np.load(filename) as data:
             tkeys = sorted(k for k in data.files if k.startswith("times."))
             self.times = np.asarray([float(data[k]) for k in tkeys])

@@ -145,10 +145,10 @@ def test_cuda_group_entries_refuse_another_plan():
     saved = torch.empty(plan.n_saved, device="cuda")
     for col in (11, 12, 13):  # cells, first block, first strip offset of field 1
         table = halo_fill._table(fields, geoms)
-        table[14 + col] += 1
+        table[halo_fill.TABLE_COLS + col] += 1
         with pytest.raises(RuntimeError):
             call("osg_halo_fill_group", torch.float32, saved.device, table, len(fields),
-                 saved.data_ptr(), 1)
+                 saved.data_ptr(), 1, None, None)
         with pytest.raises(RuntimeError):
             call("osg_halo_restore_group", torch.float32, saved.device, table,
                  len(fields), saved.data_ptr())
@@ -805,3 +805,140 @@ def test_cuda_nan_checker_and_progress(bad):
     sim.state.c[4, 10, 10] = bad
     with pytest.raises(RuntimeError, match="non-finite values in 'c'"):
         NaNChecker(("u", "v", "c"))(sim)
+
+
+def _shard_group(path, dtype, ny):
+    """A path's fill group on one rank of ``ny`` rows, on the card: base fields at
+    halo 5, η, U, V views of one buffer at halo min(22, ny)."""
+    r = np.random.default_rng(ny + len(path))
+    he = min(22, ny)
+
+    def cu(shape):
+        return torch.as_tensor(r.standard_normal(shape), dtype=dtype, device="cuda")
+
+    stacks = {"bickley": [(None, FC, -1), (None, CF, -1), (None, CC, 1)],
+              "gyre": [(3, FC, -1), (3, CF, -1), (6, CC, 1)]}[path]
+    plane = (ny + 10, 58)
+    fields = [(cu(plane if K is None else (K,) + plane), loc, s, 48, ny, 5, 5)
+              for K, loc, s in stacks]
+    ext = cu((3, ny + 2 * he, 48 + 2 * he))
+    return fields + [(ext[0], CC, 1, 48, ny, he, he), (ext[1], FC, -1, 48, ny, he, he),
+                     (ext[2], CF, -1, 48, ny, he, he)]
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ny", [22, 40])
+@pytest.mark.parametrize("role", ["bottom", "middle", "top"])
+@pytest.mark.parametrize("path", ["bickley", "gyre"])
+def test_cuda_shard_fill_and_restore_bitwise(dtype, ny, role, path):
+    """In each shard role the pack, the fill with save (reading the received rows)
+    and the restore are bitwise their plain versions, one launch each, also where
+    the rank holds only as many rows as the extended halo (ny = 22)."""
+    role = {"bottom": halo_fill.BOTTOM, "middle": halo_fill.MIDDLE,
+            "top": halo_fill.TOP}[role]
+    fields = _shard_group(path, dtype, ny)
+    before = [f[0].clone() for f in fields]
+    kernels.reset_launch_counts()
+    send = halo_fill.pack_strips(fields, role)
+    torch.cuda.synchronize()
+    assert torch.equal(send, halo_fill.pack_strips_plain(fields, role))
+    part = send.numel() // 2
+    recv = torch.as_tensor(np.random.default_rng(5).standard_normal(2 * part),
+                           dtype=dtype, device="cuda")
+    has_s, has_n = halo_fill.receives(role)
+    south, north = (recv[:part] if has_s else None), (recv[part:] if has_n else None)
+    plain = [(f[0].clone(),) + f[1:] for f in fields]
+    want, want_saved = halo_fill.fill_halos_group_plain(plain, save=True, role=role,
+                                                        south=south, north=north)
+    got, saved = halo_fill.fill_halos_group(fields, save=True, role=role, south=south,
+                                            north=north)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(saved, want_saved)
+    halo_fill.restore_strips_group(fields, saved, role=role)
+    torch.cuda.synchronize()
+    assert all(torch.equal(f[0], b) for f, b in zip(fields, before))
+    want_counts = {k: 0 for k in kernels.LAUNCHES}
+    want_counts.update(halo_pack=1, halo_fill_shard=1, halo_restore=1)
+    assert kernels.launch_counts() == want_counts
+
+
+@needs_cuda
+@pytest.mark.parametrize("which", ["bickley", "gyre"])
+def test_cuda_local_exchange_step_bitwise(which):
+    """Four shards stepped through LocalExchange on the card, 3 float64 steps: the
+    gathered state is bitwise the serial steps', each shard launches its kernels once
+    a step, and the sharded steps make no host synchronization."""
+    from orthogonalsphericalshellgrids_tpu_torch import parallel
+    from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import host_syncs
+
+    if which == "bickley":
+        from examples.bickley_jet_torch import build
+
+        model, state = build(48, 40, dtype=torch.float64, substeps=12, device="cuda")
+        serial, distribute, gather, step_fn = (
+            TH.multi_step, parallel.distribute, parallel.gather_state,
+            parallel.sharded_step_fn)
+        kernels_a_step = ("barotropic", "momentum", "tracer_adv")
+        names = ("u", "v", "c", "eta", "U", "V", "Gu", "Gv", "Gc")
+    else:
+        from examples.wind_driven_ts_gyre_torch import build_check
+
+        model, state = build_check(device="cuda")
+        serial, distribute, gather, step_fn = (
+            TL.layered_multi_step, parallel.distribute_layered,
+            parallel.gather_layered_state, parallel.sharded_layered_step_fn)
+        kernels_a_step = ("barotropic", "vertical", "momentum_closures",
+                          "tracer_adv_kappa", "corrector")
+        names = ("u", "v", "c", "eta", "U", "V", "Gu", "Gv", "Gc")
+    n = 4
+    mesh = parallel.make_mesh(n)
+    dist_model, dist_state = distribute(model, state, mesh)
+    step_fn(mesh, dist_model)(dist_state, 60.0)  # loads the kernels
+    fn = step_fn(mesh, dist_model)
+    s = dist_state
+    with host_syncs() as n_syncs:
+        for _ in range(3):
+            s = fn(s, 60.0)
+        syncs = n_syncs()
+    want = serial(model, state, 60.0, 3)
+    got = gather(s, model, n)
+    for name in names:
+        grid = model.grid_ext if name in ("eta", "U", "V") else model.grid
+        assert torch.equal(grid.interior(getattr(got, name)),
+                           grid.interior(getattr(want, name))), name
+    assert syncs == 0
+    for counts in fn.launches:
+        assert all(counts[k] == 3 for k in kernels_a_step), counts
+        assert counts["halo_pack"] == counts["halo_fill_shard"] == 6, counts
+        assert counts["halo_restore"] == 3 and counts["halo_fill"] == 0, counts
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_barotropic_rows_independent_of_the_plane(dtype):
+    """The barotropic kernel on an extended plane and on the row blocks of 4 ranks
+    gives every rank's interior the same bits: a cell's arithmetic does not depend
+    on its row within the time tile (the y-flux is rounded before its difference)."""
+    r = np.random.default_rng(0)
+    Ny, Nx, H, n = 40, 48, 9, 4
+    ny = Ny // n
+
+    def cu(a):
+        return torch.as_tensor(a, dtype=dtype, device="cuda")
+
+    static = cu(1 + r.random((9, Ny + 2 * H, Nx + 2 * H)))
+    static[7:] = cu((r.random((2, Ny + 2 * H, Nx + 2 * H)) > 0.1).astype(float))
+    eta, U, V, GU, GV = (cu(r.standard_normal((Ny + 2 * H, Nx + 2 * H))) for _ in range(5))
+    w, dtau = cu(r.random(8)), cu(np.array(1e-3))
+    full = barotropic.barotropic_substeps(static, eta, U, V, GU, GV, dtau, w, Nx, H, False)
+    for k in range(n):
+        def rows(a):
+            return a[..., k * ny:k * ny + ny + 2 * H, :].contiguous()
+
+        part = barotropic.barotropic_substeps(*map(rows, (static, eta, U, V, GU, GV)), dtau,
+                                              w, Nx, H, False)
+        for name, f, p in zip(("eta", "U", "V"), full, part):
+            assert torch.equal(rows(f)[H:H + ny, H:H + Nx], p[H:H + ny, H:H + Nx]), \
+                f"rank {k} {name}"

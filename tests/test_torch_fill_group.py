@@ -202,7 +202,7 @@ def test_kernel_index_map_replay(path):
         for j in range(1, len(fields)):
             if b >= plan.block0[j]:
                 i = j
-        K, Yb, Xb, Nx, Ny, Hx, Hy, fx, fy = geoms[i]
+        K, Yb, Xb, Nx, Ny, Hx, Hy, fx, fy, _ = geoms[i]
         n = plan.cells[i]
         old = fields[i][0].numpy().reshape(-1)
         for th in range(halo_fill.THREADS):
@@ -221,7 +221,7 @@ def test_kernel_index_map_replay(path):
     # every cell a fill writes, from the geometry alone: the halo, and for a center-y
     # field the redundant half of row Ny (the columns i0 >= Nx/2)
     expect = []
-    for i, (K, Yb, Xb, Nx, Ny, Hx, Hy, fx, fy) in enumerate(geoms):
+    for i, (K, Yb, Xb, Nx, Ny, Hx, Hy, fx, fy, _) in enumerate(geoms):
         m = np.ones((Yb, Xb), bool)
         m[Hy:Hy + Ny, Hx:Hx + Nx] = False
         if not fy:
