@@ -62,7 +62,28 @@ Phase 12 the y-partitioned runs (parallel/distributed.py): (a) the shard-aware
          synchronization; (c) phase 7's gyre in 4 shards, 3 steps at dt = 40 s,
          bitwise equal to serial; (d) a 1-rank NCCL process group through
          ProcessGroupExchange, bitwise equal to the serial step with no host
-         synchronization. ms/step of (b) and (c) beside phases 3 and 7.
+         synchronization. ms/step of (b) and (c) beside phases 3 and 7. The
+         sharded steps run the overlap split (on by default): each shard wraps x
+         locally, launches its bulk tendencies, exchanges, and recomputes two row
+         strips, so the tendency kernels launch three times a step; the wrap
+         kernel is held against its plain version and timed in (a).
+Phase 13 the 2-D (x, y) runs (parallel/distributed2d.py) and the split: (a) the
+         2-D route's launches (the pack of the rows and fold strip, the inner
+         phase with its save, the pack of the columns, the outer phase, the
+         restore) against their plain versions, bitwise at float32 and float64, in
+         every block of a 2 x 2 (gather), a 4 x 1 (mirror) and a 3 x 1 mesh (its
+         middle block, columns 480-959, straddles the fold's middle column), on the
+         Bickley and gyre groups of 1/4-degree blocks and at ny = 22 (2 x 2: the
+         top blocks' strips reach the blocks below) or 23 (one row of blocks); a
+         top block's launches timed at float32 beside their plain versions and
+         torch.cat; (b) phase 3's jet on 2 x 2 blocks (gather, by "auto") through
+         LocalExchange, 20 steps at dt = 60 s, bitwise equal to the serial
+         multi_step, each block's launches counted, no host synchronization; (c)
+         the same on 4 x 1 blocks with fold_mode="mirror", bitwise equal to (b) and
+         to serial; (d) phase 7's gyre on 2 x 2 blocks, 3 steps at dt = 40 s,
+         bitwise equal to serial; (e) overlap=True against overlap=False, the jet
+         (5 steps) and the gyre (3) on 4 y-shards and on 2 x 2, bitwise. ms/step,
+         device busy and idle share of (b)-(e) beside phases 3, 7 and 12.
 
 Phase 2 holds the halo fills first: the group fill with save, the group fill without
 save and the group restore against their plain versions, bitwise at float32 and
@@ -137,6 +158,14 @@ REPLACES = {
     "halo_fill_shard": "orthogonalsphericalshellgrids_tpu/ops/pallas_fill.py:238",
     # the send rows of a shard's group, the concatenations of ops/spmd.py:75-76 (XLA)
     "halo_pack": "orthogonalsphericalshellgrids_tpu/ops/spmd.py:75",
+    # the local x-wrap the split's bulk pass reads on a y-partition (XLA, phase 12)
+    "halo_wrap": "orthogonalsphericalshellgrids_tpu/models/hydrostatic.py:866",
+    # the group fill of a block of a 2-D mesh, inner and outer phases (phase 13); the
+    # JAX package's 2-D sharded step fills with XLA there (ops/spmd2d.py:106-199)
+    "halo_fill_block": "orthogonalsphericalshellgrids_tpu/ops/pallas_fill.py:238",
+    # a block's rows with its fold strip and its columns, the concatenations of
+    # ops/spmd2d.py:126-127, 143-145 and 186-187 (XLA)
+    "halo_pack_block": "orthogonalsphericalshellgrids_tpu/ops/spmd2d.py:126",
     "barotropic": "orthogonalsphericalshellgrids_tpu/ops/pallas_baro.py:242",
     "momentum": "orthogonalsphericalshellgrids_tpu/ops/pallas_mom.py:281",
     "tracer_adv": "orthogonalsphericalshellgrids_tpu/ops/pallas_adv.py:258",
@@ -154,6 +183,8 @@ REPLACES = {
 }
 SOURCE_FILE = {"halo_restore": "halo_fill", "halo_fill_copy": "halo_fill",
                "halo_fill_shard": "halo_fill", "halo_pack": "halo_fill",
+               "halo_wrap": "halo_fill", "halo_fill_block": "halo_fill",
+               "halo_pack_block": "halo_fill",
                "momentum_layered": "momentum", "tracer_adv_layered": "tracer_adv",
                "momentum_closures": "momentum", "tracer_adv_kappa": "tracer_adv",
                "baro_substep_sol": "probes", "weno_probe": "probes", "stream_probe": "probes",
@@ -173,8 +204,14 @@ DIAGNOSTICS = ("halo_fill_copy",)
 GYRE_SHARD = ("barotropic", "vertical", "momentum_closures", "tracer_adv_kappa",
               "corrector")
 # the kernels each shard of the y-partitioned Bickley jet launches (phase 12)
-SHARDED = ("halo_pack", "halo_fill_shard", "halo_restore", "barotropic", "momentum",
-           "tracer_adv")
+SHARDED = ("halo_pack", "halo_fill_shard", "halo_wrap", "halo_restore", "barotropic",
+           "momentum", "tracer_adv")
+# the kernels each block of the 2-D Bickley jet launches (phase 13)
+BLOCKS = ("halo_pack_block", "halo_fill_block", "halo_restore", "barotropic", "momentum",
+          "tracer_adv")
+# the tendency kernels the overlap split launches on the bulk and on each strip
+SPLIT_BICKLEY = ("momentum", "tracer_adv")
+SPLIT_GYRE = ("vertical", "momentum_closures", "tracer_adv_kappa")
 # the kernels the ceilings measurement must launch (phase 9)
 PROBES = ("baro_substep_sol", "weno_probe", "stream_probe", "fma_ceiling")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
@@ -222,7 +259,8 @@ def bound(n_bytes, flops):
 # operations each) and the flux divergence (+12 with kappa_h); the vertical pass per
 # layer and tracer block; the corrector's AB2 update (+4 with acc and mask_out)
 FLOPS = {"halo_fill": 1, "halo_restore": 0, "halo_fill_copy": 1, "halo_fill_shard": 1,
-         "halo_pack": 0, "barotropic": 30,
+         "halo_pack": 0, "halo_wrap": 0, "halo_fill_block": 1, "halo_pack_block": 0,
+         "barotropic": 30,
          "momentum": 300, "momentum_layered": 304, "momentum_closures": 344,
          "tracer_adv": 160, "tracer_adv_layered": 160, "tracer_adv_kappa": 172,
          "vertical": 40, "corrector": 8}
@@ -1642,11 +1680,32 @@ def phase12a_shard_fills(card):
                 check(counts["halo_pack"] == n and counts["halo_fill_shard"] == n and
                       counts["halo_restore"] == n and sum(counts.values()) == 3 * n,
                       f"shard group {group}: one launch a call, {counts}")
+                # the split's order: the local wrap, then the rest of the fill into
+                # the same saved buffer, against the one-launch plain fill
+                for k, r in enumerate(roles):
+                    rows = dict(south=sends[k - 1][:part] if k > 0 else None,
+                                north=sends[k + 1][part:] if k + 1 < n else None)
+                    sv = halo_fill.wrap_halos_group(ranks[k], r)
+                    halo_fill.fill_halos_group(ranks[k], True, r, phase=halo_fill.NO_WRAP,
+                                               saved=sv, **rows)
+                    _, want_sv = halo_fill.fill_halos_group_plain(plain[k], True, r, **rows)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(f[0], p[0]) for f, p in zip(ranks[k], plain[k]))
+                          and torch.equal(sv, want_sv),
+                          f"wrap then the rest, {group} ny={ny} {name} rank {k}: bitwise "
+                          "the plain fill and its strips")
+                    halo_fill.restore_strips_group(ranks[k], sv, r)
+                    halo_fill.restore_strips_group_plain(plain[k], want_sv, r)
+                torch.cuda.synchronize()
+                check(all(torch.equal(f[0], b) and torch.equal(p[0], b)
+                          for fs, ps, bs in zip(ranks, plain, before)
+                          for f, p, b in zip(fs, ps, bs)),
+                      f"wrap restore {group} ny={ny} {name}: every field as before")
                 role_names = ", ".join(halo_fill.ROLE_NAMES[r] for r in roles)
                 log(f"phase 12a: {group} group, 4 ranks of ny = {ny} ({role_names}), "
-                    f"{name}: pack, fill with "
-                    f"save and restore bitwise their plain versions, inputs restored "
-                    f"[{card}]")
+                    f"{name}: pack, fill with save and restore, and the split's wrap "
+                    f"then the rest of the fill, bitwise their plain versions, inputs "
+                    f"restored [{card}]")
                 if name != "float32" or ny != 170 or group != "Bickley":
                     continue
                 fields, role = ranks[1], roles[1]
@@ -1666,6 +1725,16 @@ def phase12a_shard_fills(card):
                     restore=time_ms(lambda: halo_fill.restore_strips_group(fields, sv, role),
                                     ahead=True))
                 halo_fill.restore_strips_group(fields, sv, role)
+                sv = halo_fill.wrap_halos_group(fields, role)  # saves the unwrapped cells
+                t["wrap"] = time_ms(lambda: halo_fill.wrap_halos_group(fields, role),
+                                    ahead=True)
+                t["wrap_plain"] = time_ms(lambda: halo_fill.fill_halos_group_plain(
+                    fields, True, role, phase=halo_fill.WRAP))
+                halo_fill.restore_strips_group(fields, sv, role, phase=halo_fill.WRAP)
+                # a middle rank wraps the x halos of all its Ny rows: each cell's old
+                # value read and saved, its source read and its new value written
+                wrapped = sum((f[0].shape[0] if f[0].dim() == 3 else 1) * f[4] * 2 * f[5]
+                              for f in fields)
                 written, read = shard_fill_cells(fields, role)
                 size = fields[0][0].element_size()
                 b_fill = bound(size * (3 * written + read), written)
@@ -1677,8 +1746,13 @@ def phase12a_shard_fills(card):
                     f"{t['fill']:.4f} ms kernel, {t['fill_plain']:.4f} ms plain ({written} "
                     f"written, {read} read; bound {b_fill[0]:.5f} ms, {b_fill[2]} bytes); "
                     f"restore {t['restore']:.4f} ms [{card}]")
+                b_wrap = bound(size * 4 * wrapped, 0)
+                log(f"phase 12a: the split's local wrap of the same rank: {t['wrap']:.4f} "
+                    f"ms kernel, {t['wrap_plain']:.4f} ms plain ({wrapped} cells; bound "
+                    f"{b_wrap[0]:.5f} ms, {b_wrap[2]} bytes) [{card}]")
                 results["halo_fill_shard"] = (0.0, t["fill"], t["fill_plain"], b_fill)
                 results["halo_pack"] = (0.0, t["pack"], t["pack_plain"], b_pack, t["cat"])
+                results["halo_wrap"] = (0.0, t["wrap"], t["wrap_plain"], b_wrap)
             del ranks, plain, before
     return results
 
@@ -1715,7 +1789,8 @@ def phase12_sharded(card, bickley, gyre, n=4):
     equal to the serial run from the same state, each shard's launches counted, no
     host synchronization; then the serial step inside an initialized 1-rank NCCL
     group (with one rank the step takes the serial route, so ProcessGroupExchange
-    makes no NCCL operation). Returns the Bickley run's launch counts."""
+    makes no NCCL operation). Returns the Bickley run's launch counts and the two
+    runs' ms/step."""
     import tempfile
 
     import torch
@@ -1733,7 +1808,7 @@ def phase12_sharded(card, bickley, gyre, n=4):
                               grid.interior(getattr(want, name))),
                   f"sharded {name} bitwise equal to serial")
 
-    results = {}
+    results, shard_ms = {}, {}
     for path, (model, state0, serial_ms), n_steps, dt in (("Bickley", bickley, 20, 60.0),
                                                           ("gyre", gyre, 3, 40.0)):
         layered = path == "gyre"
@@ -1772,8 +1847,11 @@ def phase12_sharded(card, bickley, gyre, n=4):
         interiors_equal(model, gathered, serial,
                         ("u", "v", "c", "eta", "U", "V", "Gu", "Gv", "Gc"))
         each = GYRE_SHARD if layered else ("barotropic", "momentum", "tracer_adv")
+        # the split (on by default): the tendency kernels on the bulk and two strips
+        split = SPLIT_GYRE if layered else SPLIT_BICKLEY
         for i, own in enumerate(per_shard):
-            check(all(own[k] == n_steps for k in each) and own["halo_restore"] == n_steps
+            check(all(own[k] == n_steps * (3 if k in split else 1) for k in each) and
+                  own["halo_restore"] == own["halo_wrap"] == n_steps
                   and own["halo_pack"] == own["halo_fill_shard"] == 2 * n_steps
                   and own["halo_fill"] == 0, f"sharded {path} shard {i} launched {own}")
         fn.close()
@@ -1782,14 +1860,17 @@ def phase12_sharded(card, bickley, gyre, n=4):
             f"{n_steps} steps at dt = {dt:g} s: gathered bitwise equal to the serial "
             f"run; {ms:.4f} ms/step on the card's clock ({wall:.4f} ms/step on the "
             f"host's), serial {serial_ms:.4f} ms/step (phase {7 if layered else 3}); "
-            f"each shard launched {', '.join(each)} once a step; exchange launches a "
-            f"step: {counts['halo_pack'] // n_steps} packs, "
+            f"each shard launched {', '.join(k for k in each if k not in split)} once "
+            f"and {', '.join(split)} three times a step (the split's bulk and two row "
+            f"strips); exchange launches a step: {counts['halo_pack'] // n_steps} "
+            f"packs, {counts['halo_wrap'] // n_steps} wraps, "
             f"{counts['halo_fill_shard'] // n_steps} shard fills, "
             f"{counts['halo_restore'] // n_steps} restores; host synchronizations 0; "
             f"profiler, 5 steps: {ops:.0f} device ops, {busy:.4f} ms device busy a step, "
             f"idle share {idle:.3f} (serial {s_ops:.0f} ops, {s_busy:.4f} ms, "
             f"{s_idle:.3f}); launches {counts} [{card}]")
         results[path] = counts
+        shard_ms[path] = ms
         del dist_model, dist_state, s, serial, gathered
 
     # (d) one rank of an NCCL group: the step takes the serial route (ops/spmd._serial),
@@ -1831,7 +1912,348 @@ def phase12_sharded(card, bickley, gyre, n=4):
         "of host synchronization there are unverified (NCCL refuses two ranks on one GPU; "
         "the exchange between ranks runs here through LocalExchange and on the CPU "
         "through gloo in tests/test_torch_distributed.py)")
-    return results["Bickley"]
+    return results["Bickley"], shard_ms
+
+
+def block_groups(rnd, n_x, n_y, ny):
+    """The Bickley and gyre fill groups of the blocks of an (n_x, n_y) mesh of ``ny``
+    rows at the 1/4-degree width: {group: {(ix, iy): the block's fields}}, each
+    block's fields the rows [iy·ny, iy·ny + ny + 2·H) and columns [ix·nx, ix·nx + nx
+    + 2·H) of fields drawn over the whole mesh, its η, U, V views of one buffer."""
+    from orthogonalsphericalshellgrids_tpu_torch.ops.location import CC, CF, FC
+
+    Nx, H, He = 1440, 5, 22
+    nx = Nx // n_x
+    out = {}
+    for group, stacks in (("Bickley", [(None, FC, -1), (None, CF, -1), (None, CC, 1)]),
+                          ("gyre", [(10, FC, -1), (10, CF, -1), (20, CC, 1)])):
+        base = [(rnd(((K or 1), n_y * ny + 2 * H, Nx + 2 * H)), loc, sign)
+                for K, loc, sign in stacks]
+        ext = rnd((3, n_y * ny + 2 * He, Nx + 2 * He))
+        blocks = {}
+        for iy in range(n_y):
+            for ix in range(n_x):
+                fields = []
+                for (A, loc, sign), (K, *_) in zip(base, stacks):
+                    blk = A[:, iy * ny:iy * ny + ny + 2 * H,
+                            ix * nx:ix * nx + nx + 2 * H].clone()
+                    fields.append((blk if K else blk[0], loc, sign, nx, ny, H, H))
+                buf = ext[:, iy * ny:iy * ny + ny + 2 * He,
+                          ix * nx:ix * nx + nx + 2 * He].clone()
+                fields += [(buf[0], CC, 1, nx, ny, He, He),
+                           (buf[1], FC, -1, nx, ny, He, He),
+                           (buf[2], CF, -1, nx, ny, He, He)]
+                blocks[ix, iy] = fields
+        out[group] = blocks
+    return out
+
+
+def block_fill_route(blocks, n_x, n_y, mode, what):
+    """Every block's 2-D fill, launch by launch, each launch against its plain
+    version on the same inputs, bitwise: the packs of the rows and fold strips, the
+    inner phases with their save (reading the packs they receive), the packs of the
+    columns, the outer phases saving into the same buffers, and the restores, which
+    give every field back. Returns the launches held."""
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import halo_fill
+    from orthogonalsphericalshellgrids_tpu_torch.ops.spmd2d import Spmd2D
+    from orthogonalsphericalshellgrids_tpu_torch.parallel.distributed import _rows2d
+
+    nx_g = n_x * next(iter(blocks.values()))[0][3]
+    sp = {k: Spmd2D(k[0], k[1], n_x, n_y, nx_g, None, mode) for k in blocks}
+    before = {k: [f[0].clone() for f in fs] for k, fs in blocks.items()}
+    plain = {k: [(f[0].clone(),) + f[1:] for f in fs] for k, fs in blocks.items()}
+    plan = {k: halo_fill.group_plan(halo_fill.group_geometry(fs, sp[k].role))
+            for k, fs in blocks.items()}
+    held = 0
+
+    def packs(kind):
+        nonlocal held
+        sent = {}
+        for k, fs in blocks.items():
+            got = halo_fill.pack_strips(fs, sp[k].role, kind)
+            want = halo_fill.pack_strips_plain(plain[k], sp[k].role, kind)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"{what}: block {k} pack of "
+                  f"{'columns' if kind else 'rows'} bitwise")
+            sent[sp[k].rank] = got
+            held += 1
+        return sent
+
+    lows = n_y > 1 and any(f[4] == f[6] for f in next(iter(blocks.values())))
+    sent = packs(halo_fill.ROWS)
+    saved = {}
+    for k, fs in blocks.items():
+        south, north, strips, below = _rows2d(sp[k], sent.__getitem__, plan[k].part_len,
+                                              plan[k].fold_len, lows)
+        kw = dict(save=True, role=sp[k].role, south=south, north=north,
+                  phase=halo_fill.INNER, strips=strips, lows=below)
+        saved[k] = (halo_fill.fill_halos_group(fs, **kw)[1],
+                    halo_fill.fill_halos_group_plain(plain[k], **kw)[1])
+        held += 1
+    torch.cuda.synchronize()
+    check(all(torch.equal(f[0], p[0]) for k, fs in blocks.items()
+              for f, p in zip(fs, plain[k])), f"{what}: inner phases bitwise")
+    sent = packs(halo_fill.COLUMNS)
+    for k, fs in blocks.items():
+        s, cl = sp[k], plan[k].col_len
+        kw = dict(save=True, role=s.role, phase=halo_fill.OUTER,
+                  west=sent[s.rank_of((s.ix - 1) % n_x, s.iy)][:cl],
+                  east=sent[s.rank_of((s.ix + 1) % n_x, s.iy)][cl:])
+        halo_fill.fill_halos_group(fs, saved=saved[k][0], **kw)
+        halo_fill.fill_halos_group_plain(plain[k], saved=saved[k][1], **kw)
+        held += 1
+    torch.cuda.synchronize()
+    check(all(torch.equal(f[0], p[0]) for k, fs in blocks.items()
+              for f, p in zip(fs, plain[k])) and
+          all(torch.equal(a, b) for a, b in saved.values()),
+          f"{what}: outer phases and the saved strips bitwise")
+    for k, fs in blocks.items():
+        halo_fill.restore_strips_group(fs, saved[k][0], sp[k].role)
+        halo_fill.restore_strips_group_plain(plain[k], saved[k][1], sp[k].role)
+        held += 1
+    torch.cuda.synchronize()
+    check(all(torch.equal(f[0], b) and torch.equal(p[0], b) for k, fs in blocks.items()
+              for f, p, b in zip(fs, plain[k], before[k])),
+          f"{what}: the restores give every field back")
+    return held
+
+
+def phase13a_block_fills(card):
+    """The 2-D route's launches against their plain versions, bitwise at float32
+    and float64, in every block of 2 x 2 (gather), 4 x 1 (mirror) and 3 x 1 meshes
+    on the Bickley and gyre groups, at the 1/4-degree blocks' rows and at the least
+    rows the extended grid takes; then a top block of the 2 x 2 Bickley group timed
+    at float32. Returns the kernel-table rows."""
+    import numpy as np
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch import kernels
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import halo_fill
+    from orthogonalsphericalshellgrids_tpu_torch.ops.spmd2d import Spmd2D
+    from orthogonalsphericalshellgrids_tpu_torch.parallel.distributed import _rows2d
+
+    results = {}
+    for name in ("float32", "float64"):
+        dt = getattr(torch, name)
+        rng = np.random.default_rng(13)
+
+        def rnd(shape):
+            return torch.as_tensor(rng.standard_normal(shape), dtype=dt, device="cuda")
+
+        for (n_x, n_y), mode in (((2, 2), "gather"), ((4, 1), "mirror"),
+                                 ((3, 1), "gather")):
+            for ny in (680 // n_y, 22 if n_y > 1 else 23):
+                for group, blocks in block_groups(rnd, n_x, n_y, ny).items():
+                    kernels.reset_launch_counts()
+                    held = block_fill_route(blocks, n_x, n_y, mode,
+                                            f"{group} {n_x} x {n_y} {mode} ny={ny} {name}")
+                    counts = kernels.launch_counts()
+                    check(counts["halo_pack_block"] == counts["halo_fill_block"] ==
+                          2 * n_x * n_y and counts["halo_restore"] == n_x * n_y and
+                          sum(counts.values()) == held,
+                          f"block groups: one launch a call, {counts}")
+                    log(f"phase 13a: {group} group, {n_x} x {n_y} blocks of {ny} x "
+                        f"{1440 // n_x} ({mode}), {name}: {held} launches (packs of "
+                        f"rows and columns, inner and outer phases with save, restores)"
+                        f" bitwise their plain versions, inputs restored [{card}]")
+                    del blocks
+    # a top block of the 2 x 2 Bickley group at float32, with the host ahead
+    rng = np.random.default_rng(14)
+    blocks = block_groups(lambda shape: torch.as_tensor(
+        rng.standard_normal(shape), dtype=torch.float32, device="cuda"), 2, 2, 340)["Bickley"]
+    sp = {k: Spmd2D(k[0], k[1], 2, 2, 1440, None, "gather") for k in blocks}
+    sent = {sp[k].rank: halo_fill.pack_strips(fs, sp[k].role) for k, fs in blocks.items()}
+    k = (0, 1)
+    fields, role = blocks[k], sp[k].role
+    plan = halo_fill.group_plan(halo_fill.group_geometry(fields, role))
+    south, north, strips, below = _rows2d(sp[k], sent.__getitem__, plan.part_len,
+                                          plan.fold_len)
+    inner = dict(south=south, north=north, phase=halo_fill.INNER, strips=strips)
+    cols = halo_fill.pack_strips(fields, role, halo_fill.COLUMNS)
+    outer = dict(phase=halo_fill.OUTER, west=cols[:plan.col_len], east=cols[plan.col_len:])
+    _, sv = halo_fill.fill_halos_group(fields, True, role, **inner)
+    halo_fill.fill_halos_group(fields, True, role, saved=sv, **outer)
+    halo_fill.restore_strips_group(fields, sv, role)
+
+    def fill_both():
+        _, b = halo_fill.fill_halos_group(fields, True, role, **inner)
+        halo_fill.fill_halos_group(fields, True, role, saved=b, **outer)
+
+    def fill_both_plain():
+        _, b = halo_fill.fill_halos_group_plain(fields, True, role, **inner)
+        halo_fill.fill_halos_group_plain(fields, True, role, saved=b, **outer)
+
+    rows_slices = ([f[0][..., f[4]:f[4] + f[6], :] for f in fields] +
+                   [f[0][..., f[6]:2 * f[6], :] for f in fields] +
+                   [f[0][..., f[4] - 1:f[4] + f[6], f[5]:f[5] + f[3]] for f in fields])
+    col_slices = ([f[0][..., :, f[3]:f[3] + f[5]] for f in fields] +
+                  [f[0][..., :, f[5]:2 * f[5]] for f in fields])
+    t = dict(
+        pack=time_ms(lambda: (halo_fill.pack_strips(fields, role),
+                              halo_fill.pack_strips(fields, role, halo_fill.COLUMNS)),
+                     ahead=True),
+        pack_plain=time_ms(lambda: (halo_fill.pack_strips_plain(fields, role),
+                                    halo_fill.pack_strips_plain(fields, role,
+                                                                halo_fill.COLUMNS))),
+        cat=time_ms(lambda: (torch.cat([x.reshape(-1) for x in rows_slices]),
+                             torch.cat([x.reshape(-1) for x in col_slices]))),
+        fill=time_ms(fill_both, ahead=True), fill_plain=time_ms(fill_both_plain))
+    halo_fill.restore_strips_group(fields, sv, role)
+    size = fields[0][0].element_size()
+    written = plan.n_saved
+    packed = 2 * plan.part_len + plan.fold_len + 2 * plan.col_len
+    # each written cell's old value read and saved, its source read, its value written
+    b_fill = bound(size * 4 * written, written)
+    b_pack = bound(size * 2 * packed, 0)
+    log(f"phase 13a: top block (0, 1) of the 2 x 2 Bickley group (340 x 720), float32, "
+        f"device time with the host ahead, both phases or both packs: pack "
+        f"{t['pack']:.4f} ms kernel, {t['pack_plain']:.4f} ms plain, torch.cat "
+        f"{t['cat']:.4f} ms (bound {b_pack[0]:.5f} ms, {b_pack[2]} bytes); fill with save "
+        f"{t['fill']:.4f} ms kernel, {t['fill_plain']:.4f} ms plain ({written} cells "
+        f"written; bound {b_fill[0]:.5f} ms, {b_fill[2]} bytes) [{card}]")
+    results["halo_fill_block"] = (0.0, t["fill"] / 2, t["fill_plain"] / 2,
+                                  bound(size * 2 * written, written / 2))
+    results["halo_pack_block"] = (0.0, t["pack"] / 2, t["pack_plain"] / 2,
+                                  bound(size * packed, 0), t["cat"] / 2)
+    del blocks, sent
+    return results
+
+
+def phase13_runs(card, bickley, gyre, shard_ms):
+    """(b) phase 3's jet on 2 x 2 blocks (gather) and (c) on 4 x 1 (mirror), 20 steps
+    at dt = 60 s, and (d) phase 7's gyre on 2 x 2, 3 steps at dt = 40 s, through
+    LocalExchange: bitwise equal to serial (and (c) to (b)), each block's launches
+    counted, no host synchronization; (e) overlap=True against overlap=False on 4
+    y-shards and on 2 x 2, both models, bitwise. Returns the (b) run's launch
+    counts."""
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch import kernels, parallel
+    from orthogonalsphericalshellgrids_tpu_torch.models import (layered_multi_step,
+                                                                 layered_step, multi_step,
+                                                                 step)
+
+    names = ("u", "v", "c", "eta", "U", "V", "Gu", "Gv", "Gc")
+
+    def interiors_equal(model, got, want, what):
+        for name in names:
+            grid = model.grid_ext if name in ("eta", "U", "V") else model.grid
+            check(torch.equal(grid.interior(getattr(got, name)),
+                              grid.interior(getattr(want, name))),
+                  f"{what}: {name} bitwise")
+
+    def run(model, state0, mesh, layered, n_steps, dt, overlap=None, mode="auto"):
+        """(gathered state, ms/step on the card, per-block launches, all launches,
+        the step function and the last sharded state)."""
+        if isinstance(mesh, int):
+            m = parallel.make_mesh(mesh)
+            dm, ds = (parallel.distribute_layered if layered else parallel.distribute)(
+                model, state0, m)
+            fn = (parallel.sharded_layered_step_fn if layered else
+                  parallel.sharded_step_fn)(m, dm, overlap=overlap)
+            gather = lambda x: (parallel.gather_layered_state if layered else  # noqa
+                                parallel.gather_state)(x, model, mesh)
+        else:
+            m = parallel.make_mesh2d(*mesh)
+            dm, ds = (parallel.distribute_layered2d if layered else
+                      parallel.distribute2d)(model, state0, m)
+            fn = (parallel.sharded_layered_step_fn2d if layered else
+                  parallel.sharded_step_fn2d)(m, dm, model.grid.Nx, overlap=overlap,
+                                              fold_mode=mode)
+            gather = lambda x: (parallel.gather_layered_state2d if layered else  # noqa
+                                parallel.gather_state2d)(x, model, m)
+        fn(ds, dt)  # loads the exchange's path
+        torch.cuda.synchronize()
+        fn.launches = [dict.fromkeys(kernels.LAUNCHES, 0) for _ in fn.launches]
+        kernels.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        s = ds
+        start.record()
+        for _ in range(n_steps):
+            s = fn(s, dt)
+        end.record()
+        end.synchronize()
+        return (gather(s), start.elapsed_time(end) / n_steps,
+                [dict(x) for x in fn.launches], kernels.launch_counts(), fn, s)
+
+    bmodel, bstate, bickley_ms = bickley
+    gmodel, gstate, gyre_ms = gyre
+    serial_b = multi_step(bmodel, bstate, 60.0, 20)
+    serial_g = layered_multi_step(gmodel, gstate, 40.0, 3)
+    out = {}
+    for tag, model, state0, layered, mesh, mode, n_steps, dt, serial, ref_ms, split in (
+            ("b", bmodel, bstate, False, (2, 2), "auto", 20, 60.0, serial_b, bickley_ms,
+             SPLIT_BICKLEY),
+            ("c", bmodel, bstate, False, (4, 1), "mirror", 20, 60.0, serial_b,
+             bickley_ms, SPLIT_BICKLEY),
+            ("d", gmodel, gstate, True, (2, 2), "auto", 3, 40.0, serial_g, gyre_ms,
+             SPLIT_GYRE)):
+        got, ms, per_block, counts, fn, s = run(model, state0, mesh, layered, n_steps, dt,
+                                                mode=mode)
+        what = f"phase 13{tag}: {'gyre' if layered else 'Bickley'} on {mesh[0]} x {mesh[1]}"
+        interiors_equal(model, got, serial, f"{what} against serial")
+        if tag == "c":
+            interiors_equal(model, got, out["b"][0], f"{what} (mirror) against (b)")
+        each = GYRE_SHARD if layered else ("barotropic", "momentum", "tracer_adv")
+        for i, own in enumerate(per_block):
+            check(all(own[k] == n_steps * (5 if k in split else 1) for k in each) and
+                  own["halo_restore"] == n_steps and
+                  own["halo_pack_block"] == own["halo_fill_block"] == 4 * n_steps and
+                  own["halo_fill"] == own["halo_pack"] == own["halo_wrap"] == 0,
+                  f"{what}: block {i} launched {own}")
+        with host_syncs() as n_syncs:
+            fn(s, dt)
+            syncs = n_syncs()
+        check(syncs == 0, f"{what}: {syncs} host synchronizations")
+        serial_step = layered_step if layered else step
+        _, ops, busy, idle = device_busy(lambda x: fn(x, dt), s, 5)
+        _, s_ops, s_busy, s_idle = device_busy(lambda x: serial_step(model, x, dt),
+                                               state0, 5)
+        fn.close()
+        log(f"{what} blocks ({mode} fold: {fn.spmd_of(0).resolved_fold_mode}) through "
+            f"LocalExchange, {n_steps} steps at dt = {dt:g} s: gathered bitwise equal to "
+            f"the serial run{' and to (b)' if tag == 'c' else ''}; {ms:.4f} ms/step "
+            f"(serial {ref_ms:.4f}, phase {7 if layered else 3}; 4 y-shards "
+            f"{shard_ms['gyre' if layered else 'Bickley']:.4f}, phase 12); each block "
+            f"launched {', '.join(k for k in each if k not in split)} once and "
+            f"{', '.join(split)} five times a step (the split's bulk, two row and two "
+            f"column strips), 4 block packs and 4 block fills (two groups, two phases "
+            f"each) and 1 restore a step; host synchronizations 0; profiler, 5 steps: "
+            f"{ops:.0f} device ops, {busy:.4f} ms device busy a step, idle share "
+            f"{idle:.3f} (serial {s_ops:.0f} ops, {s_busy:.4f} ms, {s_idle:.3f}); "
+            f"launches {counts} [{card}]")
+        out[tag] = (got, counts)
+    # (e) the split against the unsplit step
+    for path, model, state0, layered, n_steps, dt in (("Bickley", bmodel, bstate, False, 5,
+                                                       60.0),
+                                                      ("gyre", gmodel, gstate, True, 3,
+                                                       40.0)):
+        for mesh in (4, (2, 2)):
+            res = {}
+            for overlap in (True, False):
+                got, ms, _, _, fn, s = run(model, state0, mesh, layered, n_steps, dt,
+                                           overlap=overlap)
+                _, ops, busy, idle = device_busy(lambda x: fn(x, dt), s, 5)
+                fn.close()
+                res[overlap] = (got, ms, ops, busy, idle)
+            where = f"{mesh} y-shards" if isinstance(mesh, int) else \
+                f"{mesh[0]} x {mesh[1]} blocks"
+            interiors_equal(model, res[True][0], res[False][0],
+                            f"phase 13e: {path} on {where}, split against unsplit")
+            log(f"phase 13e: {path} on {where}, {n_steps} steps: overlap=True bitwise "
+                f"equal to overlap=False; split {res[True][1]:.4f} ms/step "
+                f"({res[True][2]:.0f} device ops, {res[True][3]:.4f} ms busy, idle "
+                f"{res[True][4]:.3f}), unsplit {res[False][1]:.4f} ms/step "
+                f"({res[False][2]:.0f} ops, {res[False][3]:.4f} ms, idle "
+                f"{res[False][4]:.3f}) [{card}]")
+    log("phase 13: not measured: the 2-D exchange across cards (one card; "
+        "ProcessGroupExchange's NCCL sends, and the overlap the split is for, need two; "
+        "the 2-D exchange between processes runs on the CPU through gloo in "
+        "tests/test_torch_distributed2d.py)")
+    return out["b"][1]
 
 
 def main():
@@ -1870,15 +2292,20 @@ def main():
     phase10_simulation(card, gyre_model, gyre_state0)
     diag_counts = phase11_bickley_50_days(card)
     kres.update(phase12a_shard_fills(card))
-    shard_counts = phase12_sharded(card, (bickley_model, bickley_state0, bickley_ms),
-                                   (gyre_model, gyre_state0, gyre_ms))
+    shard_counts, shard_ms = phase12_sharded(
+        card, (bickley_model, bickley_state0, bickley_ms), (gyre_model, gyre_state0, gyre_ms))
+    kres.update(phase13a_block_fills(card))
+    block_counts = phase13_runs(card, (bickley_model, bickley_state0, bickley_ms),
+                                (gyre_model, gyre_state0, gyre_ms), shard_ms)
     del bickley_model, bickley_state0, gyre_model, gyre_state0
 
     # each path must have launched every kernel it runs; a row reports the count of
     # the last path that runs it (the gyre's for every kernel of the gyre; the
-    # sharded Bickley jet's for the pack and the shard fill)
+    # sharded Bickley jet's for the pack, the wrap and the shard fill; the 2 x 2
+    # Bickley jet's for the block pack and the block fill)
     launches = {}
-    for path, names, cnt in (("sharded Bickley", SHARDED, shard_counts),
+    for path, names, cnt in (("2-D Bickley", BLOCKS, block_counts),
+                             ("sharded Bickley", SHARDED, shard_counts),
                              ("Bickley", BICKLEY, counts), ("front", FRONT, front_counts),
                              ("gyre", GYRE, gyre_counts), ("ceilings", PROBES, probe_counts),
                              ("50-day run", DIAGNOSTICS, diag_counts)):

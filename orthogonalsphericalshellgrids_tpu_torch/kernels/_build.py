@@ -37,9 +37,9 @@ _SIGNATURES = {
     "osg_fma_ceiling": [_P, _P, _L, _I, _P],
     "osg_weno_probe": [_P, _P, _I, _I, _I, _I, _P],
     "osg_baro_substep_sol": [_P] * 4 + [_I] * 4 + [_P],
-    "osg_halo_fill_group": [_T, _I, _P, _I, _P, _P, _P],
-    "osg_halo_pack_group": [_T, _I, _P, _P],
-    "osg_halo_restore_group": [_T, _I, _P, _P],
+    "osg_halo_fill_group": [_T, _I, _P, _I, _P, _P, _P, _P, _T, _T, _I, _P],
+    "osg_halo_pack_group": [_T, _I, _P, _I, _P],
+    "osg_halo_restore_group": [_T, _I, _P, _I, _P],
     "osg_halo_fill_copy": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "osg_barotropic": [_P] * 10 + [_I] * 9 + [_P],
     "osg_momentum": [_P] * 10 + [_I] * 8 + [_P],

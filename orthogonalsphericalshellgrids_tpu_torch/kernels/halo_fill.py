@@ -14,7 +14,18 @@ Counterparts: ``orthogonalsphericalshellgrids_tpu/ops/pallas_fill.py``:
   rank's role (``SINGLE``, ``BOTTOM``, ``MIDDLE``, ``TOP``) and the rows received
   from its neighbours, and ``pack_strips`` packs the rows it sends them: the
   counterpart of ``orthogonalsphericalshellgrids_tpu/ops/spmd.py:
-  fill_halos_spmd_groups``, whose XLA fill the JAX package's sharded step runs.
+  fill_halos_spmd_groups``, whose XLA fill the JAX package's sharded step runs;
+- on one block of a 2-D (x, y) mesh (``ops/spmd2d.py``) the role is a ``BlockRole``
+  (the y role, the x-ranks, the block's x-rank, the global columns) and the fill
+  runs in two phases: ``INNER`` (the y rows and the fold, from the received rows and
+  the top ranks' fold strips) and, after the x exchange, ``OUTER`` (every x-halo
+  cell from the x-neighbours' columns); ``pack_strips`` packs the rows with the fold
+  strip, or the columns: the counterpart of ``orthogonalsphericalshellgrids_tpu/
+  ops/spmd2d.py:fill_halos_spmd2d_groups``;
+- the overlap split of a y-partitioned rank wraps x locally before its exchange
+  (phase ``WRAP``) and fills the rest after it (``NO_WRAP``); each phase saves the
+  cells it writes into one packed buffer (``saved``), so one restore gives the
+  fields back.
 
 The packed layout is the host plan's (``group_plan``): field after field, plane after
 plane, and within a plane the written cells in the order of ``plane_cells`` (the
@@ -24,9 +35,12 @@ rows in full and, of row Ny, only its halo columns, so its cells are laid out as
 face-y field's. The send and receive buffers hold each field's K planes of Hy
 full-width rows, field after field (the plan's ``xoff``); the send buffer holds the
 top Hy interior rows of every field (for the rank above), then the bottom Hy (for the
-rank below). The plain versions gather and scatter those cells with torch
-indexing and fill with ``ops/zipper.fill_halos``; every kernel is bitwise equal to
-them at float32 and float64.
+rank below), and on an x-block then its fold strip, the rows Ny-1 .. Ny+Hy-1 at the
+interior columns (the plan's ``fold``). An x-block's column buffers hold each field's
+K planes of Yb rows of Hx columns (the plan's ``cols``): its last Hx interior columns
+(for the rank east of it), then its first Hx (for the rank west of it). The plain
+versions gather and scatter those cells with torch indexing and fill with
+``ops/zipper.py``; every kernel is bitwise equal to them at float32 and float64.
 """
 
 from __future__ import annotations
@@ -44,16 +58,37 @@ from . import call, check_operands, count, data_ptr, on_cuda
 
 __all__ = ["fill_halos", "fill_halos_plain", "fill_halos_group", "fill_halos_group_plain",
            "restore_strips_group", "restore_strips_group_plain", "pack_strips",
-           "pack_strips_plain", "group_plan", "plane_cells", "role_of", "MAX_FIELDS",
-           "SINGLE", "BOTTOM", "MIDDLE", "TOP"]
+           "pack_strips_plain", "wrap_halos_group", "group_plan", "group_geometry",
+           "plane_cells", "role_of", "block_role",
+           "BlockRole", "MAX_FIELDS", "SINGLE", "BOTTOM", "MIDDLE", "TOP", "ALL", "WRAP",
+           "NO_WRAP", "INNER", "OUTER", "ROWS", "COLUMNS"]
 
 MAX_FIELDS = 8
+MAX_RANKS_X = 32  # csrc/halo_fill.cu:kMaxRanksX
 THREADS = 256  # csrc/halo_fill.cu:kThreads
 # the shard roles (csrc/halo_fill.cu:Role): the whole grid; rank 0 of several; a rank
 # between two others; the last rank, which holds the fold
 SINGLE, BOTTOM, MIDDLE, TOP = range(4)
 ROLE_NAMES = ("single", "bottom", "middle", "top")
-TABLE_COLS = 16  # csrc/halo_fill.cu:kCols
+# the cells of the plan a launch writes (csrc/halo_fill.cu:Phase): all; the x-halo
+# columns of the rows between the south and north strips (a local x-wrap); all but
+# those; an x-block's interior columns; its x-halo columns
+ALL, WRAP, NO_WRAP, INNER, OUTER = range(5)
+PHASE_NAMES = ("all", "wrap", "no_wrap", "inner", "outer")
+# what pack_strips copies (csrc/halo_fill.cu:PackKind)
+ROWS, COLUMNS = range(2)
+TABLE_COLS = 21  # csrc/halo_fill.cu:kCols
+
+
+class BlockRole(NamedTuple):
+    """The role of one block of a 2-D (x, y) mesh: ``y`` its y role (``role_of`` of
+    its y-rank), ``n_x`` the x-ranks, ``ix`` its x-rank and ``nx_global`` the global
+    interior columns (``n_x`` times the block's)."""
+
+    y: int
+    n_x: int
+    ix: int
+    nx_global: int
 
 
 def role_of(rank, n_shards):
@@ -65,16 +100,40 @@ def role_of(rank, n_shards):
     return BOTTOM if rank == 0 else TOP if rank == n_shards - 1 else MIDDLE
 
 
+def block_role(ix, iy, n_x, n_y, nx_global):
+    """The role of block (``ix``, ``iy``) of an (``n_x``, ``n_y``) mesh of
+    ``nx_global`` columns: its y role with one x-rank, else a ``BlockRole``."""
+    if not 0 <= ix < n_x:
+        raise ValueError(f"x-rank {ix} is not one of {n_x}")
+    y = role_of(iy, n_y)
+    return y if n_x == 1 else BlockRole(y, n_x, ix, nx_global)
+
+
+def _split(role, Nx):
+    """(y role, x-ranks, x-rank, global columns) of ``role`` on a field of ``Nx``
+    interior columns."""
+    if isinstance(role, BlockRole):
+        return role
+    return role, 1, 0, Nx
+
+
+def _y_role(role):
+    return role.y if isinstance(role, BlockRole) else role
+
+
 def receives(role):
     """(whether the role receives its south rows, whether its north rows)."""
-    return role in (MIDDLE, TOP), role in (BOTTOM, MIDDLE)
+    y = _y_role(role)
+    return y in (MIDDLE, TOP), y in (BOTTOM, MIDDLE)
 
 
 class GroupPlan(NamedTuple):
     """The packed layout of a group: per field its written cells a plane, its first
     block, its first offset in the strip buffer and its first offset in the send
     and receive buffers; the launch's blocks, the strip buffer's length and the
-    length of one part of the send buffer (one direction's rows)."""
+    length of one part of the send buffer (one direction's rows); per field its
+    first offset in a rank's fold strip and in the column buffers, the length of a
+    rank's fold strip and of one part of the column buffers."""
 
     cells: tuple
     block0: tuple
@@ -83,14 +142,20 @@ class GroupPlan(NamedTuple):
     blocks: int
     n_saved: int
     part_len: int
+    fold: tuple = ()
+    cols: tuple = ()
+    fold_len: int = 0
+    col_len: int = 0
 
 
 def _y0_kept(Nx, Ny, Hy, face_y, role):
     """The first row of the north strip and the cells of it a fill keeps: row Ny and
-    its kept half for a center-y fold; row Ny + 1 and none otherwise."""
-    if face_y or role in (BOTTOM, MIDDLE):
+    its kept part for a center-y fold (the columns below the global middle); row
+    Ny + 1 and none otherwise."""
+    y, n_x, ix, nx_g = _split(role, Nx)
+    if face_y or y in (BOTTOM, MIDDLE):
         return Hy + Ny, 0
-    return Hy + Ny - 1, Nx // 2
+    return Hy + Ny - 1, min(max(nx_g // 2 - ix * Nx, 0), Nx)
 
 
 def _cells(Yb, Xb, Nx, Ny, Hx, Hy, face_x, face_y, role=SINGLE):
@@ -105,19 +170,24 @@ def _cells(Yb, Xb, Nx, Ny, Hx, Hy, face_x, face_y, role=SINGLE):
 def group_plan(geoms):
     """The plan of a group, ``geoms`` a tuple of per-field
     ``(K, Yb, Xb, Nx, Ny, Hx, Hy, face_x, face_y[, role])``."""
-    cells, block0, strip, xoff = [], [], [], []
-    block = off = rows = 0
+    cells, block0, strip, xoff, fold, cols = [], [], [], [], [], []
+    block = off = rows = folds = columns = 0
     for K, *plane in geoms:
+        Yb, Xb, Nx, Ny, Hx, Hy = plane[:6]
         n = _cells(*plane)
         cells.append(n)
         block0.append(block)
         strip.append(off)
         xoff.append(rows)
+        fold.append(folds)
+        cols.append(columns)
         block += -(-K * n // THREADS)
         off += K * n
-        rows += K * plane[5] * plane[1]  # K planes of Hy rows of Xb
+        rows += K * Hy * Xb  # K planes of Hy rows of Xb
+        folds += K * (Hy + 1) * Nx  # K planes of Hy + 1 rows of Nx
+        columns += K * Yb * Hx  # K planes of Yb rows of Hx
     return GroupPlan(tuple(cells), tuple(block0), tuple(strip), tuple(xoff), block, off,
-                     rows)
+                     rows, tuple(fold), tuple(cols), folds, columns)
 
 
 @functools.lru_cache(maxsize=64)
@@ -137,9 +207,23 @@ def plane_cells(Yb, Xb, Nx, Ny, Hx, Hy, face_x, face_y, role=SINGLE):
 
 
 @functools.lru_cache(maxsize=64)
-def _flat_cells(plane, device):
+def _phase_cells(plane, phase):
+    """(flat indices in the plane, positions in the plane's packed cells) of the
+    cells of ``plane`` (the geometry less K) that a launch of ``phase`` writes
+    (csrc/halo_fill.cu:in_phase)."""
+    Yb, Xb, Nx, Ny, Hx, Hy, _, face_y, role = plane
     y, x = plane_cells(*plane)
-    return torch.as_tensor(y * plane[1] + x, device=device)
+    outer = (x < Hx) | (x >= Hx + Nx)
+    wrap = outer & (y >= Hy) & (y < _y0_kept(Nx, Ny, Hy, face_y, role)[0])
+    keep = {ALL: np.ones_like(outer), WRAP: wrap, NO_WRAP: ~wrap, INNER: ~outer,
+            OUTER: outer}[phase]
+    return y[keep] * Xb + x[keep], np.flatnonzero(keep)
+
+
+@functools.lru_cache(maxsize=64)
+def _flat_cells(plane, device, phase=ALL):
+    idx, pos = _phase_cells(plane, phase)
+    return torch.as_tensor(idx, device=device), torch.as_tensor(pos, device=device)
 
 
 @functools.lru_cache(maxsize=256)
@@ -150,17 +234,37 @@ def _plane_geometry(name, shape, loc, Nx, Ny, Hx, Hy, role=SINGLE):
     where one plane has both the south fill and the fold (``SINGLE``); a shard's
     received rows come from the receive buffers, and its send rows must be interior
     rows, so a shard needs ``Ny >= Hy`` (every decomposition the JAX package takes).
-    Both routes check these so that a geometry the kernel refuses fails on the CPU
-    too."""
+    An x-block reads its fold from the strips and its x halos from the received
+    columns, so it needs only an even global width, ``Nx >= Hx`` (its x sends are
+    interior columns) and ``Ny >= Hy``, or ``Ny > Hy`` where its one row of blocks
+    folds (the strip is Hy + 1 interior rows). Both routes check these so that a
+    geometry the kernel refuses fails on the CPU too."""
     lx, ly = validate_location(loc)
-    if role not in (SINGLE, BOTTOM, MIDDLE, TOP):
+    y, n_x, ix, nx_g = _split(role, Nx)
+    if y not in (SINGLE, BOTTOM, MIDDLE, TOP):
         raise ValueError(f"{name}: unknown shard role {role!r}")
-    rows_ok = Ny > Hy + 1 if role == SINGLE else Ny >= Hy
-    if Nx % 2 or Hy < 1 or not rows_ok or 2 * Hx >= Nx:
-        need = "Ny > Hy + 1" if role == SINGLE else "Ny >= Hy"
-        raise ValueError(
-            f"{name} ({ROLE_NAMES[role]}) needs Nx even, Hy >= 1, {need} and "
-            f"2*Hx < Nx; got Nx={Nx}, Ny={Ny}, Hx={Hx}, Hy={Hy}")
+    if n_x == 1:
+        if isinstance(role, BlockRole):
+            raise ValueError(f"{name}: a mesh of one x-rank takes the y role itself")
+        rows_ok = Ny > Hy + 1 if y == SINGLE else Ny >= Hy
+        if Nx % 2 or Hy < 1 or not rows_ok or 2 * Hx >= Nx:
+            need = "Ny > Hy + 1" if y == SINGLE else "Ny >= Hy"
+            raise ValueError(
+                f"{name} ({ROLE_NAMES[y]}) needs Nx even, Hy >= 1, {need} and "
+                f"2*Hx < Nx; got Nx={Nx}, Ny={Ny}, Hx={Hx}, Hy={Hy}")
+    else:
+        if not 1 < n_x <= MAX_RANKS_X or not 0 <= ix < n_x or nx_g != n_x * Nx:
+            raise ValueError(f"{name}: block {ix} of {n_x} x-ranks of {Nx} columns "
+                             f"cannot cover {nx_g} global columns (at most "
+                             f"{MAX_RANKS_X} x-ranks)")
+        alone = y == SINGLE  # a top rank of several reads the rank below its strip
+        if nx_g % 2 or Hy < 1 or Hx < 1 or Nx < Hx or Ny < Hy + alone:
+            need = "Ny > Hy (the fold strip is Hy + 1 interior rows)" if alone else \
+                "Ny >= Hy"
+            raise ValueError(
+                f"{name} ({ROLE_NAMES[y]} x-block) needs an even global width, Hx, Hy "
+                f">= 1, Nx >= Hx and {need}; got Nx={Nx} of {nx_g}, Ny={Ny}, Hx={Hx}, "
+                f"Hy={Hy}")
     if len(shape) not in (2, 3):
         raise ValueError(f"{name} takes a 2-D plane or a 3-D stack, got {len(shape)}-D")
     plane = (Ny + 2 * Hy, Nx + 2 * Hx)
@@ -207,15 +311,23 @@ def _group(name, fields, role=SINGLE):
     return tuple(geoms), on_cuda(A0)
 
 
+def group_geometry(fields, role=SINGLE):
+    """The checked geometries of a group in ``role`` (``group_plan`` takes them)."""
+    return _group("group_geometry", list(fields), role)[0]
+
+
 @functools.lru_cache(maxsize=64)
 def _table_row0(geoms, signs):
     """The kernel's field table without the pointers: one row of ``TABLE_COLS``
     int64 a field (csrc/halo_fill.cu:Col), as bytes."""
     plan = group_plan(geoms)
     rows = []
-    for (K, Yb, Xb, Nx, Ny, Hx, Hy, fx, fy, role), sign, n, b0, off, xoff in zip(
-            geoms, signs, plan.cells, plan.block0, plan.strip, plan.xoff):
-        rows += [0, K, Yb, Xb, Nx, Ny, Hx, Hy, fx, fy, sign, n, b0, off, role, xoff]
+    for (K, Yb, Xb, Nx, Ny, Hx, Hy, fx, fy, role), sign, n, b0, off, xoff, fo, co in zip(
+            geoms, signs, plan.cells, plan.block0, plan.strip, plan.xoff, plan.fold,
+            plan.cols):
+        y, n_x, ix, nx_g = _split(role, Nx)
+        rows += [0, K, Yb, Xb, Nx, Ny, Hx, Hy, fx, fy, sign, n, b0, off, y, xoff, n_x, ix,
+                 nx_g, fo, co]
     return bytes((ctypes.c_int64 * len(rows))(*rows))
 
 
@@ -229,17 +341,24 @@ def _table(fields, geoms):
     return table
 
 
-def _strips(fields, geoms, plan, saved):
-    """Per field: (A as (K, Yb*Xb), the flat indices of its written cells, its slice
-    of ``saved`` as (K, cells))."""
+def _scatter_save(fields, geoms, plan, saved, phase):
+    """Copy the pre-fill values of the cells ``phase`` writes into ``saved``."""
     for (A, *_), geom, n, off in zip(fields, geoms, plan.cells, plan.strip):
-        K = geom[0]
-        yield (A.view(K, -1), _flat_cells(geom[1:], A.device),
-               saved[off:off + K * n].view(K, n))
+        idx, pos = _flat_cells(geom[1:], A.device, phase)
+        saved[off:off + geom[0] * n].view(geom[0], n)[:, pos] = A.view(geom[0], -1)[:, idx]
 
 
-def _saved_buffer(fields, plan, save):
+def _saved_buffer(fields, plan, save, saved=None):
+    """The packed buffer a fill saves into: ``saved`` (a buffer of the plan an
+    earlier phase made), or a new one with ``save``, or None."""
     A0 = fields[0][0]
+    if saved is not None:
+        if not save:
+            raise ValueError("fill_halos_group: a saved buffer goes with save=True")
+        check_operands("fill_halos_group", {"saved": saved}, A0.dtype,
+                       {"saved": (plan.n_saved,)})
+        on_cuda(A0, saved)  # raises when the buffer lies on another device
+        return saved
     return torch.empty(plan.n_saved, dtype=A0.dtype, device=A0.device) if save else None
 
 
@@ -249,48 +368,162 @@ def _rows(buf, A, geom, xoff):
     return buf[xoff:xoff + K * Hy * Xb].view(A.shape[:-2] + (Hy, Xb))
 
 
-def _fill_plain(fields, geoms, save, south=None, north=None):
+def _columns(buf, A, geom, coff):
+    """The columns of field ``A`` in a column buffer: ``(..., Yb, Hx)``."""
+    K, Yb, Hx = geom[0], geom[1], geom[5]
+    return buf[coff:coff + K * Yb * Hx].view(A.shape[:-2] + (Yb, Hx))
+
+
+def _mirror_strip(A, geom, foff, xoff, strips, lows):
+    """The fold's mirror of an x-block's columns, ``(..., Hy + 1, Nx)``: the top
+    ranks' fold strips laid side by side into the global strip (zero where a rank's
+    strip was not received; with Ny = Hy the lowest row from the top interior row of
+    the rank below, in ``lows``) and indexed at the mirror of each of the block's
+    global columns (``ops/spmd2d.py:_fold_arith``'s ``M``), with the global
+    columns."""
+    K, _, Xb, Nx, Ny, Hx, Hy, face_x, _, role = geom
+    n = K * (Hy + 1) * Nx
+    shape = A.shape[:-2] + (Hy + 1, Nx)
+    parts = []
+    for q, st in enumerate(strips):
+        if st is None:
+            parts.append(A.new_zeros(shape))
+            continue
+        part = st[foff:foff + n].view(shape)
+        if Ny == Hy:
+            part = part.clone()
+            part[..., 0, :] = lows[q][xoff:xoff + K * Hy * Xb].view(
+                A.shape[:-2] + (Hy, Xb))[..., Hy - 1, Hx:Hx + Nx]
+        parts.append(part)
+    full = torch.cat(parts, dim=-1)
+    ig = role.ix * Nx + np.arange(Nx)
+    nx_g = role.nx_global
+    mir = (nx_g - ig) % nx_g if face_x else nx_g - 1 - ig
+    return full[..., torch.as_tensor(mir, device=A.device)], ig
+
+
+def _fill_inner(A, loc, sign, geom, south, north, strips, lows, foff, xoff):
+    """The ``INNER`` phase of an x-block in place: the south rows (received or
+    zero-gradient), then the north rows (received) or the fold from the strips, at
+    the interior columns."""
+    Nx, Ny, Hx, Hy = geom[3:7]
+    inner = slice(Hx, Hx + Nx)
+    if south is not None:
+        A[..., :Hy, inner] = south[..., inner]
+    else:
+        A[..., :Hy, inner] = A[..., Hy:Hy + 1, inner]
+    if north is not None:
+        A[..., Hy + Ny:, inner] = north[..., inner]
+    else:
+        M, ig = _mirror_strip(A, geom, foff, xoff, strips, lows)
+        top = A[..., Ny - 1:Ny + Hy, inner]
+        A[..., Hy + Ny - 1:, inner] = zipper.fold_rows(top, M, loc, sign, ig,
+                                                       geom[9].nx_global)
+
+
+def _fill_plain(fields, geoms, save, recv, phase, saved=None):
+    """The plain fill of ``phase``: the written cells saved into the packed buffer by
+    the plan's indices, then ``ops/zipper.fill_halos`` in place with the received
+    rows (``ALL``, ``NO_WRAP``, which writes the wrapped columns again with the
+    values ``WRAP`` wrote), the local wrap of the middle rows (``WRAP``), or an
+    x-block's phases."""
     plan = group_plan(geoms)
-    saved = _saved_buffer(fields, plan, save)
+    saved = _saved_buffer(fields, plan, save, saved)
     if save:
-        for A, idx, out in _strips(fields, geoms, plan, saved):
-            out.copy_(A[:, idx])
-    for (A, loc, sign, Nx, Ny, Hx, Hy), geom, xoff in zip(fields, geoms, plan.xoff):
-        zipper.fill_halos(
-            A, loc, sign, Nx, Ny, Hx, Hy, south="zero_gradient", inplace=True,
-            from_south=None if south is None else _rows(south, A, geom, xoff),
-            from_north=None if north is None else _rows(north, A, geom, xoff))
+        _scatter_save(fields, geoms, plan, saved, phase)
+    for (A, loc, sign, Nx, Ny, Hx, Hy), geom, xoff, foff, coff in zip(
+            fields, geoms, plan.xoff, plan.fold, plan.cols):
+        south, north, west, east = (None if recv[k] is None else fn(recv[k], A, geom, o)
+                                    for k, fn, o in (("south", _rows, xoff),
+                                                     ("north", _rows, xoff),
+                                                     ("west", _columns, coff),
+                                                     ("east", _columns, coff)))
+        if phase == WRAP:
+            y0 = _y0_kept(Nx, Ny, Hy, geom[8], geom[9])[0]
+            zipper.wrap_x(A[..., Hy:y0, :], Nx, Hx)
+        elif phase == INNER:
+            _fill_inner(A, loc, sign, geom, south, north, recv["strips"], recv["lows"],
+                        foff, xoff)
+        elif phase == OUTER:
+            A[..., :, :Hx] = west
+            A[..., :, Hx + Nx:] = east
+        else:
+            zipper.fill_halos(A, loc, sign, Nx, Ny, Hx, Hy, south="zero_gradient",
+                              inplace=True, from_south=south, from_north=north)
     return [f[0] for f in fields], saved
 
 
-def _shard_group(name, fields, role, south, north):
-    """The checked geometries of a group filled in role ``role`` and whether it lies
-    on a CUDA device: the group as ``_group`` checks it, and the receive buffers the
-    role reads (and no other), each of the group's dtype and device, contiguous,
-    holding one part of the plan's send buffer."""
+def _receive_group(name, fields, role, phase, recv):
+    """The checked geometries of a group filled in role ``role`` and phase
+    ``phase`` and whether it lies on a CUDA device: the group as ``_group`` checks
+    it; the phase one of the role's (``ALL``, ``WRAP``, ``NO_WRAP`` for a
+    y-partitioned rank, ``INNER``, ``OUTER`` for an x-block); the receive buffers the
+    phase reads (and no other), each of the group's dtype and device, contiguous,
+    holding one part of the plan's send buffer; and on the fold of an x-block the
+    fold strips of the x-ranks it reads, a rank's fold strip each."""
     geoms, cuda = _group(name, fields, role)
     plan = group_plan(geoms)
     A0 = fields[0][0]
-    for side, buf, wanted in zip(("south", "north"), (south, north), receives(role)):
+    block = isinstance(role, BlockRole)
+    if phase not in ((INNER, OUTER) if block else (ALL, WRAP, NO_WRAP)):
+        raise ValueError(f"{name}: phase {phase!r} is not one of a "
+                         f"{'block' if block else 'y-partitioned rank'}'s")
+    rows = phase in (ALL, NO_WRAP, INNER)
+    want = dict(zip(("south", "north"), (rows and r for r in receives(role))),
+                west=phase == OUTER, east=phase == OUTER)
+    lens = dict(south=plan.part_len, north=plan.part_len, west=plan.col_len,
+                east=plan.col_len)
+    for side, wanted in want.items():
+        buf = recv[side]
         if (buf is not None) != wanted:
-            raise ValueError(f"{name}: a {ROLE_NAMES[role]} rank "
-                             f"{'receives' if wanted else 'receives no'} {side} rows")
+            raise ValueError(f"{name}: a {ROLE_NAMES[_y_role(role)]} rank's "
+                             f"{PHASE_NAMES[phase]} phase "
+                             f"{'reads' if wanted else 'reads no'} {side} buffer")
         if buf is not None:
-            check_operands(name, {side: buf}, A0.dtype, {side: (plan.part_len,)})
+            check_operands(name, {side: buf}, A0.dtype, {side: (lens[side],)})
             on_cuda(A0, buf)  # raises when the buffer lies on another device
+    strips, lows = recv["strips"], recv["lows"]
+    fold = block and phase == INNER and role.y in (SINGLE, TOP)
+    low = fold and any(g[4] == g[6] for g in geoms)
+    for what, bufs, wanted, n in (("fold strips", strips, fold, plan.fold_len),
+                                  ("rows below the strips", lows, low, plan.part_len)):
+        if (bufs is not None) != wanted:
+            raise ValueError(f"{name}: this launch {'reads' if wanted else 'reads no'} "
+                             f"the top ranks' {what}")
+        if not wanted:
+            continue
+        if len(bufs) != role.n_x:
+            raise ValueError(f"{name}: {len(bufs)} ranks' {what}, not {role.n_x}")
+        Nx = geoms[0][3]
+        ig = role.ix * Nx + np.arange(Nx)
+        nx_g = role.nx_global
+        for q in np.unique(np.concatenate([(nx_g - 1 - ig) // Nx,
+                                           ((nx_g - ig) % nx_g) // Nx])):
+            if bufs[q] is None:
+                raise ValueError(f"{name}: the fold of x-rank {role.ix} reads x-rank "
+                                 f"{q}'s {what}")
+        for b in bufs:
+            if b is not None:
+                check_operands(name, {what: b}, A0.dtype, {what: (n,)})
+                on_cuda(A0, b)
     return geoms, cuda
 
 
-def fill_halos_group_plain(fields, save=False, role=SINGLE, south=None, north=None):
+def fill_halos_group_plain(fields, save=False, role=SINGLE, south=None, north=None, *,
+                           phase=ALL, west=None, east=None, strips=None, lows=None,
+                           saved=None):
     """``fill_halos_group`` in plain PyTorch: the written cells gathered into the
     packed buffer by the plan's indices, then ``ops/zipper.fill_halos`` in place
-    (with the received rows of a shard)."""
+    (with the received rows of a shard), or the phase of an x-block from its
+    received rows, columns and fold strips (``ops/zipper.fold_rows``)."""
     fields = list(fields)
-    geoms, _ = _shard_group("fill_halos_group", fields, role, south, north)
-    return _fill_plain(fields, geoms, save, south, north)
+    recv = dict(south=south, north=north, west=west, east=east, strips=strips, lows=lows)
+    geoms, _ = _receive_group("fill_halos_group", fields, role, phase, recv)
+    return _fill_plain(fields, geoms, save, recv, phase, saved)
 
 
-def fill_halos_group(fields, save=False, role=SINGLE, south=None, north=None):
+def fill_halos_group(fields, save=False, role=SINGLE, south=None, north=None, *,
+                     phase=ALL, west=None, east=None, strips=None, lows=None, saved=None):
     """Fill the halos of every field of ``fields`` in place: a sequence of at most
     ``MAX_FIELDS`` ``(A, loc, sign, Nx, Ny, Hx, Hy)``, each ``A`` a halo-inclusive
     ``(Ny+2Hy, Nx+2Hx)`` plane or ``(K, Ny+2Hy, Nx+2Hx)`` stack, all of one dtype and
@@ -301,52 +534,118 @@ def fill_halos_group(fields, save=False, role=SINGLE, south=None, north=None):
     ``Ny`` its own rows; ``south`` and ``north`` are the rows received from the ranks
     below and above (one part of their ``pack_strips`` buffers; None where the role
     has no such neighbour). They fill the south and north halo rows in place of the
-    south fill and the fold."""
-    fields = list(fields)
-    geoms, cuda = _shard_group("fill_halos_group", fields, role, south, north)
+    south fill and the fold. ``phase`` ``WRAP`` writes only the local x-wrap of the
+    rows between the south and north strips (it reads no buffer), ``NO_WRAP`` the
+    rest.
+
+    On one block of a 2-D mesh, ``role`` is a ``BlockRole`` and ``Nx`` the block's
+    columns; ``phase`` ``INNER`` fills the interior columns of the y rows from
+    ``south``/``north`` and, on the top row of blocks, the fold from ``strips`` (a
+    list of the ``n_x`` top ranks' fold strips, None for those it does not read,
+    ``ops/spmd2d.fold_sources``; and where a field has Ny = Hy, ``lows``, the send buffers of
+    the ranks below those, whose top row is the lowest row of the strip); ``OUTER``
+    fills every x-halo cell from ``west`` and ``east`` (one part of the
+    x-neighbours' column buffers).
+
+    ``saved`` is the packed buffer an earlier phase of the same fill returned: this
+    phase saves its cells into it (``save`` must be set). Each phase saves only the
+    cells it writes, so one ``restore_strips_group`` undoes all phases."""
+    recv = dict(south=south, north=north, west=west, east=east, strips=strips, lows=lows)
+    return _fill_group(list(fields), save, role, phase, recv, saved)
+
+
+def _fill_group(fields, save, role, phase, recv, saved):
+    geoms, cuda = _receive_group("fill_halos_group", fields, role, phase, recv)
     if not cuda:
-        return _fill_plain(fields, geoms, save, south, north)
-    saved = _saved_buffer(fields, group_plan(geoms), save)
+        return _fill_plain(fields, geoms, save, recv, phase, saved)
+    strips, lows, south, north, west, east = (
+        recv[k] for k in ("strips", "lows", "south", "north", "west", "east"))
+    saved = _saved_buffer(fields, group_plan(geoms), save, saved)
     A0 = fields[0][0]
+    ranks = [None if bufs is None else (ctypes.c_int64 * len(bufs))(
+        *(0 if b is None else b.data_ptr() for b in bufs)) for bufs in (strips, lows)]
     call("osg_halo_fill_group", A0.dtype, A0.device, _table(fields, geoms),
-         len(fields), data_ptr(saved), int(save), data_ptr(south), data_ptr(north))
-    count("halo_fill" if role == SINGLE else "halo_fill_shard")
+         len(fields), data_ptr(saved), int(save), data_ptr(south), data_ptr(north),
+         data_ptr(west), data_ptr(east), *ranks, phase)
+    count("halo_fill_block" if isinstance(role, BlockRole) else "halo_wrap"
+          if phase == WRAP else "halo_fill" if role == SINGLE else "halo_fill_shard")
     return [f[0] for f in fields], saved
 
 
-def pack_strips_plain(fields, role):
-    """``pack_strips`` in plain PyTorch: one ``torch.cat`` of the rows."""
+def wrap_halos_group(fields, role):
+    """The local x-wrap of a y-partitioned rank's group, in place: the x-halo
+    columns of the rows between the south and north strips from the rows' own
+    columns, their old values saved into a new packed buffer of the group's plan,
+    which is returned for ``fill_halos_group(..., phase=NO_WRAP, saved=)`` to
+    complete (``fill_halos_group`` with ``phase=WRAP``; one launch on a CUDA
+    device)."""
+    recv = dict(south=None, north=None, west=None, east=None, strips=None, lows=None)
+    return _fill_group(list(fields), True, role, WRAP, recv, None)[1]
+
+
+def _pack_geoms(fields, role, kind):
+    """The checked geometries of a pack and whether it lies on a CUDA device: rows
+    for any rank but a single one (an x-block's include its fold strip), columns for
+    an x-block only."""
+    block = isinstance(role, BlockRole)
+    if kind == ROWS and role == SINGLE:
+        raise ValueError("pack_strips: a single rank sends nothing")
+    if kind not in (ROWS, COLUMNS) or (kind == COLUMNS and not block):
+        raise ValueError(f"pack_strips: kind {kind!r} is not one of a "
+                         f"{'block' if block else 'y-partitioned rank'}'s")
+    return _group("pack_strips", fields, role)
+
+
+def pack_strips_plain(fields, role, kind=ROWS):
+    """``pack_strips`` in plain PyTorch: one ``torch.cat`` of the rows (and fold
+    strips) or of the columns."""
     fields = list(fields)
-    _group("pack_strips", fields, role)
+    _pack_geoms(fields, role, kind)
+    if kind == COLUMNS:
+        rights = [f[0][..., :, f[3]:f[3] + f[5]].reshape(-1) for f in fields]
+        lefts = [f[0][..., :, f[5]:2 * f[5]].reshape(-1) for f in fields]
+        return torch.cat(rights + lefts)
     tops = [f[0][..., f[4]:f[4] + f[6], :].reshape(-1) for f in fields]
     bottoms = [f[0][..., f[6]:2 * f[6], :].reshape(-1) for f in fields]
-    return torch.cat(tops + bottoms)
+    folds = []
+    if isinstance(role, BlockRole):
+        folds = [f[0][..., f[4] - 1:f[4] + f[6], f[5]:f[5] + f[3]].reshape(-1)
+                 for f in fields]
+    return torch.cat(tops + bottoms + folds)
 
 
-def pack_strips(fields, role):
+def pack_strips(fields, role, kind=ROWS):
     """The send buffer of a shard's group (fields as ``fill_halos_group`` takes them,
     ``role`` not ``SINGLE``): every field's top Hy interior rows (rows Ny .. Ny+Hy-1,
     for the rank above), then every field's bottom Hy interior rows (rows Hy ..
     2Hy-1, for the rank below), each part field after field at the plan's ``xoff``,
-    taken before any fill rewrites a row. One launch on a CUDA device."""
+    taken before any fill rewrites a row; on an x-block then every field's fold strip
+    (rows Ny-1 .. Ny+Hy-1 at the interior columns, at the plan's ``fold``). With
+    ``kind=COLUMNS`` (an x-block, after its ``INNER`` phase): every field's last Hx
+    interior columns of all rows (for the rank east of it), then its first Hx (for
+    the rank west of it), at the plan's ``cols``. One launch on a CUDA device."""
     fields = list(fields)
-    if role == SINGLE:
-        raise ValueError("pack_strips: a single rank sends nothing")
-    geoms, cuda = _group("pack_strips", fields, role)
+    geoms, cuda = _pack_geoms(fields, role, kind)
     if not cuda:
-        return pack_strips_plain(fields, role)
+        return pack_strips_plain(fields, role, kind)
+    plan = group_plan(geoms)
+    n = (2 * plan.col_len if kind == COLUMNS else
+         2 * plan.part_len + (plan.fold_len if isinstance(role, BlockRole) else 0))
     A0 = fields[0][0]
-    send = torch.empty(2 * group_plan(geoms).part_len, dtype=A0.dtype, device=A0.device)
+    send = torch.empty(n, dtype=A0.dtype, device=A0.device)
     call("osg_halo_pack_group", A0.dtype, A0.device, _table(fields, geoms), len(fields),
-         send.data_ptr())
-    count("halo_pack")
+         send.data_ptr(), kind)
+    count("halo_pack_block" if isinstance(role, BlockRole) else "halo_pack")
     return send
 
 
-def _restore_group(fields, saved, role):
+def _restore_group(fields, saved, role, phase=ALL):
     """(fields as a list, their geometries and plan, whether on a CUDA device) of a
-    restore, checked: the group as ``_group`` checks it, and ``saved`` a tensor of
-    the group's dtype and device holding exactly the plan's cells."""
+    restore, checked: the group as ``_group`` checks it, ``phase`` one of the
+    phases, and ``saved`` a tensor of the group's dtype and device holding exactly
+    the plan's cells."""
+    if phase not in (ALL, WRAP, NO_WRAP, INNER, OUTER):
+        raise ValueError(f"restore_strips_group: unknown phase {phase!r}")
     fields = list(fields)
     geoms, cuda = _group("restore_strips_group", fields, role)
     plan = group_plan(geoms)
@@ -359,29 +658,32 @@ def _restore_group(fields, saved, role):
     return fields, geoms, plan, cuda
 
 
-def _restore_plain(fields, geoms, plan, saved):
-    for A, idx, strip in _strips(fields, geoms, plan, saved):
-        A[:, idx] = strip
+def _restore_plain(fields, geoms, plan, saved, phase):
+    for (A, *_), geom, n, off in zip(fields, geoms, plan.cells, plan.strip):
+        idx, pos = _flat_cells(geom[1:], A.device, phase)
+        A.view(geom[0], -1)[:, idx] = saved[off:off + geom[0] * n].view(geom[0], n)[:, pos]
     return [f[0] for f in fields]
 
 
-def restore_strips_group_plain(fields, saved, role=SINGLE):
+def restore_strips_group_plain(fields, saved, role=SINGLE, phase=ALL):
     """``restore_strips_group`` in plain PyTorch: the packed strips scattered back by
     the plan's indices."""
-    fields, geoms, plan, _ = _restore_group(fields, saved, role)
-    return _restore_plain(fields, geoms, plan, saved)
+    fields, geoms, plan, _ = _restore_group(fields, saved, role, phase)
+    return _restore_plain(fields, geoms, plan, saved, phase)
 
 
-def restore_strips_group(fields, saved, role=SINGLE):
-    """Write ``saved`` (from ``fill_halos_group(fields, save=True, role=role)``)
-    back into the cells the fill wrote, for every field of the same group: the
-    pre-fill fields, bitwise. Reads nothing else; one launch on a CUDA device."""
-    fields, geoms, plan, cuda = _restore_group(fields, saved, role)
+def restore_strips_group(fields, saved, role=SINGLE, phase=ALL):
+    """Write ``saved`` (from ``fill_halos_group(fields, save=True, role=role)``, all
+    its phases) back into the cells the fill wrote, for every field of the same
+    group: the pre-fill fields, bitwise. With ``phase`` only the cells of that
+    phase (a fill that stopped after it). Reads nothing else; one launch on a CUDA
+    device."""
+    fields, geoms, plan, cuda = _restore_group(fields, saved, role, phase)
     if not cuda:
-        return _restore_plain(fields, geoms, plan, saved)
+        return _restore_plain(fields, geoms, plan, saved, phase)
     A0 = fields[0][0]
     call("osg_halo_restore_group", A0.dtype, A0.device, _table(fields, geoms),
-         len(fields), saved.data_ptr())
+         len(fields), saved.data_ptr(), phase)
     count("halo_restore")
     return [f[0] for f in fields]
 

@@ -26,11 +26,17 @@ between the two reads the unfilled fields, so the state is bitwise unchanged on
 return, also when the step raises; the output writer copies to the host on the
 simulation thread, so no other stream sees the window.
 
-With ``spmd`` (``ops/spmd.py``) ``step`` runs on one rank of a y-partitioned run
-(``parallel/distributed.py``): the same code on the rank's rows, with the fills
-exchanged. Each fill packs the rank's send rows, exchanges them and fills its group
-in the rank's role (u, v, c, η, U, V with save, then GU and GV); the restore follows
-the role's plan. With one shard it is the serial step, launch for launch.
+With ``spmd`` (``ops/spmd.py``, ``ops/spmd2d.py``) ``step`` runs on one rank of a
+y-partitioned run (``parallel/distributed.py``) or one block of a 2-D (x, y) mesh
+(``parallel/distributed2d.py``): the same code on the rank's rows and columns, with
+the fills exchanged (u, v, c, η, U, V with save, then GU and GV); the restore
+follows the role's plan. With one shard it is the serial step, launch for launch.
+On a sharded run the tendencies are split by default where that is exact
+(``overlap``, ``overlap_supported``): the bulk pass reads the rank's own, unfilled
+fields (locally x-wrapped on a y-partition) and is launched before the exchange;
+the rows (and on a 2-D mesh the columns) within a halo of an exchanged edge are then
+recomputed on 3·H-wide strips of the filled fields (``split_tendencies``), bitwise
+equal to the unsplit step.
 
 Not ported yet (``make_model`` raises ``NotImplementedError``; ROADMAP queue 1):
 several tracers and the other advection schemes.
@@ -38,6 +44,7 @@ several tracers and the other advection schemes.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import warnings
 from typing import Any, NamedTuple
@@ -54,12 +61,14 @@ from ..kernels import barotropic, halo_fill, momentum, tracer_adv
 from ..ops.closures import _ratio, biharmonic_c, biharmonic_u, biharmonic_v
 from ..ops.location import CC, CF, FC
 from ..ops.operators import dxf, dyf
-from ..ops.spmd import fill_group, restore_group
+from ..ops.spmd import GroupFill, Spmd, fill_group
 from .split_explicit import SplitExplicitFreeSurface
 
 __all__ = ["HydrostaticModel", "State", "ForcingFields", "make_model", "from_jax_arrays",
-           "initial_state", "state_from_numpy", "vorticity", "tendencies", "embed_ext",
-           "crop_ext", "barotropic_substeps", "step", "multi_step", "compute_cfl_dt"]
+           "initial_state", "state_from_numpy", "vorticity", "tendencies",
+           "overlap_radius", "overlap_supported", "strip_views", "split_tendencies",
+           "tendencies_overlapped", "embed_ext", "crop_ext", "barotropic_substeps",
+           "step", "multi_step", "compute_cfl_dt"]
 
 _CHI = 0.1  # quasi-AB2 parameter (Oceananigans default)
 
@@ -441,6 +450,137 @@ def tendencies(model: HydrostaticModel, u, v, c, t=0.0):
     return Gu, Gv, Gc
 
 
+# --------------------------------------------------------------------------------------
+# The interior/boundary overlap split of a sharded step
+# --------------------------------------------------------------------------------------
+
+def _sliced(module, rows, cols, prefix=""):
+    """A view of ``module`` (a model or one of its grids) whose base-layout buffers
+    (``parallel/layouts.py``) hold rows ``rows`` and columns ``cols`` of every plane,
+    as contiguous copies; every other buffer and attribute is the module's own."""
+    from ..parallel import layouts  # parallel imports this module
+
+    def sl(name, buf):
+        if buf is None or buf.dim() < 2 or layouts.leaf_layout(name) != layouts.BASE:
+            return buf
+        return buf[..., rows, cols].contiguous()
+
+    view = copy.copy(module)
+    view.__dict__.pop("_strip_views", None)
+    view._buffers = {n: sl(prefix + n, b) for n, b in module._buffers.items()}
+    view._modules = {n: _sliced(m, rows, cols, f"{prefix}{n}.")
+                     for n, m in module._modules.items()}
+    return view
+
+
+def strip_views(model, two_d):
+    """The models the split's strip passes run on (``_model_rows`` and
+    ``_model_cols`` of the JAX package): rows [0, 3·Hy) and [Ny - Hy, Ny + 2·Hy),
+    and on a 2-D mesh (``two_d``) columns [0, 3·Hx) and [Nx - Hx, Nx + 2·Hx), of
+    every base-layout buffer. Built once a model (``parallel/distributed.py`` and
+    ``distributed2d.py`` build them with the shards) and kept on it."""
+    cache = model.__dict__.setdefault("_strip_views", {})
+    if two_d not in cache:
+        g = model.grid
+        full = slice(None)
+        views = [_sliced(model, slice(r0, r0 + 3 * g.Hy), full)
+                 for r0 in (0, g.Ny - g.Hy)]
+        if two_d:
+            views += [_sliced(model, full, slice(c0, c0 + 3 * g.Hx))
+                      for c0 in (0, g.Nx - g.Hx)]
+        cache[two_d] = tuple(views)
+    return cache[two_d]
+
+
+def overlap_radius(model) -> int:
+    """The horizontal stencil radius of one tendency evaluation (the rows or columns
+    a tendency at a cell reads beyond it): 3 for the WENO-5 tracer faces and the
+    WENO-5 vorticity reconstruction of the momentum, the port's only schemes; the
+    closures (biharmonic: 2) and the vertical terms (column-local) reach less."""
+    return 3
+
+
+def overlap_supported(model, grid) -> bool:
+    """Whether the split is exact on ``grid`` (``hydrostatic.py:803`` of the JAX
+    package): a kept bulk cell must read only cells that the exchange does not
+    change, which needs radius <= Hy - 1 in y (the fold rewrites half of the last
+    interior row) and radius <= Hx in x, and Ny >= Hy keeps the 3·Hy-row strips in
+    bounds."""
+    r = overlap_radius(model)
+    return r <= grid.Hy - 1 and r <= grid.Hx and grid.Ny >= grid.Hy
+
+
+def _resolve_overlap(model, grid, spmd, overlap):
+    """The JAX package's default (on when the run is sharded and the split exact)
+    and its refusal of ``overlap=True`` where the split is not exact."""
+    if overlap is None:
+        return spmd is not None and spmd.n_shards > 1 and overlap_supported(model, grid)
+    if overlap and not overlap_supported(model, grid):
+        raise ValueError(
+            f"overlap split is not exact for this configuration: effective stencil "
+            f"radius {overlap_radius(model)} needs Hy >= radius+1 and Hx >= radius "
+            f"(grid halo is ({grid.Hx}, {grid.Hy})) — widen the halo or pass "
+            "overlap=False")
+    if overlap and (spmd is None or spmd.n_shards == 1):
+        raise ValueError("overlap=True splits a sharded step; this step has one shard")
+    return bool(overlap)
+
+
+def split_tendencies(model, groups, spmd, tend_from_groups, t, fill):
+    """The interior/boundary split of a sharded tendency evaluation
+    (``hydrostatic.py:821-904`` of the JAX package):
+
+    - the bulk pass ``tend_from_groups(model, groups, t)`` reads the rank's own
+      fields as they are (after ``fill``'s local x-wrap on a y-partition; an
+      x-block's x halos are remote) and is launched first;
+    - ``fill.fill()`` then exchanges and fills the group in place;
+    - the Hy interior rows at each y end, and on a 2-D mesh the Hx interior columns
+      at each x end, are recomputed on 3·H-wide strips of the filled fields (copied
+      contiguous) with the ``strip_views`` models and written into the bulk
+      tendencies: rows first, then the columns, which cover all rows, so that the
+      corners come from the filled fields.
+
+    A kept bulk cell reads only cells the exchange leaves as they are
+    (``overlap_supported``), and a patched cell reads the same filled cells as the
+    unsplit step, so the result is the unsplit step's, bitwise. ``groups`` are the
+    tensors the tendencies read; returns the tuple of tendencies."""
+    g = model.grid
+    Hy, ny, Hx, nx = g.Hy, g.Ny, g.Hx, g.Nx
+    two_d = not isinstance(spmd, Spmd)
+    G = tend_from_groups(model, groups, t)
+    fill.fill()
+    views = strip_views(model, two_d)
+
+    def strip(view, rows, cols):
+        return tend_from_groups(view, [gr[..., rows, cols].contiguous() for gr in groups],
+                                t)
+
+    full = slice(None)
+    lo = strip(views[0], slice(0, 3 * Hy), full)  # interior rows [Hy, 2Hy)
+    hi = strip(views[1], slice(ny - Hy, ny + 2 * Hy), full)  # [ny, ny + Hy), row Ny
+    for b, l, h in zip(G, lo, hi):
+        b[..., Hy:2 * Hy, :] = l[..., Hy:2 * Hy, :]
+        b[..., ny:ny + Hy, :] = h[..., Hy:2 * Hy, :]
+    if two_d:
+        w = strip(views[2], full, slice(0, 3 * Hx))  # interior columns [Hx, 2Hx)
+        e = strip(views[3], full, slice(nx - Hx, nx + 2 * Hx))  # [nx, nx + Hx)
+        for b, l, h in zip(G, w, e):
+            b[..., :, Hx:2 * Hx] = l[..., :, Hx:2 * Hx]
+            b[..., :, nx:nx + Hx] = h[..., :, Hx:2 * Hx]
+    return G
+
+
+def tendencies_overlapped(model: HydrostaticModel, state: State, spmd, fill):
+    """The single-layer tendencies (Gu, Gv, Gc) of a sharded step, split
+    (``split_tendencies``); ``fill`` is the step's ``ops/spmd.GroupFill`` of the
+    state's group."""
+    def tend(m, views, t):
+        return tendencies(m, *views, t=t)
+
+    return split_tendencies(model, [state.u, state.v, state.c], spmd, tend, state.t,
+                            fill)
+
+
 def _fill(grid, A, loc, sign):
     """Halo fill into a fresh buffer (``A`` itself is left as it is)."""
     return halo_fill.fill_halos(A, loc, sign, grid.Nx, grid.Ny, grid.Hx, grid.Hy,
@@ -466,7 +606,7 @@ def barotropic_substeps(model: HydrostaticModel, eta, U, V, GU, GV, dt,
                                           wrap_x_each_substep)
 
 
-def step(model: HydrostaticModel, state: State, dt, spmd=None) -> State:
+def step(model: HydrostaticModel, state: State, dt, spmd=None, overlap=None) -> State:
     """One time step (the reference call stack, SURVEY.md §3.4): halo fills, WENO
     tendencies, quasi-AB2 extrapolation, the exchange-free barotropic subcycle, the
     single-layer corrector (u = U/H) and the tracer update.
@@ -477,10 +617,14 @@ def step(model: HydrostaticModel, state: State, dt, spmd=None) -> State:
     reads the unfilled ones; the restore runs even when the step raises. ``state``
     is bitwise unchanged on return.
 
-    ``spmd`` (``ops/spmd.Spmd``) runs the step on one rank of a y-partitioned run:
-    ``model`` and ``state`` are the rank's (``parallel/distributed.py``), and both
-    fills exchange rows with the neighbouring ranks."""
+    ``spmd`` (``ops/spmd.Spmd`` or ``ops/spmd2d.Spmd2D``) runs the step on one rank
+    of a y-partitioned run or one block of a 2-D mesh: ``model`` and ``state`` are
+    the rank's (``parallel/distributed.py``, ``distributed2d.py``), and both fills
+    exchange with the neighbouring ranks. ``overlap`` splits the tendencies
+    (``split_tendencies``): by default on a sharded run where ``overlap_supported``;
+    True where the split is not exact raises."""
     g, ge, ib = model.grid, model.grid_ext, model.ib
+    overlap = _resolve_overlap(model, g, spmd, overlap)
     # a number becomes a device scalar by a fill launch; copying it from the host
     # (torch.as_tensor) would wait for the stream to drain on every step
     dt = (dt.to(device=model.device, dtype=model.dtype) if torch.is_tensor(dt) else
@@ -489,13 +633,17 @@ def step(model: HydrostaticModel, state: State, dt, spmd=None) -> State:
     base, ext = (g.Nx, g.Ny, g.Hx, g.Hy), (ge.Nx, ge.Ny, ge.Hx, ge.Hy)
     fields = [(state.u, FC, -1, *base), (state.v, CF, -1, *base), (state.c, CC, 1, *base),
               (state.eta, CC, 1, *ext), (state.U, FC, -1, *ext), (state.V, CF, -1, *ext)]
-    _, saved = fill_group(fields, spmd, save=True)
+    fill = GroupFill(fields, spmd, wrap=overlap)
     try:
         first = state.iteration == 0
         w1 = torch.where(first, model.ab2[0], model.ab2[2])
         w2 = torch.where(first, model.ab2[1], model.ab2[3])
 
-        Gu, Gv, Gc = tendencies(model, state.u, state.v, state.c, t=state.t)
+        if overlap:
+            Gu, Gv, Gc = tendencies_overlapped(model, state, spmd, fill)
+        else:
+            fill.fill()
+            Gu, Gv, Gc = tendencies(model, state.u, state.v, state.c, t=state.t)
         Gu_s = w1 * Gu - w2 * state.Gu
         Gv_s = w1 * Gv - w2 * state.Gv
         Gc_s = w1 * Gc - w2 * state.Gc
@@ -509,7 +657,7 @@ def step(model: HydrostaticModel, state: State, dt, spmd=None) -> State:
         eta_a, U_a, V_a = barotropic_substeps(model, state.eta, state.U, state.V, GU, GV,
                                               dt, wrap_x_each_substep=ge.Hx < n_sub + 1)
     finally:
-        restore_group(fields, saved, spmd)
+        fill.restore()
     c_new = (state.c + dt * Gc_s) * ib.mask_c
 
     # single-layer corrector: the velocity is the barotropic velocity

@@ -34,10 +34,11 @@ before it returns; nothing between the two reads the unfilled fields, so the sta
 is bitwise unchanged on return, also when the step raises. The output writer copies
 to the host on the simulation thread, so no other stream sees the window.
 
-With ``spmd`` (``ops/spmd.py``) ``layered_step`` runs on one rank of a
-y-partitioned run (``parallel/distributed.py``), its fills exchanged as in the
-single-layer step. Not ported yet: the overlap split of the sharded step (ROADMAP
-queue 1).
+With ``spmd`` (``ops/spmd.py``, ``ops/spmd2d.py``) ``layered_step`` runs on one
+rank of a y-partitioned run or one block of a 2-D mesh (``parallel/distributed.py``,
+``distributed2d.py``), its fills exchanged and its tendencies split (``overlap``) as
+in the single-layer step; the vertical terms are column-local, so the strip models
+slice them consistently.
 The JAX package's ``fill_mode``, ``use_pallas`` and ``block_rows`` are TPU choices
 with no counterpart; its ``OSG_CORR_KERNEL`` and ``OSG_ACC_FOLD`` switches have none
 either: on a card the corrector kernel always runs, and the vertical kernel's
@@ -60,15 +61,16 @@ from ..kernels import corrector, momentum, tracer_adv, vertical
 from ..ops.closures import _ratio, biharmonic_c, biharmonic_u, biharmonic_v
 from ..ops.location import CC, CF, FC
 from ..ops.operators import dxc, dyc
-from ..ops.spmd import fill_group, restore_group
+from ..ops.spmd import GroupFill
 from .hydrostatic import (ForcingFields, HydrostaticModel, _forcing_ext, _inv,
-                          barotropic_substeps, crop_ext, embed_ext, from_jax_arrays,
-                          make_model)
+                          _resolve_overlap, barotropic_substeps, crop_ext, embed_ext,
+                          from_jax_arrays, make_model, split_tendencies)
 from .split_explicit import SplitExplicitFreeSurface
 
 __all__ = ["LayeredState", "LayeredModel", "make_layered_model", "layered_from_jax_arrays",
            "layered_initial_state", "layered_state_from_numpy", "vertical_velocity",
-           "layered_tendencies", "layered_step", "layered_multi_step", "layered_cfl_dt"]
+           "layered_tendencies", "layered_tendencies_overlapped", "layered_step",
+           "layered_multi_step", "layered_cfl_dt"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -652,7 +654,23 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
     return Gu, Gv, Gc, Gb
 
 
-def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None) -> LayeredState:
+def layered_tendencies_overlapped(model: LayeredModel, state: LayeredState, spmd, fill):
+    """The layered tendencies (Gu, Gv, Gc, Gb) of a sharded step, split
+    (``models/hydrostatic.py:split_tendencies``, ``layered.py:912-943`` of the JAX
+    package): without a prognostic b its zeros stay out of the strips."""
+    groups = [state.u, state.v, state.c] + ([state.b] if model.has_b else [])
+
+    def tend(m, views, t):
+        b = views[3] if model.has_b else state.b
+        G = layered_tendencies(m, views[0], views[1], views[2], b, t=t)
+        return G if model.has_b else G[:3]
+
+    G = split_tendencies(model, groups, spmd, tend, state.t, fill)
+    return tuple(G) if model.has_b else (*G, torch.zeros_like(state.b))
+
+
+def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None,
+                 overlap=None) -> LayeredState:
     """One layered time step: halo fills, tendencies, quasi-AB2, the barotropic
     subcycle driven by the thickness-weighted baroclinic forcing, then the AB2
     predictor, the split-explicit corrector and the tracer update: one corrector
@@ -665,18 +683,23 @@ def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None) -> Lay
     barotropic subcycle, the last reader of the filled fields, and before anything
     reads the unfilled ones; the restore runs even when the step raises. ``state``
     is bitwise unchanged on return. ``spmd`` runs the step on one rank of a
-    y-partitioned run, as in ``models/hydrostatic.py:step``."""
+    y-partitioned run or one block of a 2-D mesh, and ``overlap`` splits its
+    tendencies, as in ``models/hydrostatic.py:step``."""
     g, ge, m = model.grid, model.grid_ext, model.baro
+    overlap = _resolve_overlap(m, g, spmd, overlap)
     # a number becomes a device scalar by a fill launch; copying it from the host
     # would wait for the stream to drain on every step
     dt = (dt.to(device=model.device, dtype=model.dtype) if torch.is_tensor(dt) else
           torch.full((), float(dt), dtype=model.dtype, device=model.device))
 
-    fields = _state_fields(model, state)
-    _, saved = fill_group(fields, spmd, save=True)
+    fill = GroupFill(_state_fields(model, state), spmd, wrap=overlap)
     try:
-        Gu, Gv, Gc, Gb = layered_tendencies(model, state.u, state.v, state.c, state.b,
-                                            t=state.t)
+        if overlap:
+            Gu, Gv, Gc, Gb = layered_tendencies_overlapped(model, state, spmd, fill)
+        else:
+            fill.fill()
+            Gu, Gv, Gc, Gb = layered_tendencies(model, state.u, state.v, state.c,
+                                                state.b, t=state.t)
 
         first = state.iteration == 0
         w1 = torch.where(first, m.ab2[0], m.ab2[2])
@@ -692,7 +715,7 @@ def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None) -> Lay
         eta_a, U_a, V_a = barotropic_substeps(m, state.eta, state.U, state.V, GU, GV, dt,
                                               wrap_x_each_substep=ge.Hx < n_sub + 1)
     finally:
-        restore_group(fields, saved, spmd)
+        fill.restore()
 
     if model.vert_impl and (model.nu_v > 0.0 or model.kappa_v > 0.0):
         u_new, v_new, c_new, b_new = _implicit_update(model, state, Gu, Gv, Gc, Gb,

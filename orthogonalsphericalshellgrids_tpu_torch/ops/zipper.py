@@ -1,8 +1,9 @@
 """Zipper north-fold boundary condition and fused halo filling.
 
 Counterpart: ``orthogonalsphericalshellgrids_tpu/ops/zipper.py`` (``fold_strip``,
-``wrap_x``, ``fill_halos``; ``fold_north`` and ``fill_south`` are folded into
-``fill_halos``). The reference's
+``wrap_x``, ``fill_halos``, ``fill_halos_batch``, ``fold_north_batch``; ``fold_north``
+and ``fill_south`` are folded into ``fill_halos``) and the fold arithmetic of
+``ops/spmd2d.py:_fold_arith`` (``fold_rows``). The reference's
 ``ZipperBoundaryCondition`` (``src/zipper_boundary_condition.jl``): the tripolar grid
 is periodic in x and folded onto itself at the north edge, so the north halo of
 column i is read from the mirrored column i' on the other half of the fold, with a
@@ -33,21 +34,18 @@ import torch
 
 from .location import CENTER, validate_location
 
-__all__ = ["fold_strip", "wrap_x", "fill_halos"]
+__all__ = ["fold_strip", "fold_rows", "wrap_x", "fill_halos", "fill_halos_batch",
+           "fold_north_batch"]
 
 
 def _is_torch(A):
     return isinstance(A, torch.Tensor)
 
 
-def _mirror(lx, sign, Nx):
-    """(index, sign_row) of the fold's x-mirror: column i0 reads i0' = index[i0] and
-    is multiplied by sign_row[i0] (|sign| at the face-x wrap point,
-    ``src/zipper_boundary_condition.jl:74,:91``)."""
+def _mirror(lx, Nx):
+    """The fold's x-mirror: column i0 reads i0' = index[i0]."""
     i0 = np.arange(Nx)
-    if lx == CENTER:
-        return Nx - 1 - i0, np.full(Nx, float(sign))
-    return (Nx - i0) % Nx, np.where(i0 == 0, float(abs(sign)), float(sign))
+    return Nx - 1 - i0 if lx == CENTER else (Nx - i0) % Nx
 
 
 def _like(A, a):
@@ -81,21 +79,66 @@ def fold_strip(A, loc, sign, Nx, Ny, Hx, Hy):
     first written row. The strip is already periodically x-wrapped."""
     lx, ly = validate_location(loc)
     top = A[..., Ny - 1 : Hy + Ny, Hx : Hx + Nx]       # the top Hy+1 interior rows
-    idx, sign_row = _mirror(lx, sign, Nx)
-    M = top[..., _like(A, idx)]
-    sign_row = _like(A, sign_row)
+    strip = fold_rows(top, top[..., _like(A, _mirror(lx, Nx))], loc, sign, np.arange(Nx),
+                      Nx)
     if ly == CENTER:
-        halo = _flip_rows(M[..., :Hy, :]) * sign_row
-        # redundant-half overwrite of row Ny for i0 >= Nx//2, from pre-update values
-        upper = _like(A, np.arange(Nx) >= Nx // 2)
-        new_row = _where(upper, sign_row * M[..., Hy, :], top[..., Hy, :])
-        strip = _cat([new_row[..., None, :], halo], axis=-2)
         y0 = Hy + Ny - 1
-    else:
-        strip = _flip_rows(M[..., 1 : Hy + 1, :]) * sign_row
-        y0 = Hy + Ny
+    else:  # row Ny is kept as it is
+        strip, y0 = strip[..., 1:, :], Hy + Ny
     full = _cat([strip[..., Nx - Hx :], strip, strip[..., :Hx]], axis=-1)
     return full, y0
+
+
+def fold_rows(top, M, loc, sign, i0, nx_g):
+    """The rows the fold writes at some columns, ``(..., Hy + 1, w)``: row Ny, then
+    the Hy halo rows (``ops/spmd2d.py:_fold_arith`` of the JAX package). ``top`` is
+    the top Hy + 1 interior rows at those columns, ``M`` the same rows at their
+    mirror columns (the face-x roll already applied), ``i0`` the columns' global
+    indices (a numpy integer array) of ``nx_g``. Row Ny keeps the columns below
+    ``nx_g // 2`` and takes ``sign_row * M`` above (center-y only); face-x planes take
+    ``|sign|`` at global column 0."""
+    lx, ly = validate_location(loc)
+    Hy = top.shape[-2] - 1
+    i0 = np.asarray(i0)
+    sign_row = _like(top, np.where((lx != CENTER) & (i0 == 0), float(abs(sign)),
+                                   float(sign)))
+    if ly == CENTER:
+        halo = _flip_rows(M[..., :Hy, :]) * sign_row
+        upper = _like(top, i0 >= nx_g // 2)
+        new_row = _where(upper, sign_row * M[..., Hy, :], top[..., Hy, :])
+    else:
+        halo = _flip_rows(M[..., 1:Hy + 1, :]) * sign_row
+        new_row = top[..., Hy, :]
+    return _cat([new_row[..., None, :], halo], axis=-2)
+
+
+def fold_north_batch(S, locs, signs, Nx, Ny, Hx, Hy):
+    """The zipper fold of a ``(K, y, x)`` stack whose planes have their own location
+    and sign: row Ny and the Hy north halo rows of each plane rewritten, full width
+    with their wrap columns. Returns a new array (``S`` is left as it is)."""
+    if len(locs) != S.shape[0] or len(signs) != S.shape[0]:
+        raise ValueError(f"{S.shape[0]} planes need as many locations and signs")
+    S = S.clone() if _is_torch(S) else np.array(S, copy=True)
+    i0 = np.arange(Nx)
+    for k, (loc, sign) in enumerate(zip(locs, signs)):
+        lx, _ = validate_location(loc)
+        top = S[k, Hy + Ny - 1 - Hy:Hy + Ny, Hx:Hx + Nx]
+        rows = fold_rows(top, top[..., _like(S, _mirror(lx, Nx))], loc, sign, i0, Nx)
+        S[k, Hy + Ny - 1:Hy + Ny + Hy, :] = _cat([rows[..., Nx - Hx:], rows,
+                                                 rows[..., :Hx]], axis=-1)
+    return S
+
+
+def fill_halos_batch(S, locs, signs, Nx, Ny, Hx, Hy, south="zero_gradient"):
+    """``fill_halos`` of a ``(K, y, x)`` stack whose planes have their own location
+    and sign: the south rows, ``fold_north_batch`` and the x-wrap. Returns a new
+    array."""
+    if south not in ("zero_gradient", "none"):
+        raise ValueError(f"Unknown south fill mode {south!r}")
+    if south == "zero_gradient":
+        S = S.clone() if _is_torch(S) else np.array(S, copy=True)
+        S[..., 0:Hy, :] = S[..., Hy:Hy + 1, :]
+    return wrap_x(fold_north_batch(S, locs, signs, Nx, Ny, Hx, Hy), Nx, Hx)
 
 
 def wrap_x(A, Nx, Hx):

@@ -135,7 +135,8 @@ def test_cuda_group_fill_and_restore_bitwise(dtype, path):
 @needs_cuda
 def test_cuda_group_entries_refuse_another_plan():
     """The C entries check the table against the geometry: a wrong cell count, first
-    block or strip offset is refused at launch, and nothing is written."""
+    block, strip offset, fold-strip offset or column offset is refused at launch,
+    and nothing is written."""
     from orthogonalsphericalshellgrids_tpu_torch.kernels import call
 
     fields = _fill_group("front", torch.float32)
@@ -143,15 +144,16 @@ def test_cuda_group_entries_refuse_another_plan():
     geoms, _ = halo_fill._group("t", fields)
     plan = halo_fill.group_plan(geoms)
     saved = torch.empty(plan.n_saved, device="cuda")
-    for col in (11, 12, 13):  # cells, first block, first strip offset of field 1
+    # cells, first block, first strip offset, fold and column offsets of field 1
+    for col in (11, 12, 13, 19, 20):
         table = halo_fill._table(fields, geoms)
         table[halo_fill.TABLE_COLS + col] += 1
         with pytest.raises(RuntimeError):
             call("osg_halo_fill_group", torch.float32, saved.device, table, len(fields),
-                 saved.data_ptr(), 1, None, None)
+                 saved.data_ptr(), 1, None, None, None, None, None, None, halo_fill.ALL)
         with pytest.raises(RuntimeError):
             call("osg_halo_restore_group", torch.float32, saved.device, table,
-                 len(fields), saved.data_ptr())
+                 len(fields), saved.data_ptr(), halo_fill.ALL)
     torch.cuda.synchronize()
     assert all(torch.equal(f[0], b) for f, b in zip(fields, before))
 
@@ -868,8 +870,10 @@ def test_cuda_shard_fill_and_restore_bitwise(dtype, ny, role, path):
 @pytest.mark.parametrize("which", ["bickley", "gyre"])
 def test_cuda_local_exchange_step_bitwise(which):
     """Four shards stepped through LocalExchange on the card, 3 float64 steps: the
-    gathered state is bitwise the serial steps', each shard launches its kernels once
-    a step, and the sharded steps make no host synchronization."""
+    gathered state is bitwise the serial steps', each shard launches its kernels the
+    expected number of times a step (the tendency kernels three times: the split's
+    bulk pass and its two row strips), and the sharded steps make no host
+    synchronization."""
     from orthogonalsphericalshellgrids_tpu_torch import parallel
     from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import host_syncs
 
@@ -881,6 +885,7 @@ def test_cuda_local_exchange_step_bitwise(which):
             TH.multi_step, parallel.distribute, parallel.gather_state,
             parallel.sharded_step_fn)
         kernels_a_step = ("barotropic", "momentum", "tracer_adv")
+        split = ("momentum", "tracer_adv")
         names = ("u", "v", "c", "eta", "U", "V", "Gu", "Gv", "Gc")
     else:
         from examples.wind_driven_ts_gyre_torch import build_check
@@ -891,6 +896,7 @@ def test_cuda_local_exchange_step_bitwise(which):
             parallel.gather_layered_state, parallel.sharded_layered_step_fn)
         kernels_a_step = ("barotropic", "vertical", "momentum_closures",
                           "tracer_adv_kappa", "corrector")
+        split = ("vertical", "momentum_closures", "tracer_adv_kappa")
         names = ("u", "v", "c", "eta", "U", "V", "Gu", "Gv", "Gc")
     n = 4
     mesh = parallel.make_mesh(n)
@@ -910,9 +916,13 @@ def test_cuda_local_exchange_step_bitwise(which):
                            grid.interior(getattr(want, name))), name
     assert syncs == 0
     for counts in fn.launches:
-        assert all(counts[k] == 3 for k in kernels_a_step), counts
+        # the split (on by default) runs the tendency kernels on the bulk and on two
+        # row strips
+        assert all(counts[k] == 3 * (1 + 2 * (k in split)) for k in kernels_a_step), \
+            counts
         assert counts["halo_pack"] == counts["halo_fill_shard"] == 6, counts
-        assert counts["halo_restore"] == 3 and counts["halo_fill"] == 0, counts
+        assert counts["halo_wrap"] == counts["halo_restore"] == 3, counts
+        assert counts["halo_fill"] == 0, counts
 
 
 @needs_cuda
@@ -942,3 +952,259 @@ def test_cuda_barotropic_rows_independent_of_the_plane(dtype):
         for name, f, p in zip(("eta", "U", "V"), full, part):
             assert torch.equal(rows(f)[H:H + ny, H:H + Nx], p[H:H + ny, H:H + Nx]), \
                 f"rank {k} {name}"
+
+
+# ----------------------------------------------------------------------------------
+# 2-D (x, y) blocks and the overlap split
+# ----------------------------------------------------------------------------------
+
+def _block_fields(path, dtype, n_x, n_y, nx_b, ny_b, seed=0):
+    """The fill group of a path on every block of an (n_x, n_y) mesh of blocks of
+    ny_b x nx_b cells, on the card: {(ix, iy): fields}. Base fields at halo 5, η, U,
+    V at halo 22, views of one buffer, random everywhere (the halos too)."""
+    r = np.random.default_rng(seed)
+    stacks = {"bickley": [(None, FC, -1), (None, CF, -1), (None, CC, 1)],
+              "gyre": [(3, FC, -1), (3, CF, -1), (6, CC, 1)]}[path]
+    out = {}
+    for iy in range(n_y):
+        for ix in range(n_x):
+            def cu(shape):
+                return torch.as_tensor(r.standard_normal(shape), dtype=dtype, device="cuda")
+
+            plane = (ny_b + 10, nx_b + 10)
+            fields = [(cu(plane if K is None else (K,) + plane), loc, s, nx_b, ny_b, 5, 5)
+                      for K, loc, s in stacks]
+            ext = cu((3, ny_b + 44, nx_b + 44))
+            out[ix, iy] = fields + [(ext[0], CC, 1, nx_b, ny_b, 22, 22),
+                                    (ext[1], FC, -1, nx_b, ny_b, 22, 22),
+                                    (ext[2], CF, -1, nx_b, ny_b, 22, 22)]
+    return out
+
+
+def check_block_fills(path, dtype, n_x, n_y, nx_b, ny_b, fold_mode):
+    """Every block of the mesh through the 2-D route, launch by launch, each launch
+    against its plain version on the same inputs: the pack of the rows and fold
+    strip, the inner phase with its save (reading the packs it receives), the pack of
+    the columns, the outer phase saving into the same buffer, and the restore, which
+    gives every field back. All bitwise. Returns the number of launches held."""
+    from orthogonalsphericalshellgrids_tpu_torch.ops.spmd2d import Spmd2D
+    from orthogonalsphericalshellgrids_tpu_torch.parallel.distributed import _rows2d
+
+    blocks = _block_fields(path, dtype, n_x, n_y, nx_b, ny_b)
+    spmds = {k: Spmd2D(k[0], k[1], n_x, n_y, n_x * nx_b, None, fold_mode) for k in blocks}
+    before = {k: [f[0].clone() for f in fs] for k, fs in blocks.items()}
+    plain = {k: [(f[0].clone(),) + f[1:] for f in fs] for k, fs in blocks.items()}
+    held = 0
+
+    def packs(kind):
+        nonlocal held
+        got = {}
+        for k, fs in blocks.items():
+            got[k] = halo_fill.pack_strips(fs, spmds[k].role, kind)
+            torch.cuda.synchronize()
+            assert torch.equal(got[k], halo_fill.pack_strips_plain(fs, spmds[k].role,
+                                                                   kind)), (k, kind)
+            held += 1
+        return {spmds[k].rank: v for k, v in got.items()}
+
+    plan = {k: halo_fill.group_plan(halo_fill.group_geometry(fs, spmds[k].role))
+            for k, fs in blocks.items()}
+    sent = packs(halo_fill.ROWS)
+    saved = {}
+    for k, fs in blocks.items():
+        sp, pl = spmds[k], plan[k]
+        lows = n_y > 1 and ny_b == 22
+        south, north, strips, below = _rows2d(sp, sent.__getitem__, pl.part_len,
+                                              pl.fold_len, lows)
+        kw = dict(save=True, role=sp.role, south=south, north=north,
+                  phase=halo_fill.INNER, strips=strips, lows=below)
+        want, want_saved = halo_fill.fill_halos_group_plain(plain[k], **kw)
+        _, saved[k] = halo_fill.fill_halos_group(fs, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(f[0], w) for f, w in zip(fs, want)), k
+        held += 1
+        saved[k + ("plain",)] = want_saved
+    sent = packs(halo_fill.COLUMNS)
+    for k, fs in blocks.items():
+        sp, cl = spmds[k], plan[k].col_len
+        west = sent[sp.rank_of((sp.ix - 1) % n_x, sp.iy)][:cl]
+        east = sent[sp.rank_of((sp.ix + 1) % n_x, sp.iy)][cl:]
+        kw = dict(save=True, role=sp.role, phase=halo_fill.OUTER, west=west, east=east)
+        want, want_saved = halo_fill.fill_halos_group_plain(
+            plain[k], saved=saved[k + ("plain",)], **kw)
+        halo_fill.fill_halos_group(fs, saved=saved[k], **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(f[0], w) for f, w in zip(fs, want)), k
+        assert torch.equal(saved[k], want_saved), k
+        halo_fill.restore_strips_group(fs, saved[k], role=sp.role)
+        torch.cuda.synchronize()
+        assert all(torch.equal(f[0], b) for f, b in zip(fs, before[k])), k
+        held += 2
+    return held
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mesh,mode", [((2, 2), "gather"), ((4, 1), "mirror"),
+                                       ((3, 1), "gather"), ((3, 2), "mirror")])
+@pytest.mark.parametrize("path", ["bickley", "gyre"])
+def test_cuda_block_fill_pack_and_restore_bitwise(dtype, mesh, mode, path):
+    """Every role of 2 x 2, 4 x 1 (mirror), 3 x 1 (the middle block straddles the
+    fold's middle column) and 3 x 2 meshes of 24-column blocks: the 2-D route's
+    launches bitwise their plain versions, at ny = 40 and at the least ny the
+    extended grid takes (22, where the top blocks' strips reach a row of the blocks
+    below; 23 for one row of blocks)."""
+    for ny_b in (22 if mesh[1] > 1 else 23, 40):
+        check_block_fills(path, dtype, *mesh, 24, ny_b, mode)
+
+
+def _cells_equal(full, part, rows, cols, keep_rows, keep_cols):
+    """The cells ``keep_rows`` x ``keep_cols`` of ``part`` (cut from ``full`` at
+    ``rows``, ``cols``) equal the same cells of ``full``."""
+    return torch.equal(full[..., rows, cols][..., keep_rows, keep_cols],
+                       part[..., keep_rows, keep_cols])
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("which", ["bickley", "gyre"])
+def test_cuda_tendencies_independent_of_the_origin(dtype, which):
+    """The tendency kernels (momentum, tracer advection and, for the gyre, the
+    vertical kernel) on the blocks of a 3 x 2 mesh and on the split's 3·H-wide row
+    and column strips give every cell of the block's interior (of the strip's
+    middle third) the bits of the same cell of the whole plane: a cell's arithmetic
+    does not depend on where its tile falls."""
+    from orthogonalsphericalshellgrids_tpu_torch import parallel
+    from orthogonalsphericalshellgrids_tpu_torch.models.hydrostatic import strip_views
+
+    if which == "bickley":
+        from examples.bickley_jet_torch import build
+
+        model, state = build(96, 80, dtype=dtype, substeps=12, device="cuda")
+        fields = [state.u, state.v, state.c]
+        grid = model.grid
+
+        def tend(m, f):
+            return TH.tendencies(m, *f)
+    else:
+        from examples.wind_driven_ts_gyre_torch import build_check
+
+        model, state = build_check(dtype=dtype, device="cuda")
+        fields = [state.u, state.v, state.c]
+        grid = model.grid
+
+        def tend(m, f):
+            return TL.layered_tendencies(m, *f, state.b)[:3]
+    for (f, loc, sign) in zip(fields, (FC, CF, CC), (-1, -1, 1)):
+        halo_fill.fill_halos(f, loc, sign, grid.Nx, grid.Ny, grid.Hx, grid.Hy)
+    full = tend(model, fields)
+    Hy, Hx, Ny, Nx = grid.Hy, grid.Hx, grid.Ny, grid.Nx
+    # strips of the serial plane
+    views = strip_views(model, two_d=True)
+    cuts = [(slice(0, 3 * Hy), slice(None)), (slice(Ny - Hy, Ny + 2 * Hy), slice(None)),
+            (slice(None), slice(0, 3 * Hx)), (slice(None), slice(Nx - Hx, Nx + 2 * Hx))]
+    for view, (rows, cols) in zip(views, cuts):
+        part = tend(view, [f[..., rows, cols].contiguous() for f in fields])
+        keep = ((slice(Hy, 2 * Hy), slice(3, -3)) if cols == slice(None) else
+                (slice(3, -3), slice(Hx, 2 * Hx)))
+        for name, a, b in zip("uvc", full, part):
+            assert _cells_equal(a, b, rows, cols, *keep), (name, rows, cols)
+    # x- and y-shifted blocks
+    mesh = parallel.make_mesh2d(3, 2)
+    dist = (parallel.distribute2d if which == "bickley" else
+            parallel.distribute_layered2d)(model, state, mesh)[0]
+    ny, nx = Ny // 2, Nx // 3
+    for k, m in enumerate(dist):
+        ky, kx = divmod(k, 3)
+        rows = slice(ky * ny, ky * ny + ny + 2 * Hy)
+        cols = slice(kx * nx, kx * nx + nx + 2 * Hx)
+        part = tend(m, [f[..., rows, cols].contiguous() for f in fields])
+        for name, a, b in zip("uvc", full, part):
+            assert _cells_equal(a, b, rows, cols, slice(3, -3), slice(3, -3)), (name, k)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_barotropic_columns_independent_of_the_plane(dtype):
+    """The barotropic kernel (wrap off) on the column blocks of 3 x-ranks and on a
+    3·H-wide column strip gives the cells its validity keeps the bits of the whole
+    plane's: x-blocks move its tiles in x as y-blocks move them in y."""
+    r = np.random.default_rng(1)
+    Ny, Nx, H, n = 40, 48, 9, 3
+    nx = Nx // n
+    n_sub = 8  # validity shrinks one cell a substep into the H-wide halo
+
+    def cu(a):
+        return torch.as_tensor(a, dtype=dtype, device="cuda")
+
+    static = cu(1 + r.random((9, Ny + 2 * H, Nx + 2 * H)))
+    static[7:] = cu((r.random((2, Ny + 2 * H, Nx + 2 * H)) > 0.1).astype(float))
+    eta, U, V, GU, GV = (cu(r.standard_normal((Ny + 2 * H, Nx + 2 * H))) for _ in range(5))
+    w, dtau = cu(r.random(n_sub)), cu(np.array(1e-3))
+    full = barotropic.barotropic_substeps(static, eta, U, V, GU, GV, dtau, w, Nx, H, False)
+    for c0, width in [(k * nx, nx + 2 * H) for k in range(n)] + [(4, 3 * H)]:
+        def cols(a):
+            return a[..., c0:c0 + width].contiguous()
+
+        part = barotropic.barotropic_substeps(*map(cols, (static, eta, U, V, GU, GV)),
+                                              dtau, w, width - 2 * H, H, False)
+        keep = slice(n_sub + 1, width - n_sub - 1)
+        for name, f, p in zip(("eta", "U", "V"), full, part):
+            assert torch.equal(cols(f)[H:H + Ny, keep], p[H:H + Ny, keep]), \
+                f"columns from {c0} {name}"
+
+
+@needs_cuda
+@pytest.mark.parametrize("which,mesh,mode", [("bickley", (2, 2), "auto"),
+                                             ("bickley", (4, 1), "mirror"),
+                                             ("gyre", (2, 2), "auto")])
+def test_cuda_local_exchange_2d_step_bitwise(which, mesh, mode):
+    """Blocks of a 2-D mesh stepped through LocalExchange on the card, 3 float64
+    steps: bitwise the serial steps, split and unsplit alike, each block launching
+    the 2-D route's kernels the expected number of times, with no host
+    synchronization."""
+    from orthogonalsphericalshellgrids_tpu_torch import parallel
+    from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import host_syncs
+
+    if which == "bickley":
+        from examples.bickley_jet_torch import build
+
+        model, state = build(96, 40, dtype=torch.float64, substeps=12, device="cuda")
+        serial, distribute, gather, step_fn = (
+            TH.multi_step, parallel.distribute2d, parallel.gather_state2d,
+            parallel.sharded_step_fn2d)
+        split = ("momentum", "tracer_adv")
+    else:
+        from examples.wind_driven_ts_gyre_torch import build_check
+
+        model, state = build_check(device="cuda")
+        serial, distribute, gather, step_fn = (
+            TL.layered_multi_step, parallel.distribute_layered2d,
+            parallel.gather_layered_state2d, parallel.sharded_layered_step_fn2d)
+        split = ("vertical", "momentum_closures", "tracer_adv_kappa")
+    m = parallel.make_mesh2d(*mesh)
+    dist_model, dist_state = distribute(model, state, m)
+    want = serial(model, state, 60.0, 3)
+    for overlap in (None, False):
+        fn = step_fn(m, dist_model, model.grid.Nx, overlap=overlap, fold_mode=mode)
+        fn(dist_state, 60.0)  # loads the kernels
+        fn = step_fn(m, dist_model, model.grid.Nx, overlap=overlap, fold_mode=mode)
+        s = dist_state
+        with host_syncs() as n_syncs:
+            for _ in range(3):
+                s = fn(s, 60.0)
+            syncs = n_syncs()
+        got = gather(s, model, m)
+        for name in ("u", "v", "c", "eta", "U", "V", "Gu", "Gv", "Gc"):
+            grid = model.grid_ext if name in ("eta", "U", "V") else model.grid
+            assert torch.equal(grid.interior(getattr(got, name)),
+                               grid.interior(getattr(want, name))), (name, overlap)
+        assert syncs == 0
+        for counts in fn.launches:
+            assert counts["barotropic"] == 3, counts
+            assert all(counts[k] == 3 * (5 if overlap is None else 1) for k in split), \
+                counts
+            # two groups a step, each two packs and two fill phases
+            assert counts["halo_pack_block"] == counts["halo_fill_block"] == 12, counts
+            assert counts["halo_restore"] == 3 and counts["halo_wrap"] == 0, counts
+            assert counts["halo_pack"] == counts["halo_fill_shard"] == 0, counts
