@@ -27,7 +27,9 @@ The layered tracer kernel too, at the front's (c, 10 planes, S = 1) and the gyre
 (T and S, 20 planes, S = 4, kappa_h) shapes over masked velocities, and the front's
 call on an all-zero c (``tracer_front_zero``, its own tracer): this tree's
 ``tracer_adv`` with ``acc`` (dGc) and without, and the other tree's without, then
-with the add the fold replaces.
+with the add the fold replaces. And the Bickley jet's one-plane column call
+(``tracer_column``, the 5-plane pack), timed with the host held ahead (the call is
+shorter than its enqueue).
 
 And the vertical kernel in the front's mode (``vertical_front``: c and b, tracer_b,
 ν_v = 1e-4, κ_v = 1e-5) and the gyre's (``vertical_gyre``: T and S, the linear EOS,
@@ -83,11 +85,12 @@ def inputs(shape, seed=2024):
     return u, v, cu(st), kw
 
 
-TRACER_SHAPES = ("tracer_front", "tracer_front_zero", "tracer_gyre")
+TRACER_SHAPES = ("tracer_column", "tracer_front", "tracer_front_zero", "tracer_gyre")
+AHEAD = {"tracer_column"}  # timed with the host held ahead: device time
 
 
 def tracer_inputs(shape, seed=7):
-    """(args, acc) of one layered tracer call, float32 on the card."""
+    """(args, acc) of one column or layered tracer call, float32 on the card."""
     import numpy as np
     import torch
 
@@ -95,6 +98,11 @@ def tracer_inputs(shape, seed=7):
 
     def cu(a):
         return torch.as_tensor(a, dtype=torch.float32, device="cuda")
+
+    if shape == "tracer_column":
+        return ((cu(rng.standard_normal((YB, XB))), cu(rng.standard_normal((YB, XB))),
+                 cu(rng.standard_normal((YB, XB))), cu(1.0 + rng.random((5, YB, XB)))),
+                cu(0.5 * rng.standard_normal((YB, XB))))
 
     n_tr, S = (2, 4) if shape == "tracer_gyre" else (1, 1)
     mask = rng.random((NZ, YB, XB)) > 0.15
@@ -207,12 +215,13 @@ def time_tree(rounds):
                    [tracer_adv.tracer_adv_plain(*args) + acc])
         if not rel <= BAND:
             raise RuntimeError(f"{shape}: the tree's kernel is off its plain version: {rel}")
+        ahead = shape in AHEAD
         out[shape] = {
             "rel": rel,
-            "kernel_ms": [time_ms(lambda: tracer_adv.tracer_adv(*args))
+            "kernel_ms": [time_ms(lambda: tracer_adv.tracer_adv(*args), ahead=ahead)
                           for _ in range(rounds)],
-            "with_glue_ms": [time_ms(lambda: tracer_adv.tracer_adv(*args) + acc)
-                             for _ in range(rounds)]}
+            "with_glue_ms": [time_ms(lambda: tracer_adv.tracer_adv(*args) + acc,
+                                     ahead=ahead) for _ in range(rounds)]}
     from orthogonalsphericalshellgrids_tpu_torch.kernels import vertical
 
     for shape in VERTICAL_SHAPES:
@@ -307,7 +316,8 @@ def main():
                 time_ms(lambda: momentum.momentum(u, v, st, **kw)))
         for shape, (targs, tacc) in tracers.items():
             for name, run in tracer_runs.items():
-                res["shapes"][shape][name]["ms"].append(time_ms(lambda: run(targs, tacc)))
+                res["shapes"][shape][name]["ms"].append(
+                    time_ms(lambda: run(targs, tacc), ahead=shape in AHEAD))
         for shape, run in verticals.items():
             res["shapes"][shape]["this"]["ms"].append(time_ms(run))
     if args.parent:

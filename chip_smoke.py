@@ -84,6 +84,22 @@ Phase 13 the 2-D (x, y) runs (parallel/distributed2d.py) and the split: (a) the
          bitwise equal to serial; (e) overlap=True against overlap=False, the jet
          (5 steps) and the gyre (3) on 4 y-shards and on 2 x 2, bitwise. ms/step,
          device busy and idle share of (b)-(e) beside phases 3, 7 and 12.
+Phase 14 the model options on phase 3's grid: (a) the tracer kernel's column mode
+         over P = 2 and 3 planes of (690, 1450), float32 and float64, with and
+         without kappa_h and acc, against its plain version within the bands and
+         each plane bitwise equal to a one-plane launch on it; the P-plane launch
+         timed with the host ahead beside P one-plane launches, its plain version
+         and the one-plane launch of the jet; (b) the jet with two tracers (phase
+         3's c and a smooth field from the seed), 20 steps after 3 warm-up steps:
+         ms/step, one tracer_adv_planes launch a step and no tracer_adv, u, v and
+         eta bitwise equal to the single-tracer run and each plane bitwise equal to
+         its own single-tracer run; (c) each other option (tracer_advection weno7,
+         upwind3, centered, centered4; momentum_advection "vector_invariant"), 5
+         steps: finite, the tracer in range, ms/step; then each at float64 on a
+         48 x 40 grid, 3 steps on the card against the CPU plain path, rtol 1e-11;
+         (d) WENO-7 on 4 y-shards and on 2 x 2 blocks through LocalExchange, 3
+         steps, split and unsplit, bitwise equal to each other and to serial, and the
+         two-tracer jet on 4 y-shards bitwise equal to serial.
 
 Phase 2 holds the halo fills first: the group fill with save, the group fill without
 save and the group restore against their plain versions, bitwise at float32 and
@@ -174,6 +190,8 @@ REPLACES = {
     "tracer_adv_layered": "orthogonalsphericalshellgrids_tpu/ops/pallas_adv.py:258",
     "momentum_closures": "orthogonalsphericalshellgrids_tpu/ops/pallas_mom.py:281",
     "tracer_adv_kappa": "orthogonalsphericalshellgrids_tpu/ops/pallas_adv.py:258",
+    # the column mode over a stack of tracers (models/hydrostatic.py:689-696, phase 14)
+    "tracer_adv_planes": "orthogonalsphericalshellgrids_tpu/ops/pallas_adv.py:258",
     "corrector": "orthogonalsphericalshellgrids_tpu/ops/pallas_corr.py:83",
     "baro_substep_sol": "benchmarks/roofline.py:121",
     "weno_probe": "benchmarks/weno_sol.py:167",
@@ -187,7 +205,7 @@ SOURCE_FILE = {"halo_restore": "halo_fill", "halo_fill_copy": "halo_fill",
                "halo_pack_block": "halo_fill",
                "momentum_layered": "momentum", "tracer_adv_layered": "tracer_adv",
                "momentum_closures": "momentum", "tracer_adv_kappa": "tracer_adv",
-               "baro_substep_sol": "probes", "weno_probe": "probes", "stream_probe": "probes",
+               "tracer_adv_planes": "tracer_adv", "baro_substep_sol": "probes", "weno_probe": "probes", "stream_probe": "probes",
                "fma_ceiling": "probes"}
 SOURCES = {name: "orthogonalsphericalshellgrids_tpu_torch/csrc/{}.cu".format(
     SOURCE_FILE.get(name, name)) for name in REPLACES}
@@ -212,6 +230,15 @@ BLOCKS = ("halo_pack_block", "halo_fill_block", "halo_restore", "barotropic", "m
 # the tendency kernels the overlap split launches on the bulk and on each strip
 SPLIT_BICKLEY = ("momentum", "tracer_adv")
 SPLIT_GYRE = ("vertical", "momentum_closures", "tracer_adv_kappa")
+# the kernels the two-tracer Bickley jet launches (phase 14b)
+PLANES = ("halo_fill", "halo_restore", "barotropic", "momentum", "tracer_adv_planes")
+# the single-layer options that run outside the kernels (phase 14c), and the kernel
+# each leaves in the step
+OPTIONS = {"weno7": dict(tracer_advection="weno7"),
+           "upwind3": dict(tracer_advection="upwind3"),
+           "centered": dict(tracer_advection="centered"),
+           "centered4": dict(tracer_advection="centered4"),
+           "vector_invariant": dict(momentum_advection="vector_invariant")}
 # the kernels the ceilings measurement must launch (phase 9)
 PROBES = ("baro_substep_sol", "weno_probe", "stream_probe", "fma_ceiling")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
@@ -263,6 +290,7 @@ FLOPS = {"halo_fill": 1, "halo_restore": 0, "halo_fill_copy": 1, "halo_fill_shar
          "barotropic": 30,
          "momentum": 300, "momentum_layered": 304, "momentum_closures": 344,
          "tracer_adv": 160, "tracer_adv_layered": 160, "tracer_adv_kappa": 172,
+         "tracer_adv_planes": 160,
          "vertical": 40, "corrector": 8}
 
 
@@ -2255,6 +2283,251 @@ def phase13_runs(card, bickley, gyre, shard_ms):
         "tests/test_torch_distributed2d.py)")
     return out["b"][1]
 
+def model_variant(model, **options):
+    """Phase 3's model with other ``OPTIONS`` metadata (the schemes change no array),
+    built by the model's constructor from the same arrays, as a shard's model is."""
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import tracer_adv
+    from orthogonalsphericalshellgrids_tpu_torch.models import hydrostatic as H
+
+    n_static = len(tracer_adv.STATIC_PLANES)
+    return H.HydrostaticModel(
+        model.grid, model.grid_ext, model.ib, {n: getattr(model, n) for n in H.DERIVED},
+        substeps=model.substeps, fractional_dt=model.fractional_dt, g=model.g,
+        coriolis=model.coriolis,
+        options=dict({n: getattr(model, n) for n in H.OPTIONS}, **options),
+        mom_lay=model.mom_lay,
+        kappa=list(model.adv_pack[n_static:]) if model.adv_pack.shape[0] > n_static else None)
+
+
+def phase14a_planes(card):
+    """The tracer kernel's column mode over P planes against its plain version and,
+    plane by plane, bitwise against one-plane launches; timed at float32 with the
+    host ahead. Returns the kernel-table row (P = 2 without kappa_h or acc, the
+    two-tracer jet's call)."""
+    import numpy as np
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch import kernels
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import tracer_adv
+
+    Yb, Xb = FILL_SHAPES["base"]
+    R = tracer_adv.REACH
+    I = (slice(R, Yb - R), slice(R, Xb - R))
+    row = None
+    for name in ("float32", "float64"):
+        dt = getattr(torch, name)
+        rng = np.random.default_rng(1414)
+        u, v = (torch.as_tensor(a, dtype=dt, device="cuda")
+                for a in rng.standard_normal((2, Yb, Xb)))
+        st = torch.as_tensor(1.0 + rng.random((8, Yb, Xb)), dtype=dt, device="cuda")
+        st[7] *= 0.1
+        for P in (2, 3):
+            c = torch.as_tensor(rng.standard_normal((P, Yb, Xb)), dtype=dt, device="cuda")
+            c[1:, : Yb // 3] = 0.0  # exact zeros, as on land
+            acc = torch.as_tensor(0.5 * rng.standard_normal((P, Yb, Xb)), dtype=dt,
+                                  device="cuda")
+            for kappa in (False, True):
+                pack = st if kappa else st[:5].contiguous()
+                for a in (None, acc):
+                    kernels.reset_launch_counts()
+                    got = tracer_adv.tracer_adv(c, u, v, pack, acc=a)
+                    counts = kernels.launch_counts()
+                    check(counts["tracer_adv_planes"] == 1 and sum(counts.values()) == 1,
+                          f"P-plane launch counted once: {counts}")
+                    ea, er = rel_err(got, tracer_adv.tracer_adv_plain(c, u, v, pack, acc=a),
+                                     I)
+                    what = f"tracer_adv P={P} kappa={kappa} acc={a is not None} {name}"
+                    check(er <= BANDS[name], f"{what}: rel err {er:.3e}")
+                    check(bool(torch.isfinite(got).all()) and edge_zero(got, R),
+                          f"{what}: finite, edge 0")
+                    for p in range(P):
+                        one = tracer_adv.tracer_adv(c[p], u, v, pack,
+                                                    acc=None if a is None else a[p])
+                        check(torch.equal(got[p], one), f"{what}: plane {p} bitwise a "
+                              "one-plane launch")
+                    if name == "float32" and not kappa and a is None:
+                        t_k = time_ms(lambda: tracer_adv.tracer_adv(c, u, v, pack),
+                                      ahead=True)
+                        t_1 = time_ms(lambda: [tracer_adv.tracer_adv(c[p], u, v, pack)
+                                               for p in range(P)], ahead=True)
+                        t_one = time_ms(lambda: tracer_adv.tracer_adv(c[0], u, v, pack),
+                                        ahead=True)
+                        t_p = time_ms(lambda: tracer_adv.tracer_adv_plain(c, u, v, pack),
+                                      n=5)
+                        b = bound(nbytes(c, u, v, pack, c), FLOPS["tracer_adv_planes"]
+                                  * c.numel())
+                        log(f"phase 14a: tracer_adv_planes P={P} on {tuple(c.shape)} "
+                            f"float32, host ahead: {t_k:.4f} ms; {P} one-plane launches "
+                            f"{t_1:.4f} ms; one plane alone {t_one:.4f} ms; plain "
+                            f"{t_p:.4f} ms; bound "
+                            f"{b[0]:.4f} ms by {b[1]} ({b[2]} bytes) [{card}]")
+                        if P == 2:
+                            row = (ea, t_k, t_p, b)
+        log(f"phase 14a: tracer_adv over P = 2 and 3 planes of ({Yb}, {Xb}), {name}, with "
+            f"and without kappa_h and acc: within the band {BANDS[name]:g}, finite, edge "
+            f"cells 0, every plane bitwise equal to a one-plane launch [{card}]")
+    return {"tracer_adv_planes": row}
+
+
+def smooth_field(model, seed=14):
+    """A smooth tracer in [-1, 1] from ``seed``: a few random zonal and meridional
+    modes on the cell centres, the interior only, masked (as ``initial_state`` sets
+    a field)."""
+    import numpy as np
+    import torch
+
+    g = model.grid
+    lam = np.deg2rad(g.lam_cc.cpu().numpy().astype(np.float64))
+    phi = np.deg2rad(g.phi_cc.cpu().numpy().astype(np.float64))
+    rng = np.random.default_rng(seed)
+    d = np.zeros(g.shape2d)
+    for k in range(1, 4):
+        for m in range(1, 4):
+            a, p, q = rng.standard_normal(), rng.uniform(0, 2 * np.pi), rng.uniform(0, np.pi)
+            d += a * np.cos(k * lam + p) * np.cos(m * phi + q)
+    full = np.zeros(g.shape2d)
+    full[g.interior2d] = d[g.interior2d] / np.abs(d[g.interior2d]).max()
+    return torch.as_tensor(full).to(device=model.device, dtype=model.dtype) * model.ib.mask_c
+
+
+def phase14_options(card, bmodel, bstate0, bickley_ms, n_steps=20, warm=3,
+                    option_steps=5):
+    """(b) the two-tracer jet, (c) the other options, (d) the splits; returns the
+    two-tracer run's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from examples.bickley_jet_torch import bottom_height, build
+    from orthogonalsphericalshellgrids_tpu_torch import kernels, parallel
+    from orthogonalsphericalshellgrids_tpu_torch.models import (
+        SplitExplicitFreeSurface, make_model, multi_step, step)
+    from orthogonalsphericalshellgrids_tpu_torch.models import hydrostatic as H
+
+    def timed(model, state, steps):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state = multi_step(model, state, 60.0, steps)
+        end.record()
+        end.synchronize()
+        return state, start.elapsed_time(end) / steps, kernels.launch_counts()
+
+    def equal(model, a, b, names, what):
+        for name in names:
+            grid = model.grid_ext if name in ("eta", "U", "V") else model.grid
+            check(torch.equal(grid.interior(getattr(a, name)),
+                              grid.interior(getattr(b, name))), f"{what}: {name} bitwise")
+
+    # (b) two tracers: phase 3's c and a smooth field, each also alone
+    t0 = time.perf_counter()
+    m2 = make_model(bmodel.grid, free_surface=SplitExplicitFreeSurface(substeps=30),
+                    bottom_height=bottom_height(), tracers=("c", "d"), device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    d0 = smooth_field(bmodel)
+    s2 = dataclasses.replace(bstate0, c=torch.stack([bstate0.c, d0]),
+                             Gc=torch.zeros((2,) + bstate0.c.shape, dtype=bstate0.c.dtype,
+                                            device="cuda"))
+    s2 = multi_step(m2, s2, 60.0, warm)
+    s2, ms2, counts = timed(m2, s2, n_steps)
+    expected = {k: 0 for k in counts}
+    expected.update(halo_fill=2 * n_steps, halo_restore=n_steps, momentum=n_steps,
+                    tracer_adv_planes=n_steps, barotropic=n_steps)
+    check(counts == expected, f"two-tracer launch counts {counts} != {expected}")
+    one_c = multi_step(bmodel, bstate0, 60.0, warm + n_steps)
+    one_d = multi_step(bmodel, dataclasses.replace(bstate0, c=d0), 60.0, warm + n_steps)
+    equal(bmodel, s2, one_c, ("u", "v", "eta", "U", "V", "Gu", "Gv"),
+          "phase 14b: two-tracer flow against the single-tracer run")
+    for k, one in enumerate((one_c, one_d)):
+        check(torch.equal(s2.c[k], one.c) and torch.equal(s2.Gc[k], one.Gc),
+              f"phase 14b: tracer plane {k} bitwise its single-tracer run")
+    check(all(bool(torch.isfinite(getattr(s2, n)).all()) for n in ("u", "v", "c", "eta")),
+          "phase 14b: finite")
+    log(f"phase 14b: the 1440 x 680 jet with two tracers (c and a smooth field from the "
+        f"seed; model built on phase 3's grid in {build_s:.1f} s), {n_steps} steps after "
+        f"{warm} warm-up: {ms2:.4f} ms/step (one tracer, phase 3: {bickley_ms:.4f}); "
+        f"launches {counts}; u, v, eta, U, V bitwise the single-tracer run, each plane "
+        f"(c and Gc) bitwise its own single-tracer run [{card}]")
+
+    # (c) each other option on the 1/4-degree jet, then at float64 against the CPU
+    for label, opts in OPTIONS.items():
+        m = model_variant(bmodel, **opts)
+        s = multi_step(m, bstate0, 60.0, 1)
+        s, ms, cnt = timed(m, s, option_steps)
+        mom = opts.get("momentum_advection", "weno_vector_invariant") != "vector_invariant"
+        adv = opts.get("tracer_advection", "weno5") == "weno5"
+        check(cnt["momentum"] == option_steps * mom and
+              cnt["tracer_adv"] == option_steps * adv and
+              cnt["barotropic"] == option_steps, f"phase 14c {label}: launches {cnt}")
+        check(all(bool(torch.isfinite(getattr(s, n)).all())
+                  for n in ("u", "v", "c", "eta", "U", "V")), f"phase 14c {label}: finite")
+        cmin, cmax = float(s.c.min()), float(s.c.max())
+        check(-1.5 < cmin and cmax < 1.5, f"phase 14c {label}: c in (-1.5, 1.5): "
+              f"[{cmin}, {cmax}]")
+        gpu_m, gpu_s = build(48, 40, dtype=torch.float64, device="cuda", **opts)
+        cpu_m, cpu_s = build(48, 40, dtype=torch.float64, device="cpu", **opts)
+        gpu_out = multi_step(gpu_m, gpu_s, 120.0, 3)
+        cpu_out = multi_step(cpu_m, cpu_s, 120.0, 3)
+        worst = []
+        for name in ("u", "v", "c", "eta"):
+            grid = cpu_m.grid_ext if name == "eta" else cpu_m.grid
+            w = grid.interior(getattr(cpu_out, name))
+            rel = float((grid.interior(getattr(gpu_out, name)).cpu() - w).abs().max()
+                        / w.abs().max())
+            worst.append(f"{name} {rel:.3e}")
+            check(rel <= 1e-11, f"phase 14c {label} float64: {name} rel {rel:.3e}")
+        log(f"phase 14c: {label}: {option_steps} steps of the 1440 x 680 jet at "
+            f"{ms:.4f} ms/step (phase 3: {bickley_ms:.4f}), finite, c in [{cmin:.6f}, "
+            f"{cmax:.6f}], launches momentum {cnt['momentum']}, tracer_adv "
+            f"{cnt['tracer_adv']}; 48 x 40 float64, 3 steps on the card against the CPU: "
+            f"max rel diff {', '.join(worst)} (rtol 1e-11) [{card}]")
+
+    # (d) the split with WENO-7's radius, and the two-tracer jet sharded
+    names = ("u", "v", "c", "eta", "U", "V", "Gu", "Gv", "Gc")
+    m7 = model_variant(bmodel, tracer_advection="weno7")
+    check(H.overlap_radius(m7) == 4 and H.overlap_radius(bmodel) == 3,
+          "overlap radius of WENO-7 and WENO-5")
+
+    def sharded(model, state0, mesh, overlap, steps=3):
+        if isinstance(mesh, int):
+            m = parallel.make_mesh(mesh)
+            dm, ds = parallel.distribute(model, state0, m)
+            fn = parallel.sharded_step_fn(m, dm, overlap=overlap)
+            gather = lambda x: parallel.gather_state(x, model, mesh)  # noqa: E731
+        else:
+            m = parallel.make_mesh2d(*mesh)
+            dm, ds = parallel.distribute2d(model, state0, m)
+            fn = parallel.sharded_step_fn2d(m, dm, model.grid.Nx, overlap=overlap)
+            gather = lambda x: parallel.gather_state2d(x, model, m)  # noqa: E731
+        check(all(H.overlap_supported(model, x.grid) for x in dm),
+              "the split is exact on every shard")
+        for _ in range(steps):
+            ds = fn(ds, 60.0)
+        fn.close()
+        return gather(ds)
+
+    serial7 = multi_step(m7, bstate0, 60.0, 3)
+    for mesh in (4, (2, 2)):
+        split = sharded(m7, bstate0, mesh, True)
+        unsplit = sharded(m7, bstate0, mesh, False)
+        where = f"{mesh} y-shards" if isinstance(mesh, int) else f"{mesh[0]} x {mesh[1]}"
+        equal(m7, split, unsplit, names, f"phase 14d: WENO-7 on {where}, split/unsplit")
+        equal(m7, split, serial7, names, f"phase 14d: WENO-7 on {where} against serial")
+        log(f"phase 14d: WENO-7 (radius 4, halo 5) on {where}, 3 steps through "
+            f"LocalExchange: split bitwise equal to unsplit and to serial [{card}]")
+    s2_0 = dataclasses.replace(bstate0, c=torch.stack([bstate0.c, d0]),
+                               Gc=torch.zeros((2,) + bstate0.c.shape, dtype=bstate0.c.dtype,
+                                              device="cuda"))
+    equal(m2, sharded(m2, s2_0, 4, None), multi_step(m2, s2_0, 60.0, 3), names,
+          "phase 14d: two-tracer jet on 4 y-shards against serial")
+    log(f"phase 14d: the two-tracer jet on 4 y-shards (split), 3 steps: bitwise equal to "
+        f"serial [{card}]")
+    return counts
+
+
 
 def main():
     import torch
@@ -2297,15 +2570,20 @@ def main():
     kres.update(phase13a_block_fills(card))
     block_counts = phase13_runs(card, (bickley_model, bickley_state0, bickley_ms),
                                 (gyre_model, gyre_state0, gyre_ms), shard_ms)
-    del bickley_model, bickley_state0, gyre_model, gyre_state0
+    del gyre_model, gyre_state0
+    kres.update(phase14a_planes(card))
+    planes_counts = phase14_options(card, bickley_model, bickley_state0, bickley_ms)
+    del bickley_model, bickley_state0
 
     # each path must have launched every kernel it runs; a row reports the count of
     # the last path that runs it (the gyre's for every kernel of the gyre; the
     # sharded Bickley jet's for the pack, the wrap and the shard fill; the 2 x 2
-    # Bickley jet's for the block pack and the block fill)
+    # Bickley jet's for the block pack and the block fill; the two-tracer jet's for
+    # the P-plane column mode)
     launches = {}
     for path, names, cnt in (("2-D Bickley", BLOCKS, block_counts),
                              ("sharded Bickley", SHARDED, shard_counts),
+                             ("two-tracer Bickley", PLANES, planes_counts),
                              ("Bickley", BICKLEY, counts), ("front", FRONT, front_counts),
                              ("gyre", GYRE, gyre_counts), ("ceilings", PROBES, probe_counts),
                              ("50-day run", DIAGNOSTICS, diag_counts)):

@@ -25,6 +25,22 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 
+def bottom_height(first_pole_longitude=45.0, north_poles_latitude=25.0):
+    """The jet's bottom: land over the two north singularities and Antarctica
+    (``examples/bickley_jet.jl:27-29``), ocean elsewhere."""
+    lam_p, phi_p = first_pole_longitude, north_poles_latitude
+
+    def bottom(lam, phi):
+        land = (
+            ((np.abs(lam - lam_p) < 5) & (np.abs(phi_p - phi) < 5))
+            | ((np.abs(lam - (lam_p + 180.0) % 360.0) < 5) & (np.abs(phi_p - phi) < 5))
+            | (phi < -78)
+        )
+        return np.where(land, 1.0, 0.0)
+
+    return bottom
+
+
 def build(nx=180, ny=90, dtype=torch.float32, substeps=30, *, device="cuda",
           first_pole_longitude=45.0, north_poles_latitude=25.0, **model_kwargs):
     """(model, state) of the Bickley jet on an ``nx`` x ``ny`` tripolar grid with
@@ -38,20 +54,10 @@ def build(nx=180, ny=90, dtype=torch.float32, substeps=30, *, device="cuda",
         first_pole_longitude=first_pole_longitude,
         north_poles_latitude=north_poles_latitude,
         dtype=dtype, device=device)
-
-    lam_p, phi_p = first_pole_longitude, north_poles_latitude
-
-    def bottom(lam, phi):
-        # mask the singularities and Antarctica (examples/bickley_jet.jl:27-29)
-        land = (
-            ((np.abs(lam - lam_p) < 5) & (np.abs(phi_p - phi) < 5))
-            | ((np.abs(lam - (lam_p + 180.0) % 360.0) < 5) & (np.abs(phi_p - phi) < 5))
-            | (phi < -78)
-        )
-        return np.where(land, 1.0, 0.0)
-
     model = make_model(grid, free_surface=SplitExplicitFreeSurface(substeps=substeps),
-                       bottom_height=bottom, device=device, **model_kwargs)
+                       bottom_height=bottom_height(first_pole_longitude,
+                                                   north_poles_latitude),
+                       device=device, **model_kwargs)
 
     # initial conditions (examples/bickley_jet.jl:57-73)
     eps, ell, k = 0.1, 0.5, 2.5

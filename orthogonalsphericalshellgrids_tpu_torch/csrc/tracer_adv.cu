@@ -5,8 +5,9 @@
 // (_kernel) with all its operands, in its two modes; its math is
 // pallas_adv.py:213-247:
 //   cx = upwind WENO-5 of c at the x faces (upwinded on u), cy likewise in y
-//   column  (one tracer plane; models/hydrostatic.py:698-702): the pack is
-//     [h_u, dy_fc, h_v, dx_cf, IV (, K_u, K_v, K_c)], IV = mask_c / (Az_cc h_c), and
+//   column  (P tracer planes over one (u, v) pair; models/hydrostatic.py:689-702):
+//     the pack is [h_u, dy_fc, h_v, dx_cf, IV (, K_u, K_v, K_c)], IV = mask_c /
+//     (Az_cc h_c), and per plane
 //     G = -(dxc(u h_u dy_fc cx) + dyc(v h_v dx_cf cy)) IV
 //   layered (n_tr Nz tracer-major planes over Nz velocity layers; models/layered.py
 //   :815-822): u and v are masked, so u dzu == u dz_k; the pack holds S = 1 or 4
@@ -38,8 +39,11 @@
 //     the kappa_h planes; once a CTA the metric planes [dy_fc, dx_cf] at the faces
 //     (column mode: the pack's planes). In layered mode the CTA loops over the
 //     layers and, per layer, over the tracer blocks of the stack (T and S in the
-//     gyre), and the next plane's (and layer's) copies are issued into a second
-//     buffer before the present plane's arithmetic, so they arrive while it runs.
+//     gyre); in column mode over P planes (Mode::Planes; one plane is Mode::Column,
+//     which keeps one buffer and no loop). The next plane's (and layer's) copies are
+//     issued into a second buffer before the present plane's arithmetic, so they
+//     arrive while it runs. Each plane's arithmetic is the one-plane launch's, so
+//     plane p of a P-plane launch is bitwise a one-plane launch on plane p.
 //     No operand waits in a register, which keeps the kernel within 64 registers a
 //     thread at f32 and the SM at 4 CTAs of 8 warps.
 //   - Per plane every x face of the tile (TY rows of TX + 1) and every y face (TY + 1
@@ -73,27 +77,33 @@ template <typename T> struct Tile;
 template <> struct Tile<float> { static constexpr int Y = 16, X = 32, MIN_BLOCKS = 4; };
 template <> struct Tile<double> { static constexpr int Y = 16, X = 32, MIN_BLOCKS = 2; };
 
+// The kernel's modes: one column plane, P column planes over one (u, v) pair, or
+// layered (tracer-major planes over Nz layers of u and v).
+enum class Mode { Column, Planes, Layered };
+
 // Shared memory of one CTA, as offsets in elements of T. Faces are numbered x faces
 // first (TY rows of TX + 1: face lx lies west of cell lx), then y faces (TY + 1 rows
-// of TX: face ly lies south of cell row ly); cells by row (TY rows of TX). NB buffers
-// of what a plane or a layer copies: two in layered mode (the next one in flight).
-template <typename T, bool LAYERED, bool HAS_DIFF, bool HAS_ACC>
+// of TX: face ly lies south of cell row ly); cells by row (TY rows of TX). NP buffers
+// of what a plane copies (the window and acc) and NL of what a layer copies (u, v,
+// IV and the kappa_h planes): two where the next one is in flight.
+template <typename T, Mode M, bool HAS_DIFF, bool HAS_ACC>
 struct Layout {
+  static constexpr bool LAYERED = M == Mode::Layered;
   static constexpr int TY = Tile<T>::Y, TX = Tile<T>::X;
   static constexpr int WY = TY + 2 * REACH, WX = TX + 2 * REACH, WN = WY * WX;
   static constexpr int NXF = TY * (TX + 1), NF = NXF + (TY + 1) * TX;
   static constexpr int CN = TY * TX, CELLS = CN / THREADS;
-  static constexpr int NB = LAYERED ? 2 : 1;
+  static constexpr int NP = M == Mode::Column ? 1 : 2, NL = LAYERED ? 2 : 1;
   static constexpr int WIN = 0;                              // c over the window
-  static constexpr int FLUX = WIN + NB * WN;                 // the face fluxes
+  static constexpr int FLUX = WIN + NP * WN;                 // the face fluxes
   static constexpr int VEL = FLUX + NF;                      // u at x faces, v at y faces
-  static constexpr int LEN = VEL + NB * NF;                  // dy_fc, dx_cf at the faces
+  static constexpr int LEN = VEL + NL * NF;                  // dy_fc, dx_cf at the faces
   static constexpr int HF = LEN + NF;                        // column: h_u, h_v at the faces
   static constexpr int KF = HF + (LAYERED ? 0 : NF);         // K_u, K_v at the faces
-  static constexpr int IV = KF + (HAS_DIFF ? NB * NF : 0);   // IV at the cells
-  static constexpr int KC = IV + NB * CN;                    // K_c at the cells
-  static constexpr int ACC = KC + (HAS_DIFF ? NB * CN : 0);  // acc at the cells
-  static constexpr int BYTES = (ACC + (HAS_ACC ? NB * CN : 0)) * static_cast<int>(sizeof(T));
+  static constexpr int IV = KF + (HAS_DIFF ? NL * NF : 0);   // IV at the cells
+  static constexpr int KC = IV + NL * CN;                    // K_c at the cells
+  static constexpr int ACC = KC + (HAS_DIFF ? NL * CN : 0);  // acc at the cells
+  static constexpr int BYTES = (ACC + (HAS_ACC ? NP * CN : 0)) * static_cast<int>(sizeof(T));
   static_assert(CN % THREADS == 0, "a thread owns whole cells");
 };
 
@@ -150,25 +160,29 @@ __device__ __forceinline__ void copy_cells(T* dst, const T* src, int y0, int x0,
   }
 }
 
-// The kernel of both modes. Column: st is the (5 or 8)-plane pack, n_planes = nz = 1.
-// Layered: c holds n_planes = n_tr nz tracer-major planes over nz layers of u and v,
-// st the (nz S) layer-major pack [IV (, K_u, K_v, K_c)], g = [dy_fc, dx_cf], dz (nz).
-template <typename T, bool LAYERED, bool HAS_DIFF, bool HAS_ACC>
+// The kernel of every mode. Column: st is the (5 or 8)-plane pack, c holds n_planes
+// planes (1 in Mode::Column) over one (u, v) pair, nz = 1. Layered: c holds n_planes
+// = n_tr nz tracer-major planes over nz layers of u and v, st the (nz S) layer-major
+// pack [IV (, K_u, K_v, K_c)], g = [dy_fc, dx_cf], dz (nz).
+template <typename T, Mode M, bool HAS_DIFF, bool HAS_ACC>
 __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
     tracer_adv_kernel(const T* __restrict__ c, const T* __restrict__ u,
                       const T* __restrict__ v, const T* __restrict__ st,
                       const T* __restrict__ g, const T* __restrict__ dz,
                       const T* __restrict__ acc, T* __restrict__ G, int n_planes, int nz,
                       int Yb, int Xb) {
-  using Lo = Layout<T, LAYERED, HAS_DIFF, HAS_ACC>;
+  using Lo = Layout<T, M, HAS_DIFF, HAS_ACC>;
+  constexpr bool LAYERED = Lo::LAYERED;
   constexpr int TX = Lo::TX, WX = Lo::WX, WN = Lo::WN, NXF = Lo::NXF, NF = Lo::NF;
   constexpr int CN = Lo::CN, S = HAS_DIFF ? 4 : 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sm = reinterpret_cast<T*>(smem_raw);
   const int y0 = blockIdx.y * Lo::TY, x0 = blockIdx.x * TX;
   const int64_t P = (int64_t)Yb * Xb;
-  const int n_blocks = LAYERED ? n_planes / nz : 1;
-  const int n_steps = LAYERED ? n_planes : 1;  // layer by layer, each layer's blocks in turn
+  // layer by layer, each layer's blocks in turn (column mode: one layer of n_planes
+  // blocks); plane t of layer k lies at (t nz + k) P
+  const int n_blocks = M == Mode::Column ? 1 : n_planes / nz;
+  const int n_steps = M == Mode::Column ? 1 : n_planes;
 
   // what a layer copies (IV, the kappa_h planes, u and v) into its buffer b, and what a
   // plane copies (its window and acc) into buffer b
@@ -199,7 +213,7 @@ __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
 #pragma unroll 1
   for (int s = 0; s < n_steps; ++s) {
     const int layer = s / n_blocks, t = s - layer * n_blocks;
-    const int bs = LAYERED ? s & 1 : 0, bl = LAYERED ? layer & 1 : 0;
+    const int bs = Lo::NP == 2 ? s & 1 : 0, bl = LAYERED ? layer & 1 : 0;
     const int64_t off = ((int64_t)t * nz + layer) * P;  // this tracer plane
     __syncthreads();  // every thread is done with the previous plane's buffers
     if (s + 1 < n_steps) {  // the next plane's copies, and its layer's at a layer's start
@@ -278,50 +292,62 @@ struct Args {
   int n_planes, nz, Yb, Xb;
 };
 
-template <typename T, bool LAYERED, bool HAS_DIFF, bool HAS_ACC>
+template <typename T, Mode M, bool HAS_DIFF, bool HAS_ACC>
 int launch_one(const Args& a, cudaStream_t s) {
-  using Lo = Layout<T, LAYERED, HAS_DIFF, HAS_ACC>;
+  using Lo = Layout<T, M, HAS_DIFF, HAS_ACC>;
   if constexpr (Lo::BYTES > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        tracer_adv_kernel<T, LAYERED, HAS_DIFF, HAS_ACC>,
+        tracer_adv_kernel<T, M, HAS_DIFF, HAS_ACC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, Lo::BYTES);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((a.Xb + Lo::TX - 1) / Lo::TX, (a.Yb + Lo::TY - 1) / Lo::TY);
-  tracer_adv_kernel<T, LAYERED, HAS_DIFF, HAS_ACC><<<grid, THREADS, Lo::BYTES, s>>>(
+  tracer_adv_kernel<T, M, HAS_DIFF, HAS_ACC><<<grid, THREADS, Lo::BYTES, s>>>(
       (const T*)a.c, (const T*)a.u, (const T*)a.v, (const T*)a.st, (const T*)a.g,
       (const T*)a.dz, (const T*)a.acc, (T*)a.G, a.n_planes, a.nz, a.Yb, a.Xb);
   return (int)cudaGetLastError();
 }
 
+template <typename T, Mode M>
+int launch_mode(const Args& a, int has_diff, cudaStream_t s) {
+  if (has_diff && a.acc) return launch_one<T, M, true, true>(a, s);
+  if (has_diff) return launch_one<T, M, true, false>(a, s);
+  if (a.acc) return launch_one<T, M, false, true>(a, s);
+  return launch_one<T, M, false, false>(a, s);
+}
+
 template <typename T, bool LAYERED>
 int launch(const Args& a, int has_diff, int ty, int tx, void* stream) {
-  // a plan made for another tile, a plane whose offsets overflow an int, or a grid
-  // the launch cannot take, is refused
+  // a plan made for another tile, no plane (n_planes < 1), a plane whose offsets
+  // overflow an int, or a grid the launch cannot take, is refused
   if (ty != Tile<T>::Y || tx != Tile<T>::X || a.nz < 1 || a.n_planes < a.nz ||
       a.n_planes % a.nz || (int64_t)a.Yb * a.Xb > 2147483647LL ||
       (a.Yb + Tile<T>::Y - 1) / Tile<T>::Y > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (has_diff && a.acc) return launch_one<T, LAYERED, true, true>(a, s);
-  if (has_diff) return launch_one<T, LAYERED, true, false>(a, s);
-  if (a.acc) return launch_one<T, LAYERED, false, true>(a, s);
-  return launch_one<T, LAYERED, false, false>(a, s);
+  if constexpr (LAYERED) {
+    return launch_mode<T, Mode::Layered>(a, has_diff, s);
+  } else {
+    if (a.n_planes > 1) return launch_mode<T, Mode::Planes>(a, has_diff, s);
+    return launch_mode<T, Mode::Column>(a, has_diff, s);
+  }
 }
 
 }  // namespace
 
 extern "C" int osg_tracer_adv_f32(const void* c, const void* u, const void* v,
-                                  const void* st, const void* acc, void* G, int Yb, int Xb,
-                                  int has_diff, int ty, int tx, void* stream) {
-  return launch<float, false>({c, u, v, st, nullptr, nullptr, acc, G, 1, 1, Yb, Xb},
+                                  const void* st, const void* acc, void* G, int n_planes,
+                                  int Yb, int Xb, int has_diff, int ty, int tx,
+                                  void* stream) {
+  return launch<float, false>({c, u, v, st, nullptr, nullptr, acc, G, n_planes, 1, Yb, Xb},
                               has_diff, ty, tx, stream);
 }
 
 extern "C" int osg_tracer_adv_f64(const void* c, const void* u, const void* v,
-                                  const void* st, const void* acc, void* G, int Yb, int Xb,
-                                  int has_diff, int ty, int tx, void* stream) {
-  return launch<double, false>({c, u, v, st, nullptr, nullptr, acc, G, 1, 1, Yb, Xb},
+                                  const void* st, const void* acc, void* G, int n_planes,
+                                  int Yb, int Xb, int has_diff, int ty, int tx,
+                                  void* stream) {
+  return launch<double, false>({c, u, v, st, nullptr, nullptr, acc, G, n_planes, 1, Yb, Xb},
                                has_diff, ty, tx, stream);
 }
 

@@ -3,11 +3,12 @@
 Counterpart: ``orthogonalsphericalshellgrids_tpu/ops/pallas_adv.py:tracer_adv_pallas``
 with and without the fused κ_h Laplacian, in its two modes:
 
-- column (the single-layer model): ``static`` is the (5, Yb, Xb) stack
-  ``STATIC_PLANES`` on the base grid, ``inv_vol_c = mask_c / (Az_cc h_c)``, or the
-  (8, Yb, Xb) stack with ``KAPPA_PLANES`` appended (the JAX pack's S = 3 and 6: the
-  port keeps h and the metric of each flux as separate planes); the plain version is
-  ``models/hydrostatic.py:698-702``;
+- column (the single-layer model): ``c`` is one (Yb, Xb) tracer plane or a (P, Yb,
+  Xb) stack of P tracers over the (Yb, Xb) u and v; ``static`` is the (5, Yb, Xb)
+  stack ``STATIC_PLANES`` on the base grid, ``inv_vol_c = mask_c / (Az_cc h_c)``, or
+  the (8, Yb, Xb) stack with ``KAPPA_PLANES`` appended (the JAX pack's S = 3 and 6:
+  the port keeps h and the metric of each flux as separate planes); the plain version
+  is ``models/hydrostatic.py:698-702``;
 - layered (``g_pack`` and ``dz`` given): ``c`` is the (n_tr·Nz, Yb, Xb) tracer-major
   stack over (Nz, Yb, Xb) velocities, ``static`` the (Nz·S, Yb, Xb) pack, S = 1
   ([IV = mask_c3 / (Az_cc dz_k)], ``pack_adv_statics_layered``) or S = 4 (IV then
@@ -25,7 +26,9 @@ copies its operands into shared memory ahead of use: c over the tile and the ste
 ``REACH`` and ``acc`` per plane, u and v at the tile's faces, IV and the κ_h planes per
 layer, the metric planes once. It reconstructs each face of the tile once and forms
 the cells' divergence from the stored fluxes; in layered mode it loops over the
-layers, and per layer over the tracer blocks, with the next plane's copies in flight.
+layers, and per layer over the tracer blocks, and over a column stack's P planes, with
+the next plane's copies in flight. Plane p of a P-plane column launch is bitwise a
+one-plane launch on plane p.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from ..ops.advection import weno5_upwind_faces_from_centers
 from ..ops.operators import dxc, dxf, dyc, dyf
 from . import call, check_operands, count, data_ptr, on_cuda
 
-__all__ = ["tracer_adv", "tracer_adv_plain", "launch_plan", "STATIC_PLANES",
+__all__ = ["tracer_adv", "tracer_adv_plain", "launch_plan", "MODES", "STATIC_PLANES",
            "KAPPA_PLANES", "G_PLANES", "REACH"]
 
 STATIC_PLANES = ("h_u", "dy_fc", "h_v", "dx_cf", "inv_vol_c")
@@ -47,6 +50,9 @@ STATIC_PLANES = ("h_u", "dy_fc", "h_v", "dx_cf", "inv_vol_c")
 KAPPA_PLANES = ("k_u", "k_v", "k_c")
 G_PLANES = ("dy_fc", "dx_cf")
 REACH = 3  # the kernel writes 0 within this many cells of the edge (its stencil's reach)
+# the kernel's modes (csrc/tracer_adv.cu:Mode): one column plane, P column planes over
+# one (u, v) pair, layered
+MODES = ("column", "planes", "layered")
 
 # The output tile of one CTA of csrc/tracer_adv.cu for each dtype, (rows, columns); the
 # source holds the same numbers and refuses a plan made for others.
@@ -61,8 +67,9 @@ class LaunchPlan:
     (the tile and a ring of ``REACH`` cells, zero outside the array) and its other
     operands into shared memory, reconstructs the tile's x faces (rows of columns + 1)
     and y faces (rows + 1 of columns) once and forms each cell from them.
-    ``smem_bytes[layered, kappa, acc]`` is its shared memory in each mode (layered
-    mode keeps two buffers of what a plane and a layer copy)."""
+    ``smem_bytes[mode, kappa, acc]`` is its shared memory in each of ``MODES``
+    (two buffers of what a plane copies in "planes" and "layered" mode, and of what
+    a layer copies in "layered" mode)."""
 
     tile: tuple
     window: tuple
@@ -71,20 +78,23 @@ class LaunchPlan:
     smem_bytes: dict
 
 
-def _smem(tile, itemsize, layered, kappa, acc):
+def _smem(tile, itemsize, mode, kappa, acc):
     """Bytes of shared memory of one CTA: ``csrc/tracer_adv.cu:Layout``."""
     TY, TX = tile
     window = (TY + 2 * REACH) * (TX + 2 * REACH)
-    faces, cells, nb = TY * (TX + 1) + (TY + 1) * TX, TY * TX, 2 if layered else 1
+    faces, cells = TY * (TX + 1) + (TY + 1) * TX, TY * TX
+    layered = mode == "layered"
+    n_p, n_l = (1 if mode == "column" else 2), (2 if layered else 1)
     # windows, fluxes, velocities, lengths (+ column thicknesses), IV, κ_h planes, acc
-    n = (nb * window + faces + nb * faces + faces + (0 if layered else faces)
-         + nb * cells + (nb * (faces + cells) if kappa else 0) + (nb * cells if acc else 0))
+    n = (n_p * window + faces + n_l * faces + faces + (0 if layered else faces)
+         + n_l * cells + (n_l * (faces + cells) if kappa else 0)
+         + (n_p * cells if acc else 0))
     return n * itemsize
 
 
 def _plan(Yb, Xb, tile, itemsize):
     TY, TX = tile
-    modes = [(lay, kap, acc) for lay in (False, True) for kap in (False, True)
+    modes = [(mode, kap, acc) for mode in MODES for kap in (False, True)
              for acc in (False, True)]
     return LaunchPlan(tile=(TY, TX), window=(TY + 2 * REACH, TX + 2 * REACH),
                       grid=(-(-Yb // TY), -(-Xb // TX)), threads=THREADS,
@@ -103,7 +113,7 @@ def _diffusion(c, k_u, k_v, k_c):
 
 def tracer_adv_plain(c, u, v, static, g_pack=None, dz=None, acc=None):
     """Column mode: G = -(δx(u h_u Δy cx) + δy(v h_v Δx cy)) · mask_c/(Az h_c) of
-    halo-filled (Yb, Xb) fields. Layered mode (``g_pack``, ``dz``): G = -(δx(u dz_k
+    halo-filled (Yb, Xb) fields, for each plane of a (P, Yb, Xb) ``c``. Layered mode (``g_pack``, ``dz``): G = -(δx(u dz_k
     Δy cx) + δy(v dz_k Δx cy)) · IV for every tracer block of ``c``. Plus the κ_h
     Laplacian when the pack carries its planes, then ``acc``."""
     if g_pack is None:
@@ -139,8 +149,8 @@ def tracer_adv(c, u, v, static, g_pack=None, dz=None, acc=None):
     and ``dz``, in layered mode (module docstring), with κ_h when the pack carries
     its planes, plus ``acc`` (shaped like ``c``) when given; only cells at least
     ``REACH`` from the array edge are meaningful (the kernel writes 0 there). The
-    launch counts as ``tracer_adv_kappa`` with κ_h, else as ``tracer_adv`` or
-    ``tracer_adv_layered``."""
+    launch counts as ``tracer_adv_planes`` for a column stack of P > 1 planes, else as
+    ``tracer_adv_kappa`` with κ_h, else as ``tracer_adv`` or ``tracer_adv_layered``."""
     if (g_pack is None) != (dz is None):
         raise ValueError("tracer_adv: layered mode takes both g_pack and dz")
     Yb, Xb = c.shape[-2:]
@@ -149,18 +159,22 @@ def tracer_adv(c, u, v, static, g_pack=None, dz=None, acc=None):
         if n_st not in (5, 8):
             raise ValueError(f"tracer_adv: the column pack holds 5 planes, or 8 with "
                              f"κ_h, got shape {tuple(static.shape)}")
+        if c.dim() not in (2, 3) or c.numel() == 0:
+            raise ValueError(f"tracer_adv: column mode takes a (Yb, Xb) plane or a "
+                             f"(P, Yb, Xb) stack of P >= 1, got {tuple(c.shape)}")
         tensors = _with_acc(dict(c=c, u=u, v=v, static=static), acc)
         check_operands("tracer_adv", tensors, c.dtype,
-                       dict(c=(Yb, Xb), u=(Yb, Xb), v=(Yb, Xb), static=(n_st, Yb, Xb),
-                            acc=(Yb, Xb)))
+                       dict(u=(Yb, Xb), v=(Yb, Xb), static=(n_st, Yb, Xb), acc=c.shape))
         if not on_cuda(*tensors.values()):
             return tracer_adv_plain(c, u, v, static, acc=acc)
+        n_planes = c.shape[0] if c.dim() == 3 else 1
         plan = launch_plan(Yb, Xb, c.dtype)
         G = torch.empty_like(c)
         call("osg_tracer_adv", c.dtype, c.device, c.data_ptr(), u.data_ptr(),
-             v.data_ptr(), static.data_ptr(), data_ptr(acc), G.data_ptr(), Yb, Xb,
-             int(n_st == 8), *plan.tile)
-        count("tracer_adv_kappa" if n_st == 8 else "tracer_adv")
+             v.data_ptr(), static.data_ptr(), data_ptr(acc), G.data_ptr(), n_planes,
+             Yb, Xb, int(n_st == 8), *plan.tile)
+        count("tracer_adv_planes" if n_planes > 1 else
+              "tracer_adv_kappa" if n_st == 8 else "tracer_adv")
         return G
     if u.dim() != 3 or c.dim() != 3:
         raise ValueError("tracer_adv: layered mode takes (P, Yb, Xb) tracers over "

@@ -46,7 +46,8 @@ def seam_row_weights(Ny, dtype=None, device=None):
 
 def tracer_content(model: HydrostaticModel, state: State):
     """Global tracer content Σ c·Az·H with the seam row half-weighted, conserved to
-    round-off by the flux-form advection across the fold."""
+    round-off by the flux-form advection across the fold; with several tracers (a
+    stacked ``state.c``) the per-tracer vector in ``model.tracer_names`` order."""
     g = model.grid
     w = seam_row_weights(g.Ny, model.dtype, model.device)
     return torch.sum(g.interior(state.c * g.az_cc * model.ib.h_c) * w, dim=(-2, -1))

@@ -5,15 +5,21 @@ Counterpart: ``orthogonalsphericalshellgrids_tpu/models/hydrostatic.py`` (``make
 ``embed_ext``/``crop_ext``, ``barotropic_substeps``, ``step``, ``multi_step``,
 ``compute_cfl_dt``) on its kernel path (``tend_kernels``):
 
-- vector-invariant momentum with upwinded WENO-5 vorticity reconstruction,
-- flux-form WENO-5 tracer advection of one tracer,
+- vector-invariant momentum with upwinded WENO-5 vorticity reconstruction
+  (``momentum_advection="weno_vector_invariant"``, the momentum kernel) or the
+  centered vorticity interpolation (``"vector_invariant"``, plain PyTorch),
+- flux-form tracer advection of one tracer or a stack of several (``tracers``):
+  WENO-5 through the tracer kernel (a stack in one launch over its planes), or WENO-7,
+  third-order upwind, centered or fourth-order centered faces
+  (``ops/advection.py:TRACER_SCHEMES``, plain PyTorch),
 - split-explicit free surface with SM05-averaged forward-backward substeps integrated
   in widened halos, so the substep loop needs no exchange,
 - quasi-Adams-Bashforth-2 time stepping (χ = 0.1, forward Euler on the first step),
 - grid-fitted immersed-boundary masking, optional Coriolis,
 - the closures ν_h, κ_h (fused into the momentum and tracer kernels as prefactored
-  planes), ν4_h, κ4_h (biharmonic, plain PyTorch), kinematic wind stress, linear or
-  quadratic bottom drag (quadratic fused into the momentum kernel) and user forcing.
+  planes where those kernels run, else ``ops/closures.py``), ν4_h, κ4_h (biharmonic,
+  plain PyTorch), kinematic wind stress, linear or quadratic bottom drag (quadratic
+  fused into the momentum kernel) and user forcing, per tracer.
 
 The model is an ``nn.Module`` whose arrays are registered buffers (metric reciprocals,
 masks, column depths and the kernels' operand stacks, on the base and the extended
@@ -37,9 +43,6 @@ fields (locally x-wrapped on a y-partition) and is launched before the exchange;
 the rows (and on a 2-D mesh the columns) within a halo of an exchanged edge are then
 recomputed on 3·H-wide strips of the filled fields (``split_tendencies``), bitwise
 equal to the unsplit step.
-
-Not ported yet (``make_model`` raises ``NotImplementedError``; ROADMAP queue 1):
-several tracers and the other advection schemes.
 """
 
 from __future__ import annotations
@@ -58,14 +61,17 @@ from ..grids.immersed import FIELDS as IB_FIELDS
 from ..grids.immersed import ImmersedBoundary, make_immersed_boundary
 from ..grids.tripolar import ARRAY_FIELDS, META_FIELDS, TripolarGrid, with_halo
 from ..kernels import barotropic, halo_fill, momentum, tracer_adv
-from ..ops.closures import _ratio, biharmonic_c, biharmonic_u, biharmonic_v
+from ..ops.advection import SCHEME_RADIUS, TRACER_SCHEMES, tracer_faces
+from ..ops.closures import (_ratio, biharmonic_c, biharmonic_u, biharmonic_v,
+                            laplacian_c, laplacian_u, laplacian_v)
 from ..ops.location import CC, CF, FC
-from ..ops.operators import dxf, dyf
+from ..ops.operators import dxc, dxf, dyc, dyf, ixc, ixf, iyc, iyf
 from ..ops.spmd import GroupFill, Spmd, fill_group
 from .split_explicit import SplitExplicitFreeSurface
 
 __all__ = ["HydrostaticModel", "State", "ForcingFields", "make_model", "from_jax_arrays",
-           "initial_state", "state_from_numpy", "vorticity", "tendencies",
+           "initial_state", "state_from_numpy", "vorticity", "centered_momentum",
+           "tendencies",
            "overlap_radius", "overlap_supported", "strip_views", "split_tendencies",
            "tendencies_overlapped", "embed_ext", "crop_ext", "barotropic_substeps",
            "step", "multi_step", "compute_cfl_dt"]
@@ -75,8 +81,10 @@ _CHI = 0.1  # quasi-AB2 parameter (Oceananigans default)
 
 @dataclasses.dataclass(frozen=True)
 class State:
-    """Prognostic state: u/v/c and the previous tendencies on base-halo arrays;
-    η/U/V on extended-halo arrays; ``t`` and ``iteration`` are 0-d tensors."""
+    """Prognostic state: u/v/c and the previous tendencies on base-halo arrays (c and
+    Gc (Ye, Xe) for one tracer, the (n, Ye, Xe) stack in ``tracer_names`` order for
+    several); η/U/V on extended-halo arrays; ``t`` and ``iteration`` are 0-d
+    tensors."""
 
     u: Any
     v: Any
@@ -102,9 +110,10 @@ def _inv(m):
 DERIVED = ("inv_dx_fc", "inv_dy_cf", "inv_az_ff", "inv_vol_c", "inv_dx_fc_e",
            "inv_dy_cf_e", "inv_az_cc_e", "dy_fc_e", "dx_cf_e", "h_u_e", "h_v_e",
            "mask_u_e", "mask_v_e", "weights", "f_ff", "taux", "tauy")
-# the closure, wind, drag and forcing metadata (the JAX model's fields of those names)
-OPTIONS = ("forcing", "wind", "drag_type", "drag_coeff", "nu_h", "kappa_h", "nu4_h",
-           "kappa4_h")
+# the schemes, tracers, closure, wind, drag and forcing metadata (the JAX model's
+# fields of those names)
+OPTIONS = ("tracer_advection", "momentum_advection", "tracer_names", "forcing", "wind",
+           "drag_type", "drag_coeff", "nu_h", "kappa_h", "nu4_h", "kappa4_h")
 
 
 class HydrostaticModel(nn.Module):
@@ -117,7 +126,8 @@ class HydrostaticModel(nn.Module):
     ``kernels/tracer_adv.KAPPA_PLANES`` when κ_h > 0). ``mom_lay`` is the momentum
     kernel's closure pack (``kernels/momentum.LAP_PLANES`` with ν_h, then
     ``DRAG_PLANES`` with quadratic drag), None without either. ``options`` holds the
-    ``OPTIONS`` metadata; ``kappa`` the three κ_h planes (None without κ_h)."""
+    ``OPTIONS`` metadata (``tracer_names`` the tuple of tracer names); ``kappa`` the
+    three κ_h planes (None without κ_h)."""
 
     def __init__(self, grid, grid_ext, ib, arrays, *, substeps, fractional_dt, g,
                  coriolis, options, mom_lay=None, kappa=None):
@@ -165,21 +175,6 @@ class HydrostaticModel(nn.Module):
         return self.grid.device
 
 
-def _check_supported(tracer_advection, momentum_advection, tracers):
-    unsupported = []
-    if tracer_advection != "weno5":
-        unsupported.append(f"tracer_advection={tracer_advection!r}")
-    if momentum_advection != "weno_vector_invariant":
-        unsupported.append(f"momentum_advection={momentum_advection!r}")
-    if len(tuple(tracers)) != 1:
-        unsupported.append(f"tracers={tuple(tracers)!r} (several tracers)")
-    if unsupported:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(unsupported)} (ROADMAP queue 1, deferred "
-            "slice options); the port's single-layer model takes one tracer with "
-            "WENO-5 and the WENO vector-invariant momentum")
-
-
 def make_model(
     grid: TripolarGrid,
     free_surface: SplitExplicitFreeSurface | None = None,
@@ -206,7 +201,11 @@ def make_model(
     closure planes. A tripolar model requires an explicit free surface, as in the
     reference.
 
-    ``forcing``: {target: fn}, target "u", "v" or the tracer's name, fn(λ°, φ°, t,
+    ``tracers``: the tracer names (several stack ``State.c`` as (n, Ye, Xe)).
+    ``tracer_advection``: one of ``TRACER_SCHEMES``, whose ``SCHEME_RADIUS`` the
+    grid's halo must hold. ``momentum_advection``: "weno_vector_invariant" (upwinded
+    WENO-5 vorticity) or "vector_invariant" (centered).
+    ``forcing``: {target: fn}, target "u", "v" or a tracer's name, fn(λ°, φ°, t,
     fields) -> the tendency term, on tensors (``fields`` a ``ForcingFields`` of the
     halo-filled prognostics). ``wind_stress``: fn(λ°, φ°) -> (τx, τy), kinematic
     [m²/s²], on numpy arrays. ``bottom_drag``: ("linear", r [m/s]) or ("quadratic",
@@ -215,12 +214,27 @@ def make_model(
         raise ValueError(
             "A tripolar-grid model requires an explicit SplitExplicitFreeSurface "
             "configuration (the reference rejects the default free surface too).")
-    _check_supported(tracer_advection, momentum_advection, tracers)
+    tracers = tuple(str(t) for t in tracers)
+    if len(tracers) == 0 or len(set(tracers)) != len(tracers):
+        raise ValueError(f"tracers must be a non-empty tuple of unique names, got {tracers!r}")
+    if tracer_advection not in TRACER_SCHEMES:
+        raise ValueError(
+            f"unknown tracer_advection {tracer_advection!r}; options: {TRACER_SCHEMES}")
+    radius = SCHEME_RADIUS[tracer_advection]
+    if min(grid.Hx, grid.Hy) < radius:
+        raise ValueError(
+            f"tracer_advection={tracer_advection!r} consumes {radius} halo cells per "
+            f"side but the grid halo is ({grid.Hx}, {grid.Hy}) — rebuild the grid "
+            f"with halo >= {radius} (the reference widens halos the same way)")
+    if (nu4_h > 0.0 or kappa4_h > 0.0) and min(grid.Hx, grid.Hy) < 2:
+        raise ValueError(
+            f"biharmonic closures (nu4_h/kappa4_h) consume 2 halo cells per side but "
+            f"the grid halo is ({grid.Hx}, {grid.Hy}) — rebuild the grid with halo >= 2")
     forcing = dict(forcing or {})
-    unknown = set(forcing) - {"u", "v", *(str(t) for t in tracers)}
+    valid_targets = {"u", "v", *tracers}
+    unknown = set(forcing) - valid_targets
     if unknown:
-        raise ValueError(f"forcing targets {sorted(unknown)} not in "
-                         f"{sorted({'u', 'v', *map(str, tracers)})}")
+        raise ValueError(f"forcing targets {sorted(unknown)} not in {sorted(valid_targets)}")
     drag_type, drag_coeff = ("none", 0.0) if bottom_drag is None else bottom_drag
     if drag_type not in ("none", "linear", "quadratic"):
         raise ValueError(f"bottom_drag type must be linear|quadratic, got {drag_type!r}")
@@ -228,11 +242,6 @@ def make_model(
     if dev.type != grid.device.type or dev.index not in (None, grid.device.index):
         raise ValueError(f"make_model(device={device!r}) but the grid lies on "
                          f"{grid.device}")
-    if min(grid.Hx, grid.Hy) < 3:
-        raise ValueError(
-            f"tracer_advection='weno5' consumes 3 halo cells per side but the grid halo "
-            f"is ({grid.Hx}, {grid.Hy}) — rebuild the grid with halo >= 3")
-    # (the biharmonic closures consume 2 halo cells, within WENO-5's 3)
     hx_ext = max(free_surface.required_y_halo, grid.Hx)
     hy_ext = max(free_surface.required_y_halo, grid.Hy)
     grid_ext = with_halo(grid, (hx_ext, hy_ext, grid.Hz))
@@ -303,7 +312,9 @@ def make_model(
         kappa = [kappa_h * _ratio(grid.dy_fc, grid.dx_fc) * ib.mask_u,
                  kappa_h * _ratio(grid.dx_cf, grid.dy_cf) * ib.mask_v,
                  _inv(grid.az_cc) * ib.mask_c]
-    options = dict(forcing=tuple(forcing.items()), wind=wind_stress is not None,
+    options = dict(tracer_advection=tracer_advection,
+                   momentum_advection=momentum_advection, tracer_names=tracers,
+                   forcing=tuple(forcing.items()), wind=wind_stress is not None,
                    drag_type=drag_type, drag_coeff=float(drag_coeff), nu_h=float(nu_h),
                    kappa_h=float(kappa_h), nu4_h=float(nu4_h), kappa4_h=float(kappa4_h))
     return HydrostaticModel(
@@ -327,9 +338,6 @@ def from_jax_arrays(arrays: dict, meta: dict, device) -> HydrostaticModel:
     last three planes of its (6-plane) column ``adv_pack`` with κ_h. User forcing
     functions must take tensors. Nothing is regenerated, so a step can be compared
     apart from grid generation."""
-    _check_supported(meta["tracer_advection"], meta["momentum_advection"],
-                     meta["tracer_names"])
-
     def t(key):
         return torch.from_numpy(np.array(arrays[key])).to(device)
 
@@ -363,7 +371,9 @@ def crop_ext(grid: TripolarGrid, grid_ext: TripolarGrid, A):
 def initial_state(model: HydrostaticModel, u=None, v=None, c=None, eta=None) -> State:
     """Initial state from functions of (λ, φ) in degrees, sampled at the staggered
     locations as stored (the reference's ``set!(model, u=uᵢ, ...)``); the halos start
-    at 0 and everything is masked."""
+    at 0 and everything is masked. With several tracers ``c`` is a dict ``{name:
+    fn}`` (missing names start at 0) or a sequence of functions in ``tracer_names``
+    order, and ``State.c`` the (n, Ye, Xe) stack."""
     g = model.grid
     dt, dev = model.dtype, model.device
 
@@ -377,10 +387,31 @@ def initial_state(model: HydrostaticModel, u=None, v=None, c=None, eta=None) -> 
         full[g.interior2d] = out[g.interior2d]
         return torch.as_tensor(full).to(device=dev, dtype=dt)
 
+    names = model.tracer_names
+    if len(names) == 1 and not isinstance(c, (dict, list, tuple)):
+        c_raw = sample(c, g.lam_cc, g.phi_cc)
+    else:
+        if c is None:
+            fns = [None] * len(names)
+        elif isinstance(c, dict):
+            unknown = set(c) - set(names)
+            if unknown:
+                raise ValueError(f"unknown tracer names {sorted(unknown)}; "
+                                 f"model tracers are {names}")
+            fns = [c.get(nm) for nm in names]
+        else:
+            if len(c) != len(names):
+                raise ValueError(f"got {len(c)} tracer initializers for "
+                                 f"{len(names)} tracers {names}")
+            fns = list(c)
+        c_raw = torch.stack([sample(fn, g.lam_cc, g.phi_cc) for fn in fns])
+        if len(names) == 1:
+            c_raw = c_raw[0]
+
     ib = model.ib
     u0 = sample(u, g.lam_fc, g.phi_fc) * ib.mask_u
     v0 = sample(v, g.lam_cf, g.phi_cf) * ib.mask_v
-    c0 = sample(c, g.lam_cc, g.phi_cc) * ib.mask_c
+    c0 = c_raw * ib.mask_c
     eta0 = sample(eta, g.lam_cc, g.phi_cc) * ib.mask_c
     ge = model.grid_ext
     zero = torch.zeros(g.shape2d, dtype=dt, device=dev)
@@ -414,18 +445,50 @@ class ForcingFields(NamedTuple):
     b: Any = None
 
 
+def centered_momentum(model: HydrostaticModel, u, v):
+    """G_u, G_v of the vector-invariant momentum with the vorticity interpolated
+    centered (``momentum_advection="vector_invariant"``; ``hydrostatic.py:670-690``
+    and ``layered.py:672-689`` of the JAX package), before the mask; halo-filled u
+    and v, one layer or a stack."""
+    g = model.grid
+    zeta = vorticity(model, u, v)
+    q = zeta + model.f_ff if model.coriolis else zeta
+    v_hat = ixf(iyc(g.dx_cf * v)) * model.inv_dx_fc
+    ke = 0.5 * (ixc(u * u) + iyc(v * v))
+    Gu = iyc(q) * v_hat - dxf(ke) * model.inv_dx_fc
+    u_hat = iyf(ixc(g.dy_fc * u)) * model.inv_dy_cf
+    Gv = -ixc(q) * u_hat - dyf(ke) * model.inv_dy_cf
+    return Gu, Gv
+
+
 def tendencies(model: HydrostaticModel, u, v, c, t=0.0):
-    """G_u, G_v (vector-invariant, no surface-pressure term) and G_c (flux-form
-    WENO-5) of halo-filled fields, with the closures, wind, drag and forcing in the
-    order of the JAX kernel path (``hydrostatic.py:655-757``): the kernels carry the
-    advection, the mask, ν_h, quadratic drag and κ_h; wind, linear drag, the
-    biharmonic terms and the forcing follow in torch. ``t`` is the model time handed
-    to the forcing functions."""
+    """G_u, G_v (vector-invariant, no surface-pressure term) and G_c (flux form, one
+    plane or the stack of ``c``) of halo-filled fields, with the closures, wind, drag
+    and forcing in the order of the JAX package's kernel path
+    (``hydrostatic.py:643-757``): the momentum kernel (with the upwinded WENO
+    vorticity) carries the advection, the mask, ν_h and quadratic drag, the tracer
+    kernel (WENO-5) the advection of every plane and κ_h; the centered momentum, the
+    other tracer schemes and the closures those kernels do not carry, wind, linear
+    drag, the biharmonic terms and the forcing (a tracer's into its own plane) follow
+    in torch. ``t`` is the model time handed to the forcing functions."""
     g, ib = model.grid, model.ib
-    Gu, Gv = momentum.momentum(u, v, model.mom_pack, lay=model.mom_lay,
-                               has_lap=model.nu_h > 0.0,
-                               has_drag=model.drag_type == "quadratic")
-    Gc = tracer_adv.tracer_adv(c, u, v, model.adv_pack)
+    mom_kernel = model.momentum_advection == "weno_vector_invariant"
+    adv_kernel = model.tracer_advection == "weno5"
+    if mom_kernel:
+        Gu, Gv = momentum.momentum(u, v, model.mom_pack, lay=model.mom_lay,
+                                   has_lap=model.nu_h > 0.0,
+                                   has_drag=model.drag_type == "quadratic")
+    else:
+        Gu, Gv = centered_momentum(model, u, v)
+        Gu, Gv = Gu * ib.mask_u, Gv * ib.mask_v
+    if adv_kernel:
+        Gc = tracer_adv.tracer_adv(c, u, v, model.adv_pack)
+    else:
+        cx = tracer_faces(c, u, axis=-1, scheme=model.tracer_advection)
+        cy = tracer_faces(c, v, axis=-2, scheme=model.tracer_advection)
+        fx = u * ib.h_u * g.dy_fc * cx
+        fy = v * ib.h_v * g.dx_cf * cy
+        Gc = -(dxc(fx) + dyc(fy)) * model.inv_vol_c
     # surface stress and bottom drag act on the whole column: force / h
     if model.wind:
         Gu = Gu + model.taux * model.inv_h_u
@@ -433,6 +496,16 @@ def tendencies(model: HydrostaticModel, u, v, c, t=0.0):
     if model.drag_type == "linear":
         Gu = Gu - model.drag_coeff * u * model.inv_h_u * ib.mask_u
         Gv = Gv - model.drag_coeff * v * model.inv_h_v * ib.mask_v
+    elif model.drag_type == "quadratic" and not mom_kernel:
+        sp_u = torch.sqrt(u * u + ixf(iyc(v)) ** 2)
+        sp_v = torch.sqrt(v * v + iyf(ixc(u)) ** 2)
+        Gu = Gu - model.drag_coeff * sp_u * u * model.inv_h_u * ib.mask_u
+        Gv = Gv - model.drag_coeff * sp_v * v * model.inv_h_v * ib.mask_v
+    if model.nu_h > 0.0 and not mom_kernel:
+        Gu = Gu + model.nu_h * laplacian_u(g, u, ib.mask_u, ib.mask_c)
+        Gv = Gv + model.nu_h * laplacian_v(g, v, ib.mask_v, ib.mask_c)
+    if model.kappa_h > 0.0 and not adv_kernel:
+        Gc = Gc + model.kappa_h * laplacian_c(g, c, ib.mask_c, ib.mask_u, ib.mask_v)
     if model.nu4_h > 0.0:
         Gu = Gu - model.nu4_h * biharmonic_u(g, u, ib.mask_u, ib.mask_c)
         Gv = Gv - model.nu4_h * biharmonic_v(g, v, ib.mask_v, ib.mask_c)
@@ -445,8 +518,11 @@ def tendencies(model: HydrostaticModel, u, v, c, t=0.0):
                 Gu = Gu + fn(g.lam_fc, g.phi_fc, t, fields) * ib.mask_u
             elif name == "v":
                 Gv = Gv + fn(g.lam_cf, g.phi_cf, t, fields) * ib.mask_v
-            else:
+            elif c.dim() == 2:
                 Gc = Gc + fn(g.lam_cc, g.phi_cc, t, fields) * ib.mask_c
+            else:  # Gc is a fresh tensor
+                Gc[model.tracer_names.index(name)] += fn(g.lam_cc, g.phi_cc, t,
+                                                         fields) * ib.mask_c
     return Gu, Gv, Gc
 
 
@@ -494,10 +570,14 @@ def strip_views(model, two_d):
 
 def overlap_radius(model) -> int:
     """The horizontal stencil radius of one tendency evaluation (the rows or columns
-    a tendency at a cell reads beyond it): 3 for the WENO-5 tracer faces and the
-    WENO-5 vorticity reconstruction of the momentum, the port's only schemes; the
-    closures (biharmonic: 2) and the vertical terms (column-local) reach less."""
-    return 3
+    a tendency at a cell reads beyond it; ``hydrostatic.py:788-800`` of the JAX
+    package): the tracer scheme's ``SCHEME_RADIUS`` (a flux divergence reads no
+    further than its faces' reconstruction), or the momentum's, 3 for the WENO-5
+    vorticity reconstruction of radius-1 curls and 2 for the centered one, whichever
+    is larger; the closures (biharmonic: 2) and the vertical terms (column-local)
+    reach no further."""
+    r_mom = 3 if model.momentum_advection == "weno_vector_invariant" else 2
+    return max(r_mom, SCHEME_RADIUS[model.tracer_advection])
 
 
 def overlap_supported(model, grid) -> bool:

@@ -5,17 +5,20 @@ Counterpart: ``orthogonalsphericalshellgrids_tpu/models/layered.py``
 ``layered_initial_state``, the vertical operators, ``layered_tendencies``,
 ``layered_step``, ``layered_multi_step``, ``layered_cfl_dt``) on its kernel path:
 
-- per-layer vector-invariant momentum with WENO-5 upwinded vorticity and flux-form
-  WENO-5 tracer advection (the single-layer stencils over a leading layer axis),
+- per-layer vector-invariant momentum with WENO-5 upwinded vorticity (the momentum
+  kernel) or centered vorticity (plain PyTorch), and flux-form tracer advection:
+  WENO-5 in the tracer kernel, or the other ``ops/advection.py:TRACER_SCHEMES`` in
+  plain PyTorch (the single-layer stencils over a leading layer axis),
 - every layer-coupled term in one column pass (``kernels/vertical.py``): w from
   continuity, its advection of u and v, the Centered vertical tracer flux, the
   explicit ν_v and κ_v Laplacians, and the hydrostatic pressure gradient of a
   prognostic buoyancy tracer ``b`` or of the linear equation of state in T and S,
 - optionally a backward-Euler vertical solve of ν_v and κ_v (``_implicit_vertical_solve``),
-- the closures ν_h (fused into the momentum kernel) and κ_h (fused into the tracer
-  kernel) with per-layer masks, ν4_h and κ4_h (biharmonic, plain PyTorch), wind
-  stress on the surface layer, linear or quadratic bottom drag on the deepest wet
-  layer (quadratic fused into the momentum kernel) and user forcing per layer,
+- the closures ν_h (fused into the momentum kernel, else ``ops/closures.py``) and
+  κ_h (fused into the tracer kernel, likewise) with per-layer masks, ν4_h and κ4_h
+  (biharmonic, plain PyTorch), wind stress on the surface layer, linear or
+  quadratic bottom drag on the deepest wet layer (quadratic fused into the momentum
+  kernel) and user forcing per layer,
 - the single-layer model's split-explicit barotropic engine, driven by the
   thickness-weighted baroclinic forcing, then the AB2 predictor, the corrector that
   replaces each column's depth-mean velocity by the subcycle average, and the
@@ -58,13 +61,16 @@ from torch import nn
 
 from ..grids.tripolar import TripolarGrid
 from ..kernels import corrector, momentum, tracer_adv, vertical
-from ..ops.closures import _ratio, biharmonic_c, biharmonic_u, biharmonic_v
+from ..ops.advection import tracer_faces
+from ..ops.closures import (_ratio, biharmonic_c, biharmonic_u, biharmonic_v,
+                            laplacian_c, laplacian_u, laplacian_v)
 from ..ops.location import CC, CF, FC
-from ..ops.operators import dxc, dyc
+from ..ops.operators import dxc, dyc, ixc, ixf, iyc, iyf
 from ..ops.spmd import GroupFill
 from .hydrostatic import (ForcingFields, HydrostaticModel, _forcing_ext, _inv,
-                          _resolve_overlap, barotropic_substeps, crop_ext, embed_ext,
-                          from_jax_arrays, make_model, split_tendencies)
+                          _resolve_overlap, barotropic_substeps, centered_momentum,
+                          crop_ext, embed_ext, from_jax_arrays, make_model,
+                          split_tendencies)
 from .split_explicit import SplitExplicitFreeSurface
 
 __all__ = ["LayeredState", "LayeredModel", "make_layered_model", "layered_from_jax_arrays",
@@ -161,17 +167,30 @@ class LayeredModel(nn.Module):
             self.kappa_v if explicit else 0.0)))
 
     @property
+    def mom_kernel(self) -> bool:
+        """True when the momentum kernel runs (the upwinded WENO vorticity); the
+        centered vorticity is plain PyTorch."""
+        return self.baro.momentum_advection == "weno_vector_invariant"
+
+    @property
+    def adv_kernel(self) -> bool:
+        """True when the tracer kernel runs (WENO-5); the other schemes are plain
+        PyTorch."""
+        return self.baro.tracer_advection == "weno5"
+
+    @property
     def fold_mask_out(self) -> bool:
-        """True when nothing lands on Gu/Gv between the momentum kernel and the
-        closing mask but the pre-masked wind (no ν4_h, no linear drag), so that the
-        kernel applies the mask (``mask_out``)."""
-        return self.baro.nu4_h == 0.0 and self.baro.drag_type != "linear"
+        """True when the momentum kernel runs and nothing lands on Gu/Gv between it
+        and the closing mask but the pre-masked wind (no ν4_h, no linear drag), so
+        that the kernel applies the mask (``mask_out``)."""
+        return (self.mom_kernel and self.baro.nu4_h == 0.0
+                and self.baro.drag_type != "linear")
 
     @property
     def fold_tracer_acc(self) -> bool:
-        """True when no term lies between the tracer kernel's κ_h and the vertical
-        kernel's dGc (no κ4_h), so that the kernel adds dGc (``acc``)."""
-        return self.baro.kappa4_h == 0.0
+        """True when the tracer kernel runs and no term lies between its κ_h and the
+        vertical kernel's dGc (no κ4_h), so that the kernel adds dGc (``acc``)."""
+        return self.adv_kernel and self.baro.kappa4_h == 0.0
 
     @property
     def has_b(self) -> bool:
@@ -588,7 +607,10 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
     kernel, wind on layer 0, linear drag, −ν4_h·∇⁴u, the mask (in the kernel, the
     wind pre-masked, where ``fold_mask_out`` holds); the tracer kernel (advection and
     κ_h) on c and b, −κ4_h·∇⁴c, plus dGc (in the kernel where ``fold_tracer_acc``
-    holds); then the user forcing. ``b`` is ignored (and Gb is zeros) without a
+    holds); then the user forcing. With the centered momentum the vorticity terms
+    are plain PyTorch plus dGu, and quadratic drag and ν_h follow in torch before
+    ν4_h (``layered.py:663-723``); with another tracer scheme the faces, κ_h and κ4_h
+    are plain PyTorch and dGc is added after them (``layered.py:801-840``). ``b`` is ignored (and Gb is zeros) without a
     prognostic buoyancy; ``t`` is the model time handed to the forcing functions."""
     g, m = model.grid, model.baro
     names = model.tracer_names
@@ -601,11 +623,15 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
         it_T=names.index("T") if eos and "T" in names else -1,
         it_S=names.index("S") if eos and "S" in names else -1,
         viscous=explicit and model.nu_v > 0.0, diffusive=explicit and model.kappa_v > 0.0)
-    fold_mask = model.fold_mask_out
-    Gu, Gv = momentum.momentum(u, v, model.mom_static, has_mask=False, lay=model.mom_lay,
-                               has_lap=m.nu_h > 0.0, has_drag=m.drag_type == "quadratic",
-                               acc=(dgu, dgv),
-                               mask_out=(model.mask_u3, model.mask_v3) if fold_mask else None)
+    fold_mask, mom_kernel = model.fold_mask_out, model.mom_kernel
+    if mom_kernel:
+        Gu, Gv = momentum.momentum(
+            u, v, model.mom_static, has_mask=False, lay=model.mom_lay,
+            has_lap=m.nu_h > 0.0, has_drag=m.drag_type == "quadratic", acc=(dgu, dgv),
+            mask_out=(model.mask_u3, model.mask_v3) if fold_mask else None)
+    else:  # the centered vorticity, then dGu
+        Gu, Gv = centered_momentum(m, u, v)
+        Gu, Gv = Gu + dgu, Gv + dgv
     if m.wind:  # surface stress accelerates the top layer (Gu is a fresh tensor)
         Gu[0] += model.wind_u
         Gv[0] += model.wind_v
@@ -613,6 +639,15 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
         r_dz = torch.full_like(model.dz3, m.drag_coeff) / model.dz3
         Gu = Gu - r_dz * u * model.bot_u
         Gv = Gv - r_dz * v * model.bot_v
+    elif m.drag_type == "quadratic" and not mom_kernel:
+        cd_dz = torch.full_like(model.dz3, m.drag_coeff) / model.dz3
+        sp_u = torch.sqrt(u * u + ixf(iyc(v)) ** 2)
+        sp_v = torch.sqrt(v * v + iyf(ixc(u)) ** 2)
+        Gu = Gu - cd_dz * sp_u * u * model.bot_u
+        Gv = Gv - cd_dz * sp_v * v * model.bot_v
+    if m.nu_h > 0.0 and not mom_kernel:
+        Gu = Gu + m.nu_h * laplacian_u(g, u, model.mask_u3, model.mask_c3)
+        Gv = Gv + m.nu_h * laplacian_v(g, v, model.mask_v3, model.mask_c3)
     if m.nu4_h > 0.0:
         Gu = Gu - m.nu4_h * biharmonic_u(g, u, model.mask_u3, model.mask_c3)
         Gv = Gv - m.nu4_h * biharmonic_v(g, v, model.mask_v3, model.mask_c3)
@@ -622,16 +657,30 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
 
     g_pack = model.vert_g[3:5]  # [dy_fc, dx_cf]
     fold_acc = model.fold_tracer_acc
+    if not model.adv_kernel:
+        inv_vol = model.mask_c3 * _inv(g.az_cc * model.dz3)
 
     def tracer_tendency(q, dg):
-        if fold_acc:  # no κ4_h: dGc rides in the kernel
+        if fold_acc:  # WENO-5 without κ4_h: dGc rides in the kernel
             return tracer_adv.tracer_adv(q, u, v, model.adv_pack, g_pack, model.dz_t,
                                          acc=dg)
-        G = tracer_adv.tracer_adv(q, u, v, model.adv_pack, g_pack, model.dz_t)
-        q4 = q.reshape((-1, model.nz) + q.shape[-2:])
-        G = G - m.kappa4_h * biharmonic_c(g, q4, model.mask_c3, model.mask_u3,
-                                          model.mask_v3).reshape(q.shape)
-        return G + dg
+        q4 = q.reshape((-1, model.nz) + q.shape[-2:])  # (n, Nz, Yb, Xb)
+        if model.adv_kernel:
+            G = tracer_adv.tracer_adv(q, u, v, model.adv_pack, g_pack,
+                                      model.dz_t).reshape(q4.shape)
+        else:
+            cx = tracer_faces(q4, u, axis=-1, scheme=m.tracer_advection)
+            cy = tracer_faces(q4, v, axis=-2, scheme=m.tracer_advection)
+            fx = u * model.dzu * g.dy_fc * cx
+            fy = v * model.dzv * g.dx_cf * cy
+            G = -(dxc(fx) + dyc(fy)) * inv_vol
+            if m.kappa_h > 0.0:
+                G = G + m.kappa_h * laplacian_c(g, q4, model.mask_c3, model.mask_u3,
+                                                model.mask_v3)
+        if m.kappa4_h > 0.0:
+            G = G - m.kappa4_h * biharmonic_c(g, q4, model.mask_c3, model.mask_u3,
+                                              model.mask_v3)
+        return G.reshape(q.shape) + dg
 
     ncp = c.shape[0]
     Gc = tracer_tendency(c, dgc[:ncp])

@@ -66,17 +66,23 @@ def test_plan_tiles_cover_the_plane(dtype, shape):
 def test_plan_fits_shared_memory(dtype):
     """Every mode fits one block's shared memory, and four CTAs an SM at float32 (the
     register budget of csrc/tracer_adv.cu:Tile); layered mode double-buffers what a
-    plane and a layer copy, and κ_h and acc each take their own planes."""
+    plane and a layer copy, the P-plane column mode what a plane copies (the window
+    and acc), and κ_h and acc each take their own planes."""
     plan = tracer_adv.launch_plan(*MAIN, dtype)
     sm = plan.smem_bytes
-    assert len(sm) == 8 and max(sm.values()) <= SMEM_PER_BLOCK and plan.threads <= 1024
+    assert len(sm) == 12 and max(sm.values()) <= SMEM_PER_BLOCK and plan.threads <= 1024
     if dtype == torch.float32:
         assert 4 * (max(sm.values()) + 1024) <= SMEM_PER_SM
+    item = torch.empty((), dtype=dtype).element_size()
+    window, cells = 22 * 38, 16 * 32
     for kappa in (False, True):
         for acc in (False, True):
-            assert sm[True, kappa, acc] > sm[False, kappa, acc]
-            assert sm[True, True, acc] > sm[True, False, acc]
-            assert sm[True, kappa, True] > sm[True, kappa, False]
+            assert sm["layered", kappa, acc] > sm["column", kappa, acc]
+            assert sm["layered", kappa, acc] > sm["planes", kappa, acc]
+            assert (sm["planes", kappa, acc] - sm["column", kappa, acc]
+                    == (window + (cells if acc else 0)) * item)
+            assert sm["layered", True, acc] > sm["layered", False, acc]
+            assert sm["layered", kappa, True] > sm["layered", kappa, False]
 
 
 # ------------------------------------------------------------------------------------
@@ -157,9 +163,9 @@ def replay(c, u, v, static, plan, g_pack=None, dz=None, acc=None):
         c3, u3, v3 = c, u, v
         lp = static.reshape(nz, S, Yb, Xb)
         diff = S == 4
-    else:
+    else:  # one plane, or a column stack of P planes over one (u, v) pair
         nz = 1
-        c3, u3, v3 = c[None], u[None], v[None]
+        c3, u3, v3 = (c if c.dim() == 3 else c[None]), u[None], v[None]
         lp = static[None, 4:]
         diff = static.shape[0] == 8
     n_blocks = c3.shape[0] // nz
@@ -230,13 +236,14 @@ def replay(c, u, v, static, plan, g_pack=None, dz=None, acc=None):
                         out = out + cell(acc3[plane])
                     G[plane, y0:y0 + ny, x0:x0 + nx] = torch.where(edge, zero, out[:ny, :nx])
                     writes[plane, y0:y0 + ny, x0:x0 + nx] += 1
-    return (G, writes) if layered else (G[0], writes[0])
+    return (G, writes) if c.dim() == 3 else (G[0], writes[0])
 
 
 def _inputs(mode, n_tr, kappa, Yb, Xb, seed, nz=3):
     """(args, acc) of one tracer call at float64: column mode with the 5- or 8-plane
-    pack, or layered mode over masked velocities with S = 1 or 4; the κ_h term and
-    acc drawn at 1e-1 to 1 of the tendency."""
+    pack (``planes``: a stack of ``n_tr`` tracer planes, some rows exactly 0), or
+    layered mode over masked velocities with S = 1 or 4; the κ_h term and acc drawn
+    at 1e-1 to 1 of the tendency."""
     r = np.random.default_rng(seed)
 
     def t(a):
@@ -249,6 +256,15 @@ def _inputs(mode, n_tr, kappa, Yb, Xb, seed, nz=3):
             st[7] *= 0.1
         args = (t(c), t(u), t(v), t(st))
         shape = (Yb, Xb)
+    elif mode == "planes":
+        u, v = r.standard_normal((2, Yb, Xb))
+        c = r.standard_normal((n_tr, Yb, Xb))
+        c[1:, : Yb // 3] = 0.0
+        st = 1.0 + r.random((8 if kappa else 5, Yb, Xb))
+        if kappa:
+            st[7] *= 0.1
+        args = (t(c), t(u), t(v), t(st))
+        shape = c.shape
     else:
         mask = (r.random((nz, Yb, Xb)) > 0.2).astype(np.float64)
         u = r.standard_normal((nz, Yb, Xb)) * mask
@@ -264,8 +280,9 @@ def _inputs(mode, n_tr, kappa, Yb, Xb, seed, nz=3):
     return args, t(0.5 * r.standard_normal(shape))
 
 
-MODES = [("column", 1, False), ("column", 1, True), ("layered", 1, False),
-         ("layered", 2, False), ("layered", 1, True), ("layered", 2, True)]
+MODES = [("column", 1, False), ("column", 1, True), ("planes", 3, False),
+         ("planes", 2, True), ("layered", 1, False), ("layered", 2, False),
+         ("layered", 1, True), ("layered", 2, True)]
 
 
 @pytest.mark.parametrize("mode,n_tr,kappa", MODES)
@@ -291,7 +308,8 @@ def test_tiled_replay_matches_plain(mode, n_tr, kappa, with_acc, Yb, Xb):
     assert (G[..., edge] == 0).all()
 
 
-@pytest.mark.parametrize("mode,n_tr,kappa", [("column", 1, True), ("layered", 2, True)])
+@pytest.mark.parametrize("mode,n_tr,kappa", [("column", 1, True), ("planes", 3, True),
+                                           ("layered", 2, True)])
 def test_tiled_replay_independent_of_the_tile(mode, n_tr, kappa):
     """Two tiles (the float64 one and 8 x 64, so other tile edges and other windows)
     give the same bits everywhere: each face is reconstructed from the same cells."""
@@ -299,6 +317,22 @@ def test_tiled_replay_independent_of_the_tile(mode, n_tr, kappa):
     a = replay(*args[:4], tracer_adv.launch_plan(41, 97, torch.float64), *args[4:], acc=acc)
     b = replay(*args[:4], tracer_adv._plan(41, 97, (8, 64), 8), *args[4:], acc=acc)
     assert torch.equal(a[0], b[0])
+
+
+@pytest.mark.parametrize("n_tr", [2, 3])
+@pytest.mark.parametrize("kappa", [False, True])
+def test_tiled_replay_planes_are_one_plane_launches(n_tr, kappa):
+    """Plane p of a P-plane column launch is the one-plane launch on plane p, bit for
+    bit, with acc and without (the kernel's hard limit: each plane's arithmetic is the
+    one-plane launch's)."""
+    args, acc = _inputs("planes", n_tr, kappa, 41, 97, seed=11 + n_tr)
+    c, u, v, st = args
+    plan = tracer_adv.launch_plan(41, 97, torch.float64)
+    for a in (None, acc):
+        G = replay(c, u, v, st, plan, acc=a)[0]
+        for p in range(n_tr):
+            one = replay(c[p], u, v, st, plan, acc=None if a is None else a[p])[0]
+            assert torch.equal(G[p], one)
 
 
 def test_tiled_replay_matches_pallas():

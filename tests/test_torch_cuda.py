@@ -537,6 +537,69 @@ def test_cuda_momentum_operands(dtype, nz, has_lap, has_drag, operands, Yb, Xb):
 
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P", [2, 3])
+@pytest.mark.parametrize("kappa", [False, True])
+@pytest.mark.parametrize("with_acc", [False, True])
+@pytest.mark.parametrize("Yb,Xb", [(40, 52), (37, 131)])
+def test_cuda_tracer_adv_planes(dtype, P, kappa, with_acc, Yb, Xb):
+    """The column mode over P planes (one launch, counted as ``tracer_adv_planes``)
+    against its plain version, and each plane bitwise equal to a one-plane launch
+    on it (some rows of the later planes exactly 0, as on land)."""
+    r = np.random.default_rng(P + 2 * kappa + 4 * with_acc)
+    c = r.standard_normal((P, Yb, Xb))
+    c[1:, : Yb // 3] = 0.0
+    u, v = r.standard_normal((2, Yb, Xb))
+    static = 1.0 + r.random((8 if kappa else 5, Yb, Xb))
+    c, u, v, static = (torch.as_tensor(a, dtype=dtype, device="cuda")
+                       for a in (c, u, v, static))
+    acc = (torch.as_tensor(0.5 * r.standard_normal((P, Yb, Xb)), dtype=dtype,
+                           device="cuda") if with_acc else None)
+    R = tracer_adv.REACH
+    kernels.reset_launch_counts()
+    got = tracer_adv.tracer_adv(c, u, v, static, acc=acc)
+    counts = kernels.launch_counts()
+    assert counts["tracer_adv_planes"] == 1 and sum(counts.values()) == 1
+    want = tracer_adv.tracer_adv_plain(c, u, v, static, acc=acc)
+    assert _rel_err(got, want, (slice(R, -R), slice(R, -R))) <= BANDS[dtype]
+    assert torch.isfinite(got).all() and _edge_zero(got, R)
+    for p in range(P):
+        one = tracer_adv.tracer_adv(c[p].contiguous(), u, v, static,
+                                    acc=None if acc is None else acc[p].contiguous())
+        assert torch.equal(got[p], one), f"plane {p}"
+
+
+@needs_cuda
+def test_cuda_tracer_adv_entry_refuses():
+    """The column entry refuses a plan made for another tile and n_planes < 1, and
+    writes nothing; the wrapper refuses a pack of any size but 5 or 8 and an empty
+    stack before any launch."""
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import call
+
+    c, u, v, static = _adv_inputs(torch.float32)
+    c3 = torch.stack([c, 2.0 * c])
+    G = torch.full_like(c3, 7.0)
+    Yb, Xb = c.shape
+    TY, TX = tracer_adv.launch_plan(Yb, Xb, torch.float32).tile
+    for n_planes, tile in ((2, (TY // 2, TX)), (2, (TY, 2 * TX)), (0, (TY, TX)),
+                           (-1, (TY, TX))):
+        with pytest.raises(RuntimeError):
+            call("osg_tracer_adv", torch.float32, c.device, c3.data_ptr(), u.data_ptr(),
+                 v.data_ptr(), static.data_ptr(), None, G.data_ptr(), n_planes, Yb, Xb,
+                 0, *tile)
+    torch.cuda.synchronize()
+    assert (G == 7.0).all()
+    kernels.reset_launch_counts()
+    for bad in (static[:4], torch.cat([static, static[:1]]),
+                torch.cat([static, static[:2]])):
+        with pytest.raises(ValueError, match="column pack"):
+            tracer_adv.tracer_adv(c3, u, v, bad.contiguous())
+    with pytest.raises(ValueError, match="P >= 1"):
+        tracer_adv.tracer_adv(c3[:0], u, v, static)
+    assert sum(kernels.launch_counts().values()) == 0
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("nz,n_tr,kappa", [(0, 1, False), (0, 1, True), (4, 1, False),
                                            (4, 2, True), (50, 1, True)])
 def test_cuda_tracer_adv_acc(dtype, nz, n_tr, kappa):

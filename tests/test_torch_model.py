@@ -161,12 +161,26 @@ def test_bickley_oracle_through_port():
     np.testing.assert_allclose(cvar, cvar_ref, rtol=1e-10)
 
 
-@pytest.mark.parametrize("kw", [dict(tracers=("T", "S")), dict(tracer_advection="weno7"),
-                                dict(momentum_advection="vector_invariant")])
-def test_deferred_model_options_raise(kw):
+@pytest.mark.parametrize("halo,kw,match", [
+    (5, dict(tracer_advection="weno9"), "unknown tracer_advection"),
+    (5, dict(tracers=("T", "T")), "unique"),
+    (3, dict(tracer_advection="weno7"), "halo"),
+    (5, dict(tracers=()), "non-empty"),
+    (1, dict(tracer_advection="centered", nu4_h=1e3), "biharmonic"),
+    (5, dict(tracers=("T", "S"), forcing={"c": lambda *a: 0.0}), "forcing targets"),
+])
+def test_model_options_refused_like_jax(halo, kw, match):
+    """The port's make_model refuses what the JAX package's refuses, with the same
+    exception type and message."""
+    import orthogonalsphericalshellgrids_tpu as osg
+    from orthogonalsphericalshellgrids_tpu.models import SplitExplicitFreeSurface as JFS
     from orthogonalsphericalshellgrids_tpu_torch import TripolarGrid
     from orthogonalsphericalshellgrids_tpu_torch.models import SplitExplicitFreeSurface
 
-    grid = TripolarGrid.make((16, 12, 1), halo=(5, 5, 5), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    grid = TripolarGrid.make((16, 12, 1), halo=(halo,) * 3, device="cpu")
+    with pytest.raises(ValueError, match=match) as got:
         TH.make_model(grid, SplitExplicitFreeSurface(substeps=12), device="cpu", **kw)
+    jgrid = osg.TripolarGrid.make((16, 12, 1), halo=(halo,) * 3)
+    with pytest.raises(ValueError, match=match) as want:
+        JH.make_model(jgrid, JFS(substeps=12), **kw)
+    assert str(got.value) == str(want.value)
