@@ -100,6 +100,25 @@ Phase 14 the model options on phase 3's grid: (a) the tracer kernel's column mod
          (d) WENO-7 on 4 y-shards and on 2 x 2 blocks through LocalExchange, 3
          steps, split and unsplit, bitwise equal to each other and to serial, and the
          two-tracer jet on 4 y-shards bitwise equal to serial.
+Phase 15 ensembles (models/ensemble.py): (a) the barotropic kernel over B = 4
+         members of (724, 1484) with the wrap on and off, and the tracer kernel's
+         member mode over 4 members of one tracer and 2 of two on (690, 1450), with
+         and without kappa_h and acc, at float32 and float64: within the bands of
+         their plain versions, each member bitwise its one-member launch; timed at
+         float32 with the host ahead beside 4 one-member launches; (b) phase 3's jet
+         as 4 members (the base state times 0.5, 0.75, 1.0, 1.25), 20 steps after 3
+         warm-up: the launches of one serial step a step (tracer_adv_members in place
+         of tracer_adv), each member bitwise its serial run; ms/step as run and with
+         the host ahead, device busy and idle share, beside the serial step and 4 x
+         phase 3's; (c) two members of two tracers, one step apart, 3 steps, bitwise
+         per plane.
+Phase 16 the grid options: (a) the 1/4-degree grid built on the host with the
+         numpy and the native backends and by "auto" (host seconds, the largest
+         difference per array within tests/test_native.py's bands, "auto" through
+         the native kernels); (b) the jet on the equatorially refined 1/4-degree grid
+         (the law of tests/test_tripolar_grid.py:238 in torch, rows by the Newton
+         solve), 10 steps through the kernels: finite, the extended grid carrying
+         the law.
 
 Phase 2 holds the halo fills first: the group fill with save, the group fill without
 save and the group restore against their plain versions, bitwise at float32 and
@@ -192,6 +211,9 @@ REPLACES = {
     "tracer_adv_kappa": "orthogonalsphericalshellgrids_tpu/ops/pallas_adv.py:258",
     # the column mode over a stack of tracers (models/hydrostatic.py:689-696, phase 14)
     "tracer_adv_planes": "orthogonalsphericalshellgrids_tpu/ops/pallas_adv.py:258",
+    # the column mode over the planes of an ensemble's members, each over its own
+    # (u, v): the batching rule of pallas_call under jax.vmap(step) (phase 15)
+    "tracer_adv_members": "orthogonalsphericalshellgrids_tpu/ops/pallas_adv.py:258",
     "corrector": "orthogonalsphericalshellgrids_tpu/ops/pallas_corr.py:83",
     "baro_substep_sol": "benchmarks/roofline.py:121",
     "weno_probe": "benchmarks/weno_sol.py:167",
@@ -205,7 +227,8 @@ SOURCE_FILE = {"halo_restore": "halo_fill", "halo_fill_copy": "halo_fill",
                "halo_pack_block": "halo_fill",
                "momentum_layered": "momentum", "tracer_adv_layered": "tracer_adv",
                "momentum_closures": "momentum", "tracer_adv_kappa": "tracer_adv",
-               "tracer_adv_planes": "tracer_adv", "baro_substep_sol": "probes", "weno_probe": "probes", "stream_probe": "probes",
+               "tracer_adv_planes": "tracer_adv", "tracer_adv_members": "tracer_adv",
+               "baro_substep_sol": "probes", "weno_probe": "probes", "stream_probe": "probes",
                "fma_ceiling": "probes"}
 SOURCES = {name: "orthogonalsphericalshellgrids_tpu_torch/csrc/{}.cu".format(
     SOURCE_FILE.get(name, name)) for name in REPLACES}
@@ -232,6 +255,9 @@ SPLIT_BICKLEY = ("momentum", "tracer_adv")
 SPLIT_GYRE = ("vertical", "momentum_closures", "tracer_adv_kappa")
 # the kernels the two-tracer Bickley jet launches (phase 14b)
 PLANES = ("halo_fill", "halo_restore", "barotropic", "momentum", "tracer_adv_planes")
+# the kernels an ensemble of the Bickley jet launches (phase 15), and its members
+ENSEMBLE = ("halo_fill", "halo_restore", "barotropic", "momentum", "tracer_adv_members")
+ENSEMBLE_SCALES = (0.5, 0.75, 1.0, 1.25)
 # the single-layer options that run outside the kernels (phase 14c), and the kernel
 # each leaves in the step
 OPTIONS = {"weno7": dict(tracer_advection="weno7"),
@@ -290,7 +316,7 @@ FLOPS = {"halo_fill": 1, "halo_restore": 0, "halo_fill_copy": 1, "halo_fill_shar
          "barotropic": 30,
          "momentum": 300, "momentum_layered": 304, "momentum_closures": 344,
          "tracer_adv": 160, "tracer_adv_layered": 160, "tracer_adv_kappa": 172,
-         "tracer_adv_planes": 160,
+         "tracer_adv_planes": 160, "tracer_adv_members": 160,
          "vertical": 40, "corrector": 8}
 
 
@@ -2528,6 +2554,340 @@ def phase14_options(card, bmodel, bstate0, bickley_ms, n_steps=20, warm=3,
     return counts
 
 
+def scaled_state(state, s):
+    """``state`` with every field times ``s`` (t and iteration kept), as
+    tests/test_ensemble.py makes its members."""
+    import dataclasses
+
+    from orthogonalsphericalshellgrids_tpu_torch.models import State
+
+    return State(**{f.name: getattr(state, f.name) * s
+                    if f.name not in ("t", "iteration") else getattr(state, f.name)
+                    for f in dataclasses.fields(State)})
+
+
+def phase15a_members(card, B=4):
+    """The barotropic kernel's member axis and the tracer kernel's member mode at the
+    main path's shapes with B members: within the bands of their plain versions at
+    float32 and float64, each member bitwise its one-member launch; timed at float32
+    with the host ahead beside B one-member launches. Returns the kernel-table row of
+    ``tracer_adv_members`` (B = 4, one tracer, the ensemble's call)."""
+    import numpy as np
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch import kernels
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import barotropic, tracer_adv
+    from orthogonalsphericalshellgrids_tpu_torch.models.split_explicit import (
+        averaging_weights)
+
+    row = None
+    for name in ("float32", "float64"):
+        dt = getattr(torch, name)
+        rng = np.random.default_rng(1515)
+
+        def rnd(shape, scale=1.0, lo=None):
+            a = rng.random(shape) + lo if lo is not None else scale * rng.standard_normal(shape)
+            return torch.as_tensor(a, dtype=dt, device="cuda")
+
+        # barotropic: B members on the extended plane, 21 SM05 weights
+        Ye, Xe = FILL_SHAPES["ext"]
+        static = rnd((9, Ye, Xe), lo=0.5)
+        static[7:] = (static[7:] > 0.6).to(dt)
+        dyn = [rnd((B, Ye, Xe), 0.01) for _ in range(3)] + [rnd((B, Ye, Xe), 1e-3)
+                                                            for _ in range(2)]
+        tail = (torch.tensor(0.01, dtype=dt, device="cuda"),
+                torch.as_tensor(averaging_weights(30)[1], dtype=dt, device="cuda"))
+        I = (slice(22, Ye - 22), slice(22, Xe - 22))
+        errs = []
+        for wrap in (False, True):
+            args = (static, *dyn, *tail, 1440, 22, wrap)
+            kernels.reset_launch_counts()
+            got = barotropic.barotropic_substeps(*args)
+            check(kernels.launch_counts()["barotropic"] == 1, "one barotropic call")
+            for g, w in zip(got, barotropic.barotropic_substeps_plain(*args)):
+                ea, er = rel_err(g, w, I)
+                check(er <= BANDS[name] and bool(torch.isfinite(g).all()),
+                      f"barotropic members {name} wrap={wrap}: rel err {er:.3e}")
+                errs.append((ea, er))
+            for b in range(B):
+                one = barotropic.barotropic_substeps(static, *(d[b] for d in dyn), *tail,
+                                                     1440, 22, wrap)
+                for comp, g, o in zip(("eta", "U", "V"), got, one):
+                    check(torch.equal(g[b], o), f"barotropic members {name} wrap={wrap}: "
+                          f"member {b} {comp} bitwise its one-member call")
+        msg = (f"phase 15a: barotropic over B = {B} members of {(Ye, Xe)}, {name}, wrap "
+               f"on and off: max rel err {max(e[1] for e in errs):.3e} (band "
+               f"{BANDS[name]:g}), each member bitwise its one-member call")
+        if name == "float32":
+            args = (static, *dyn, *tail, 1440, 22, False)
+            t_m = time_ms(lambda: barotropic.barotropic_substeps(*args), n=10, ahead=True)
+            t_1 = time_ms(lambda: [barotropic.barotropic_substeps(
+                static, *(d[b] for d in dyn), *tail, 1440, 22, False) for b in range(B)],
+                n=10, ahead=True)
+            t_p = time_ms(lambda: barotropic.barotropic_substeps_plain(*args), n=3)
+            n_sub = tail[1].numel()
+            b_ = bound(nbytes(static, *dyn) + 3 * nbytes(dyn[0]),
+                       FLOPS["barotropic"] * n_sub * dyn[0].numel())
+            msg += (f"; host ahead {t_m:.4f} ms, {B} one-member calls {t_1:.4f} ms, plain "
+                    f"{t_p:.4f} ms; bound {b_[0]:.4f} ms by {b_[1]} ({b_[2]} bytes)")
+        log(msg + f" [{card}]")
+
+        # tracer advection: B members of n tracers on the base plane
+        Yb, Xb = FILL_SHAPES["base"]
+        R = tracer_adv.REACH
+        I = (slice(R, Yb - R), slice(R, Xb - R))
+        st = rnd((8, Yb, Xb), lo=1.0)
+        st[7] *= 0.1
+        for nb, n in ((B, 1), (2, 2)):
+            u, v = rnd((nb, Yb, Xb)), rnd((nb, Yb, Xb))
+            shape = (nb, Yb, Xb) if n == 1 else (nb, n, Yb, Xb)
+            c = rnd(shape)
+            c[1:, ..., : Yb // 3, :] = 0.0  # exact zeros, as on land
+            acc = rnd(shape, 0.5)
+            for kappa in (False, True):
+                pack = st if kappa else st[:5].contiguous()
+                for a in (None, acc):
+                    kernels.reset_launch_counts()
+                    got = tracer_adv.tracer_adv(c, u, v, pack, acc=a)
+                    counts = kernels.launch_counts()
+                    check(counts["tracer_adv_members"] == 1 and sum(counts.values()) == 1,
+                          f"member launch counted once: {counts}")
+                    ea, er = rel_err(got, tracer_adv.tracer_adv_plain(c, u, v, pack, acc=a),
+                                     I)
+                    what = (f"tracer_adv B={nb} n={n} kappa={kappa} acc={a is not None} "
+                            f"{name}")
+                    check(er <= BANDS[name], f"{what}: rel err {er:.3e}")
+                    check(bool(torch.isfinite(got).all()) and edge_zero(got, R),
+                          f"{what}: finite, edge 0")
+                    g4 = got.reshape(nb, n, Yb, Xb)
+                    c4 = c.reshape(nb, n, Yb, Xb)
+                    a4 = None if a is None else a.reshape(nb, n, Yb, Xb)
+                    for b in range(nb):
+                        for t in range(n):
+                            one = tracer_adv.tracer_adv(c4[b, t], u[b], v[b], pack,
+                                                        acc=None if a4 is None else a4[b, t])
+                            check(torch.equal(g4[b, t], one), f"{what}: member {b} plane "
+                                  f"{t} bitwise a one-plane launch")
+                    if name == "float32" and n == 1 and not kappa and a is None:
+                        t_k = time_ms(lambda: tracer_adv.tracer_adv(c, u, v, pack),
+                                      ahead=True)
+                        t_1 = time_ms(lambda: [tracer_adv.tracer_adv(c[b], u[b], v[b], pack)
+                                               for b in range(nb)], ahead=True)
+                        t_p = time_ms(lambda: tracer_adv.tracer_adv_plain(c, u, v, pack),
+                                      n=5)
+                        b_ = bound(nbytes(c, u, v, pack, c),
+                                   FLOPS["tracer_adv_members"] * c.numel())
+                        log(f"phase 15a: tracer_adv_members B={nb} on {tuple(c.shape)} "
+                            f"float32, host ahead: {t_k:.4f} ms; {nb} one-plane launches "
+                            f"{t_1:.4f} ms; plain {t_p:.4f} ms; bound {b_[0]:.4f} ms by "
+                            f"{b_[1]} ({b_[2]} bytes) [{card}]")
+                        row = (ea, t_k, t_p, b_)
+        log(f"phase 15a: tracer_adv over B = {B} members of one tracer and 2 members of "
+            f"two, ({Yb}, {Xb}), {name}, with and without kappa_h and acc: within the band "
+            f"{BANDS[name]:g}, finite, edge cells 0, every plane bitwise a one-plane launch "
+            f"over its member's u and v [{card}]")
+    return {"tracer_adv_members": row}
+
+
+def phase15_ensemble(card, bmodel, bstate0, bickley_ms, n_steps=20, warm=3):
+    """Phase 3's jet as an ensemble of 4 members (the base state times 0.5, 0.75, 1.0
+    and 1.25), 20 steps after 3 warm-up through ensemble_multi_step: the launches of
+    one serial step a step, each member bitwise its own serial run; ms/step as run and
+    with the host ahead, device busy and idle share, beside the serial step; then a
+    two-tracer ensemble of 2 members, bitwise per plane. Returns the launch counts."""
+    import dataclasses
+
+    import torch
+
+    from examples.bickley_jet_torch import bottom_height
+    from orthogonalsphericalshellgrids_tpu_torch import kernels
+    from orthogonalsphericalshellgrids_tpu_torch.models import (
+        SplitExplicitFreeSurface, ensemble, make_model, multi_step, step)
+
+    B = len(ENSEMBLE_SCALES)
+    serial0 = [scaled_state(bstate0, s) for s in ENSEMBLE_SCALES]
+    batch = ensemble.stack_members(serial0)
+    batch = ensemble.ensemble_multi_step(bmodel, batch, 60.0, warm)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    batch = ensemble.ensemble_multi_step(bmodel, batch, 60.0, n_steps)
+    end.record()
+    end.synchronize()
+    counts = kernels.launch_counts()
+    ms = start.elapsed_time(end) / n_steps
+    expected = {k: 0 for k in counts}
+    expected.update(halo_fill=2 * n_steps, halo_restore=n_steps, momentum=n_steps,
+                    tracer_adv_members=n_steps, barotropic=n_steps)
+    check(counts == expected, f"ensemble launch counts {counts} != {expected}")
+    for i, s0 in enumerate(serial0):
+        want = multi_step(bmodel, s0, 60.0, warm + n_steps)
+        got = ensemble.member(batch, i)
+        for name in ("u", "v", "eta", "U", "V", "c", "Gu", "Gv", "Gc", "t", "iteration"):
+            check(torch.equal(getattr(got, name), getattr(want, name)),
+                  f"phase 15b: member {i} {name} bitwise its serial run")
+    check(all(bool(torch.isfinite(getattr(batch, n)).all()) for n in ("u", "v", "c", "eta")),
+          "phase 15b: finite")
+    ms_ahead = time_ms(lambda: ensemble.ensemble_step(bmodel, batch, 60.0), n=10,
+                       ahead=True)
+    serial_ahead = time_ms(lambda: step(bmodel, bstate0, 60.0), n=10, ahead=True)
+    serial_ms = time_ms(lambda: step(bmodel, bstate0, 60.0), n=10)
+
+    def run(s):
+        return ensemble.ensemble_step(bmodel, s, 60.0)
+
+    _, ops, busy, idle = device_busy(run, batch, 5)
+    _, s_ops, s_busy, s_idle = device_busy(lambda s: step(bmodel, s, 60.0), bstate0, 5)
+    log(f"phase 15b: the 1440 x 680 jet as an ensemble of {B} members (scales "
+        f"{ENSEMBLE_SCALES}), {n_steps} steps after {warm} warm-up: {ms:.4f} ms/step as "
+        f"run, {ms_ahead:.4f} with the host ahead; device busy {busy:.4f} ms a step in "
+        f"{ops:.0f} device operations, idle share {idle:.3f}; the serial step in this "
+        f"phase {serial_ms:.4f} as run, {serial_ahead:.4f} host ahead, busy {s_busy:.4f} "
+        f"ms in {s_ops:.0f} operations, idle {s_idle:.3f}; phase 3 {bickley_ms:.4f} ms/step, "
+        f"{B} x that {B * bickley_ms:.4f}; launches {counts}; every member bitwise its "
+        f"serial run (u, v, eta, U, V, c, Gu, Gv, Gc, t, iteration) [{card}]")
+
+    # two tracers, two members one step apart
+    m2 = make_model(bmodel.grid, free_surface=SplitExplicitFreeSurface(substeps=30),
+                    bottom_height=bottom_height(), tracers=("c", "d"), device="cuda")
+    c2 = torch.stack([bstate0.c, bstate0.c * bstate0.c])
+    base2 = dataclasses.replace(bstate0, c=c2, Gc=torch.zeros_like(c2))
+    pair = [base2, step(m2, scaled_state(base2, 0.5), 60.0)]
+    out = ensemble.ensemble_multi_step(m2, ensemble.stack_members(pair), 60.0, 3)
+    for i, s0 in enumerate(pair):
+        want = multi_step(m2, s0, 60.0, 3)
+        got = ensemble.member(out, i)
+        for name in ("u", "v", "eta", "U", "V", "Gu", "Gv", "t", "iteration"):
+            check(torch.equal(getattr(got, name), getattr(want, name)),
+                  f"phase 15c: two-tracer member {i} {name} bitwise")
+        for k in range(2):
+            check(torch.equal(got.c[k], want.c[k]) and torch.equal(got.Gc[k], want.Gc[k]),
+                  f"phase 15c: two-tracer member {i} plane {k} bitwise")
+    log(f"phase 15c: a two-tracer ensemble of 2 members (iterations 0 and 1), 3 steps: "
+        f"each member's flow and each tracer plane bitwise its serial run [{card}]")
+    return counts
+
+
+def equatorial_law(p):
+    """The equatorial refinement of tests/test_tripolar_grid.py:238, on tensors."""
+    import torch
+
+    return 1.0 - 0.5 * torch.exp(-((p / 15.0) ** 2))
+
+
+def bickley_on(grid):
+    """(model, state) of the Bickley jet of examples/bickley_jet_torch.py:build on
+    ``grid`` (its bottom, substeps 30 and initial conditions)."""
+    import numpy as np
+
+    from examples.bickley_jet_torch import bottom_height
+    from orthogonalsphericalshellgrids_tpu_torch.models import (
+        SplitExplicitFreeSurface, initial_state, make_model)
+
+    model = make_model(grid, free_surface=SplitExplicitFreeSurface(substeps=30),
+                       bottom_height=bottom_height(), device=grid.device)
+    eps, ell, k = 0.1, 0.5, 2.5
+
+    def psit(x, y):
+        return np.exp(-((y + ell / 10) ** 2) / (2 * ell**2)) * np.cos(k * x) * np.cos(k * y)
+
+    def ui(lam, phi):
+        x, y = np.deg2rad(lam) * 2, np.deg2rad(phi) * 8
+        return 1.0 / np.cosh(y) ** 2 + eps * psit(x, y) * (k * np.tan(k * y) + y / ell**2)
+
+    def vi(lam, phi):
+        x, y = np.deg2rad(lam) * 2, np.deg2rad(phi) * 4
+        return -eps * psit(x, y) * k * np.tan(k * x)
+
+    def ci(lam, phi):
+        return np.sin(2 * np.pi * np.deg2rad(phi) * 8 / 167.0)
+
+    return model, initial_state(model, u=ui, v=vi, c=ci)
+
+
+def phase16_grids(card, bmodel, n_steps=10):
+    """The grid options at 1/4 degree: the numpy, native and "auto" builds (host
+    seconds, largest difference per array, "auto" through the native kernels); the
+    jet on the equatorially refined grid through the kernels, its extended grid
+    carrying the law."""
+    import numpy as np
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch import TripolarGrid, kernels
+    from orthogonalsphericalshellgrids_tpu_torch.grids import native
+    from orthogonalsphericalshellgrids_tpu_torch.grids import tripolar as tri
+    from orthogonalsphericalshellgrids_tpu_torch.models import multi_step
+
+    kw = dict(halo=(5, 5, 5), first_pole_longitude=45.0, north_poles_latitude=25.0)
+    size = (1440, 680, 1)
+    secs = {}
+    raw = {}
+    for backend in ("numpy", "native", "auto"):
+        calls = dict(native.CALLS)
+        t0 = time.perf_counter()
+        raw[backend] = tri.build_tripolar_arrays(size, backend=backend, **kw)
+        secs[backend] = time.perf_counter() - t0
+        took = {k: native.CALLS[k] - calls[k] for k in calls}
+        if backend == "numpy":
+            check(took == {"murray_coords": 0, "metric_arcs": 0}, f"numpy build: {took}")
+        else:
+            check(took == {"murray_coords": 4, "metric_arcs": 1},
+                  f"{backend} build took the native kernels: {took}")
+    # the coordinates within tests/test_native.py's bands (absolute, degrees); the
+    # metrics relative to the array's largest value: the spherical areas of 1/4-degree
+    # cells lose digits to cancellation in both builds (the 48 x 24 band of
+    # tests/test_native.py, 1e-12, is held on the CPU)
+    worst = {}
+    for name in tri.ARRAY_FIELDS:
+        a, b = raw["numpy"][name], raw["native"][name]
+        check(np.array_equal(raw["auto"][name], b), f"auto build {name} is the native one")
+        d = float(np.abs(a - b).max())
+        coord = name.startswith(("lam", "phi"))
+        worst[name] = d if coord else d / float(np.abs(a).max())
+        tol = 1e-9 if name.startswith("lam") else 1e-11 if name.startswith("phi") else 1e-10
+        check(worst[name] <= tol, f"native {name} within {tol:.1e} of numpy: "
+              f"{worst[name]:.3e}")
+    del raw
+    log(f"phase 16a: the 1440 x 680 grid on the host: numpy {secs['numpy']:.3f} s, native "
+        f"{secs['native']:.3f} s, auto {secs['auto']:.3f} s (native kernels, bitwise the "
+        f"native build); largest |numpy - native| per array (coordinates in degrees, "
+        f"metrics relative to the array's largest value): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + f" [{card}]")
+
+    t0 = time.perf_counter()
+    rows = tri.newton_phi_nodes(-80.0, 680, equatorial_law)
+    newton_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, state = bickley_on(TripolarGrid.make(size, dtype=torch.float32, device="cuda",
+                                                phi_spacing=equatorial_law, **kw))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    g, ge = model.grid, model.grid_ext
+    check(g.phi_spacing is equatorial_law and ge.phi_spacing is equatorial_law,
+          "the grids carry the law")
+    check(torch.equal(ge.interior(ge.phi_cc), g.interior(g.phi_cc)),
+          "the extended grid's rows are the refined grid's")
+    check(not torch.equal(g.interior(g.phi_cc), bmodel.grid.interior(bmodel.grid.phi_cc)),
+          "the refined rows are not the uniform rows")
+    d = np.diff(rows)
+    ratio = float(d[np.abs(rows[:-1]).argmin()] / d[-1])
+    check(abs(ratio - 0.5) < 0.01, f"equatorial spacing half the polar: {ratio}")
+    kernels.reset_launch_counts()
+    state = multi_step(model, state, 60.0, n_steps)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check(all(counts[k] >= n_steps for k in BICKLEY), f"refined jet launches {counts}")
+    check(all(bool(torch.isfinite(getattr(state, n)).all())
+              for n in ("u", "v", "c", "eta", "U", "V")), "refined jet finite")
+    log(f"phase 16b: the 1440 x 680 jet on the equatorially refined grid (rows by the "
+        f"Newton solve, {newton_s:.3f} s alone; equatorial spacing {ratio:.4f} of the "
+        f"polar; model built in {build_s:.1f} s), {n_steps} steps through the kernels: "
+        f"finite, max|u| {float(state.u.abs().max()):.4f}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }; the extended grid carries the law "
+        f"[{card}]")
+
 
 def main():
     import torch
@@ -2573,17 +2933,21 @@ def main():
     del gyre_model, gyre_state0
     kres.update(phase14a_planes(card))
     planes_counts = phase14_options(card, bickley_model, bickley_state0, bickley_ms)
+    kres.update(phase15a_members(card))
+    ensemble_counts = phase15_ensemble(card, bickley_model, bickley_state0, bickley_ms)
+    phase16_grids(card, bickley_model)
     del bickley_model, bickley_state0
 
     # each path must have launched every kernel it runs; a row reports the count of
     # the last path that runs it (the gyre's for every kernel of the gyre; the
     # sharded Bickley jet's for the pack, the wrap and the shard fill; the 2 x 2
     # Bickley jet's for the block pack and the block fill; the two-tracer jet's for
-    # the P-plane column mode)
+    # the P-plane column mode; the ensemble's for the member mode)
     launches = {}
     for path, names, cnt in (("2-D Bickley", BLOCKS, block_counts),
                              ("sharded Bickley", SHARDED, shard_counts),
                              ("two-tracer Bickley", PLANES, planes_counts),
+                             ("Bickley ensemble", ENSEMBLE, ensemble_counts),
                              ("Bickley", BICKLEY, counts), ("front", FRONT, front_counts),
                              ("gyre", GYRE, gyre_counts), ("ceilings", PROBES, probe_counts),
                              ("50-day run", DIAGNOSTICS, diag_counts)):

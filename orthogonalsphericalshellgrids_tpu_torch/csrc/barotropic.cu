@@ -56,6 +56,15 @@
 // launch_plan, which the CPU tests check and replay; the entry point verifies the
 // window the plan assumed and returns cudaErrorInvalidValue on a mismatch or on a
 // wrap whose halo does not fit the plane.
+//
+// Members (an ensemble, the counterpart of jax.vmap over the TPU kernel): n_members
+// sets of (eta, U, V, GU, GV) at a member stride of one plane, sharing the factors,
+// dtau and the weights. The grid's z index is the member: each CTA offsets its
+// member's planes once, before the loads, and the state and the averages are
+// written as (3, n_members, Ye, Xe), so that each average is one contiguous member
+// stack. Every launch of the plan runs all members, and a member's cells see the
+// arithmetic of a one-member launch, so each member is bitwise its own launch; with
+// one member the offsets are 0 and the component stride is the plane, as before.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -115,6 +124,15 @@ __global__ void __launch_bounds__(Window<T>::WX * Window<T>::NTY, 1)
   const bool seam = WRAP && gx == Hx;
   const bool out_col = tx >= k && tx < WX - k && L < Xe;
   const int64_t P = (int64_t)Ye * Xe;
+  // this CTA's member: its planes, and the component stride of state_out and acc
+  const int64_t MP = (int64_t)blockIdx.z * P, CS = (int64_t)gridDim.z * P;
+  eta_in += MP;
+  U_in += MP;
+  V_in += MP;
+  GU += MP;
+  GV += MP;
+  acc += MP;
+  if (state_out != nullptr) state_out += MP;
   const T dtau = *dtau_p;
   if (ty == 0 && tx < m1 - m0) w_s[tx] = weights[m0 + tx];
 
@@ -146,8 +164,8 @@ __global__ void __launch_bounds__(Window<T>::WX * Window<T>::NTY, 1)
       if (m0 > 0 && out_col && y >= k && y < WY - k) {
         const int64_t q = (int64_t)gy * Xe + L;
         a0[r] = acc[q];
-        a1[r] = acc[P + q];
-        a2[r] = acc[2 * P + q];
+        a1[r] = acc[CS + q];
+        a2[r] = acc[2 * CS + q];
       }
     } else {
       dy[r] = dx[r] = caz[r] = cu[r] = cv[r] = mu[r] = mv[r] = gu[r] = gv[r] = T(0);
@@ -202,39 +220,42 @@ __global__ void __launch_bounds__(Window<T>::WX * Window<T>::NTY, 1)
     const int64_t q = (int64_t)gy * Xe + L;
     if (state_out != nullptr) {
       state_out[q] = eta[r];
-      state_out[P + q] = U[r];
-      state_out[2 * P + q] = V[r];
+      state_out[CS + q] = U[r];
+      state_out[2 * CS + q] = V[r];
     }
     acc[q] = a0[r];
-    acc[P + q] = a1[r];
-    acc[2 * P + q] = a2[r];
+    acc[CS + q] = a1[r];
+    acc[2 * CS + q] = a2[r];
   }
 }
 
 // Launch l runs substeps [m0, m1) = [l k, min((l + 1) k, n_sub)). It reads the inputs
 // (l = 0) or the state the launch before wrote (work set (l - 1) % 2) and writes
-// work set l % 2, except the last launch; acc is the (3, Ye, Xe) output, written
-// whole by the first launch. wx and wy are the window the caller's plan assumed.
+// work set l % 2, except the last launch; acc is the (3, n_members, Ye, Xe) output,
+// written whole by the first launch, and so is each work set. wx and wy are the
+// window the caller's plan assumed.
 template <typename T, bool WRAP>
 int run_wrap(const void* st, const void* eta, const void* U, const void* V, const void* GU,
              const void* GV, void* work, void* acc, const void* dtau, const void* weights,
-             int n_sub, int Ye, int Xe, int Nx, int Hx, int k, cudaStream_t stream) {
+             int n_sub, int n_members, int Ye, int Xe, int Nx, int Hx, int k,
+             cudaStream_t stream) {
   constexpr int WX = Window<T>::WX, WY = Window<T>::NTY * Window<T>::PT;
-  const int64_t P = (int64_t)Ye * Xe;
+  const int64_t MP = (int64_t)n_members * Ye * Xe;  // one component of every member
   const dim3 block(WX, Window<T>::NTY);
-  const dim3 grid((Xe + WX - 2 * k - 1) / (WX - 2 * k), (Ye + WY - 2 * k - 1) / (WY - 2 * k));
+  const dim3 grid((Xe + WX - 2 * k - 1) / (WX - 2 * k), (Ye + WY - 2 * k - 1) / (WY - 2 * k),
+                  n_members);
   const T* in[3] = {(const T*)eta, (const T*)U, (const T*)V};
   for (int m0 = 0, l = 0; m0 < n_sub; m0 += k, ++l) {
     const int m1 = m0 + k < n_sub ? m0 + k : n_sub;
-    T* out = m1 < n_sub ? (T*)work + (l % 2) * 3 * P : nullptr;
+    T* out = m1 < n_sub ? (T*)work + (l % 2) * 3 * MP : nullptr;
     subcycle_kernel<T, WRAP><<<grid, block, 0, stream>>>(
         (const T*)st, in[0], in[1], in[2], (const T*)GU, (const T*)GV, out, (T*)acc,
         (const T*)dtau, (const T*)weights, m0, m1, Ye, Xe, Nx, Hx, k);
     const int err = (int)cudaGetLastError();
     if (err) return err;
     in[0] = out;
-    in[1] = out + P;
-    in[2] = out + 2 * P;
+    in[1] = out + MP;
+    in[2] = out + 2 * MP;
   }
   return 0;
 }
@@ -242,17 +263,18 @@ int run_wrap(const void* st, const void* eta, const void* U, const void* V, cons
 template <typename T>
 int run(const void* st, const void* eta, const void* U, const void* V, const void* GU,
         const void* GV, void* work, void* acc, const void* dtau, const void* weights,
-        int n_sub, int Ye, int Xe, int Nx, int Hx, int wrap, int k, int wx, int wy,
-        cudaStream_t stream) {
+        int n_sub, int n_members, int Ye, int Xe, int Nx, int Hx, int wrap, int k, int wx,
+        int wy, cudaStream_t stream) {
   constexpr int WX = Window<T>::WX, WY = Window<T>::NTY * Window<T>::PT;
   if (wx != WX || wy != WY || n_sub < 1 || k < 1 || k > K_LIMIT || WX - 2 * k < 1 ||
-      WY - 2 * k < 1 || (wrap && (Hx < 1 || Hx > Nx || Xe != Nx + 2 * Hx)))
+      WY - 2 * k < 1 || n_members < 1 || n_members > 65535 ||
+      (wrap && (Hx < 1 || Hx > Nx || Xe != Nx + 2 * Hx)))
     return (int)cudaErrorInvalidValue;
   if (wrap)
-    return run_wrap<T, true>(st, eta, U, V, GU, GV, work, acc, dtau, weights, n_sub, Ye,
-                             Xe, Nx, Hx, k, stream);
-  return run_wrap<T, false>(st, eta, U, V, GU, GV, work, acc, dtau, weights, n_sub, Ye,
-                            Xe, Nx, Hx, k, stream);
+    return run_wrap<T, true>(st, eta, U, V, GU, GV, work, acc, dtau, weights, n_sub,
+                             n_members, Ye, Xe, Nx, Hx, k, stream);
+  return run_wrap<T, false>(st, eta, U, V, GU, GV, work, acc, dtau, weights, n_sub,
+                            n_members, Ye, Xe, Nx, Hx, k, stream);
 }
 
 }  // namespace
@@ -260,15 +282,15 @@ int run(const void* st, const void* eta, const void* U, const void* V, const voi
 #define OSG_BARO_ARGS                                                                     \
   const void *st, const void *eta, const void *U, const void *V, const void *GU,         \
       const void *GV, void *work, void *acc, const void *dtau, const void *weights,      \
-      int n_sub, int Ye, int Xe, int Nx, int Hx, int wrap, int k, int wx, int wy,        \
-      void *stream
+      int n_sub, int n_members, int Ye, int Xe, int Nx, int Hx, int wrap, int k, int wx,  \
+      int wy, void *stream
 
 extern "C" int osg_barotropic_f32(OSG_BARO_ARGS) {
-  return run<float>(st, eta, U, V, GU, GV, work, acc, dtau, weights, n_sub, Ye, Xe, Nx, Hx,
-                    wrap, k, wx, wy, (cudaStream_t)stream);
+  return run<float>(st, eta, U, V, GU, GV, work, acc, dtau, weights, n_sub, n_members, Ye,
+                    Xe, Nx, Hx, wrap, k, wx, wy, (cudaStream_t)stream);
 }
 
 extern "C" int osg_barotropic_f64(OSG_BARO_ARGS) {
-  return run<double>(st, eta, U, V, GU, GV, work, acc, dtau, weights, n_sub, Ye, Xe, Nx,
-                     Hx, wrap, k, wx, wy, (cudaStream_t)stream);
+  return run<double>(st, eta, U, V, GU, GV, work, acc, dtau, weights, n_sub, n_members, Ye,
+                     Xe, Nx, Hx, wrap, k, wx, wy, (cudaStream_t)stream);
 }

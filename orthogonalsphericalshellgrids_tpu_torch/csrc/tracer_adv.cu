@@ -40,7 +40,10 @@
 //     (column mode: the pack's planes). In layered mode the CTA loops over the
 //     layers and, per layer, over the tracer blocks of the stack (T and S in the
 //     gyre); in column mode over P planes (Mode::Planes; one plane is Mode::Column,
-//     which keeps one buffer and no loop). The next plane's (and layer's) copies are
+//     which keeps one buffer and no loop), and over the B n planes of an ensemble
+//     (Mode::Members: n tracer planes a member, member-major, plane p over member
+//     p / n's u and v, which are copied at each member's first plane into a second
+//     buffer, as a layer's are). The next plane's (and layer's) copies are
 //     issued into a second buffer before the present plane's arithmetic, so they
 //     arrive while it runs. Each plane's arithmetic is the one-plane launch's, so
 //     plane p of a P-plane launch is bitwise a one-plane launch on plane p.
@@ -77,15 +80,16 @@ template <typename T> struct Tile;
 template <> struct Tile<float> { static constexpr int Y = 16, X = 32, MIN_BLOCKS = 4; };
 template <> struct Tile<double> { static constexpr int Y = 16, X = 32, MIN_BLOCKS = 2; };
 
-// The kernel's modes: one column plane, P column planes over one (u, v) pair, or
+// The kernel's modes: one column plane, P column planes over one (u, v) pair, B n
+// column planes over B (u, v) pairs (an ensemble of B members of n tracers), or
 // layered (tracer-major planes over Nz layers of u and v).
-enum class Mode { Column, Planes, Layered };
+enum class Mode { Column, Planes, Members, Layered };
 
 // Shared memory of one CTA, as offsets in elements of T. Faces are numbered x faces
 // first (TY rows of TX + 1: face lx lies west of cell lx), then y faces (TY + 1 rows
 // of TX: face ly lies south of cell row ly); cells by row (TY rows of TX). NP buffers
-// of what a plane copies (the window and acc) and NL of what a layer copies (u, v,
-// IV and the kappa_h planes): two where the next one is in flight.
+// of what a plane copies (the window and acc), NV of u and v and NL of what else a
+// layer copies (IV and the kappa_h planes): two where the next one is in flight.
 template <typename T, Mode M, bool HAS_DIFF, bool HAS_ACC>
 struct Layout {
   static constexpr bool LAYERED = M == Mode::Layered;
@@ -94,10 +98,11 @@ struct Layout {
   static constexpr int NXF = TY * (TX + 1), NF = NXF + (TY + 1) * TX;
   static constexpr int CN = TY * TX, CELLS = CN / THREADS;
   static constexpr int NP = M == Mode::Column ? 1 : 2, NL = LAYERED ? 2 : 1;
+  static constexpr int NV = LAYERED || M == Mode::Members ? 2 : 1;
   static constexpr int WIN = 0;                              // c over the window
   static constexpr int FLUX = WIN + NP * WN;                 // the face fluxes
   static constexpr int VEL = FLUX + NF;                      // u at x faces, v at y faces
-  static constexpr int LEN = VEL + NL * NF;                  // dy_fc, dx_cf at the faces
+  static constexpr int LEN = VEL + NV * NF;                  // dy_fc, dx_cf at the faces
   static constexpr int HF = LEN + NF;                        // column: h_u, h_v at the faces
   static constexpr int KF = HF + (LAYERED ? 0 : NF);         // K_u, K_v at the faces
   static constexpr int IV = KF + (HAS_DIFF ? NL * NF : 0);   // IV at the cells
@@ -161,9 +166,10 @@ __device__ __forceinline__ void copy_cells(T* dst, const T* src, int y0, int x0,
 }
 
 // The kernel of every mode. Column: st is the (5 or 8)-plane pack, c holds n_planes
-// planes (1 in Mode::Column) over one (u, v) pair, nz = 1. Layered: c holds n_planes
-// = n_tr nz tracer-major planes over nz layers of u and v, st the (nz S) layer-major
-// pack [IV (, K_u, K_v, K_c)], g = [dy_fc, dx_cf], dz (nz).
+// planes (1 in Mode::Column) over one (u, v) pair, nz = 1. Members: the column pack,
+// c holds n_planes = nz n member-major planes over nz (u, v) pairs. Layered: c holds
+// n_planes = n_tr nz tracer-major planes over nz layers of u and v, st the (nz S)
+// layer-major pack [IV (, K_u, K_v, K_c)], g = [dy_fc, dx_cf], dz (nz).
 template <typename T, Mode M, bool HAS_DIFF, bool HAS_ACC>
 __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
     tracer_adv_kernel(const T* __restrict__ c, const T* __restrict__ u,
@@ -179,19 +185,25 @@ __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
   T* const sm = reinterpret_cast<T*>(smem_raw);
   const int y0 = blockIdx.y * Lo::TY, x0 = blockIdx.x * TX;
   const int64_t P = (int64_t)Yb * Xb;
+  constexpr bool MEMBERS = M == Mode::Members;
   // layer by layer, each layer's blocks in turn (column mode: one layer of n_planes
-  // blocks); plane t of layer k lies at (t nz + k) P
+  // blocks; members: a member is a layer); plane t of layer k lies at (t nz + k) P,
+  // and plane t of member k at (k n + t) P
   const int n_blocks = M == Mode::Column ? 1 : n_planes / nz;
   const int n_steps = M == Mode::Column ? 1 : n_planes;
 
-  // what a layer copies (IV, the kappa_h planes, u and v) into its buffer b, and what a
-  // plane copies (its window and acc) into buffer b
+  // what a layer copies (IV and the kappa_h planes, once in column and member mode;
+  // u and v) into its buffer b, and what a plane copies (its window and acc) into
+  // buffer b
   auto copy_layer = [&](int layer, int b) {
-    const T* lp = LAYERED ? st + (int64_t)layer * S * P : st + INV_VOL * P;
-    copy_cells<Lo>(sm + Lo::IV + b * CN, lp, y0, x0, Yb, Xb);
-    if constexpr (HAS_DIFF) {
-      copy_faces<Lo>(sm + Lo::KF + b * NF, lp + P, lp + 2 * P, y0, x0, Yb, Xb);
-      copy_cells<Lo>(sm + Lo::KC + b * CN, lp + 3 * P, y0, x0, Yb, Xb);
+    if (LAYERED || layer == 0) {
+      const T* lp = LAYERED ? st + (int64_t)layer * S * P : st + INV_VOL * P;
+      const int bl = LAYERED ? b : 0;
+      copy_cells<Lo>(sm + Lo::IV + bl * CN, lp, y0, x0, Yb, Xb);
+      if constexpr (HAS_DIFF) {
+        copy_faces<Lo>(sm + Lo::KF + bl * NF, lp + P, lp + 2 * P, y0, x0, Yb, Xb);
+        copy_cells<Lo>(sm + Lo::KC + bl * CN, lp + 3 * P, y0, x0, Yb, Xb);
+      }
     }
     copy_faces<Lo>(sm + Lo::VEL + b * NF, u + layer * P, v + layer * P, y0, x0, Yb, Xb);
   };
@@ -214,12 +226,14 @@ __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
   for (int s = 0; s < n_steps; ++s) {
     const int layer = s / n_blocks, t = s - layer * n_blocks;
     const int bs = Lo::NP == 2 ? s & 1 : 0, bl = LAYERED ? layer & 1 : 0;
-    const int64_t off = ((int64_t)t * nz + layer) * P;  // this tracer plane
+    const int bv = Lo::NV == 2 ? layer & 1 : 0;
+    // this tracer plane
+    const int64_t off = MEMBERS ? (int64_t)s * P : ((int64_t)t * nz + layer) * P;
     __syncthreads();  // every thread is done with the previous plane's buffers
     if (s + 1 < n_steps) {  // the next plane's copies, and its layer's at a layer's start
       const int l1 = (s + 1) / n_blocks, t1 = s + 1 - l1 * n_blocks;
       if (t1 == 0) copy_layer(l1, l1 & 1);
-      copy_plane(((int64_t)t1 * nz + l1) * P, (s + 1) & 1);
+      copy_plane(MEMBERS ? (int64_t)(s + 1) * P : ((int64_t)t1 * nz + l1) * P, (s + 1) & 1);
     }
     __pipeline_commit();
     __pipeline_wait_prior(1);  // this plane's copies have landed
@@ -228,7 +242,7 @@ __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
     // each face once: x face (ly, lx) from window row ly + 3, columns lx..lx + 5; y
     // face (ly, lx) from window rows ly..ly + 5, column lx + 3
     const T* sc = sm + Lo::WIN + bs * WN;
-    const T* vel = sm + Lo::VEL + bl * NF;
+    const T* vel = sm + Lo::VEL + bv * NF;
     const T dzk = LAYERED ? dz[layer] : T(0);
 #pragma unroll 1
     for (int p = threadIdx.x; p < NF; p += THREADS) {
@@ -316,7 +330,7 @@ int launch_mode(const Args& a, int has_diff, cudaStream_t s) {
   return launch_one<T, M, false, false>(a, s);
 }
 
-template <typename T, bool LAYERED>
+template <typename T, Mode M>
 int launch(const Args& a, int has_diff, int ty, int tx, void* stream) {
   // a plan made for another tile, no plane (n_planes < 1), a plane whose offsets
   // overflow an int, or a grid the launch cannot take, is refused
@@ -325,11 +339,11 @@ int launch(const Args& a, int has_diff, int ty, int tx, void* stream) {
       (a.Yb + Tile<T>::Y - 1) / Tile<T>::Y > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if constexpr (LAYERED) {
-    return launch_mode<T, Mode::Layered>(a, has_diff, s);
-  } else {
+  if constexpr (M == Mode::Column) {
     if (a.n_planes > 1) return launch_mode<T, Mode::Planes>(a, has_diff, s);
     return launch_mode<T, Mode::Column>(a, has_diff, s);
+  } else {
+    return launch_mode<T, M>(a, has_diff, s);
   }
 }
 
@@ -339,16 +353,35 @@ extern "C" int osg_tracer_adv_f32(const void* c, const void* u, const void* v,
                                   const void* st, const void* acc, void* G, int n_planes,
                                   int Yb, int Xb, int has_diff, int ty, int tx,
                                   void* stream) {
-  return launch<float, false>({c, u, v, st, nullptr, nullptr, acc, G, n_planes, 1, Yb, Xb},
-                              has_diff, ty, tx, stream);
+  return launch<float, Mode::Column>(
+      {c, u, v, st, nullptr, nullptr, acc, G, n_planes, 1, Yb, Xb}, has_diff, ty, tx, stream);
 }
 
 extern "C" int osg_tracer_adv_f64(const void* c, const void* u, const void* v,
                                   const void* st, const void* acc, void* G, int n_planes,
                                   int Yb, int Xb, int has_diff, int ty, int tx,
                                   void* stream) {
-  return launch<double, false>({c, u, v, st, nullptr, nullptr, acc, G, n_planes, 1, Yb, Xb},
-                               has_diff, ty, tx, stream);
+  return launch<double, Mode::Column>(
+      {c, u, v, st, nullptr, nullptr, acc, G, n_planes, 1, Yb, Xb}, has_diff, ty, tx, stream);
+}
+
+// n_planes = n_members n member-major planes, plane p over member p / n's u and v
+extern "C" int osg_tracer_adv_members_f32(const void* c, const void* u, const void* v,
+                                          const void* st, const void* acc, void* G,
+                                          int n_planes, int n_members, int Yb, int Xb,
+                                          int has_diff, int ty, int tx, void* stream) {
+  return launch<float, Mode::Members>(
+      {c, u, v, st, nullptr, nullptr, acc, G, n_planes, n_members, Yb, Xb}, has_diff, ty, tx,
+      stream);
+}
+
+extern "C" int osg_tracer_adv_members_f64(const void* c, const void* u, const void* v,
+                                          const void* st, const void* acc, void* G,
+                                          int n_planes, int n_members, int Yb, int Xb,
+                                          int has_diff, int ty, int tx, void* stream) {
+  return launch<double, Mode::Members>(
+      {c, u, v, st, nullptr, nullptr, acc, G, n_planes, n_members, Yb, Xb}, has_diff, ty, tx,
+      stream);
 }
 
 extern "C" int osg_tracer_adv_layered_f32(const void* c, const void* u, const void* v,
@@ -356,8 +389,8 @@ extern "C" int osg_tracer_adv_layered_f32(const void* c, const void* u, const vo
                                           const void* acc, void* G, int n_planes, int nz,
                                           int Yb, int Xb, int has_diff, int ty, int tx,
                                           void* stream) {
-  return launch<float, true>({c, u, v, iv, g, dz, acc, G, n_planes, nz, Yb, Xb}, has_diff,
-                             ty, tx, stream);
+  return launch<float, Mode::Layered>({c, u, v, iv, g, dz, acc, G, n_planes, nz, Yb, Xb},
+                                      has_diff, ty, tx, stream);
 }
 
 extern "C" int osg_tracer_adv_layered_f64(const void* c, const void* u, const void* v,
@@ -365,6 +398,6 @@ extern "C" int osg_tracer_adv_layered_f64(const void* c, const void* u, const vo
                                           const void* acc, void* G, int n_planes, int nz,
                                           int Yb, int Xb, int has_diff, int ty, int tx,
                                           void* stream) {
-  return launch<double, true>({c, u, v, iv, g, dz, acc, G, n_planes, nz, Yb, Xb}, has_diff,
-                              ty, tx, stream);
+  return launch<double, Mode::Layered>({c, u, v, iv, g, dz, acc, G, n_planes, nz, Yb, Xb},
+                                       has_diff, ty, tx, stream);
 }

@@ -1,15 +1,16 @@
 """Tripolar grid construction (Murray 1996 cofocal ellipse/hyperbola mapping).
 
 Counterpart: ``orthogonalsphericalshellgrids_tpu/grids/tripolar.py``
-(``_murray_mapping``, ``build_tripolar_arrays``, ``TripolarGrid.make``,
-``with_halo``); the reference constructor is ``src/tripolar_grid.jl:59-333``.
+(``_murray_mapping``, ``newton_phi_nodes``, ``build_tripolar_arrays``,
+``TripolarGrid.make``, ``cartesian_nodes``, ``with_halo``); the reference constructor
+is ``src/tripolar_grid.jl:59-333``.
 
-Generation runs on the host in float64 numpy, exactly as in the JAX package's numpy
-path, whatever the grid size; ``TripolarGrid.make`` then casts every array to the
-model dtype on the requested device, where it is a registered buffer of an
-``nn.Module``. Two options of the JAX package are not ported yet and raise
-``NotImplementedError`` (ROADMAP queue 1): ``phi_spacing`` (its Newton solve
-differentiates through a ``lax.scan``) and the native C++ generation backend.
+Generation runs on the host in float64, exactly as in the JAX package: numpy, or the
+native C++/OpenMP kernels (``grids/native.py``) for the mapping and the metrics,
+which ``backend="auto"`` takes at Nx·Ny >= 512·256 when they build. ``phi_spacing``
+places the latitude rows under a spacing law by a Newton solve in torch float64
+(``newton_phi_nodes``). ``TripolarGrid.make`` then casts every array to the model
+dtype on the requested device, where it is a registered buffer of an ``nn.Module``.
 """
 
 from __future__ import annotations
@@ -23,9 +24,15 @@ from torch import nn
 from ..ops import zipper
 from ..ops.location import CC, CF, FC, FF
 from . import geometry as geo
+from . import native
 from .latlon import latlon_metrics_1d
 
-__all__ = ["TripolarGrid", "build_tripolar_arrays", "with_halo"]
+__all__ = ["TripolarGrid", "build_tripolar_arrays", "newton_phi_nodes",
+           "cartesian_nodes", "with_halo", "BACKENDS"]
+
+BACKENDS = ("auto", "numpy", "native")
+# "auto" takes the native kernels from this many cells (the JAX package's rule)
+NATIVE_FROM = 512 * 256
 
 
 # Degree-exact trigonometry (Julia's sind/cosd/tand are exact at multiples of 90°; the
@@ -80,6 +87,59 @@ def _murray_mapping(lam1d, phi1d, Nx, focal_distance, first_pole_longitude):
     return lam2, phi2
 
 
+def newton_phi_nodes(southernmost_latitude, Ny, spacing, tol=1e-12, max_iter=50):
+    """Ny latitude rows from ``southernmost_latitude`` to 90° under a spacing law.
+
+    The rows follow the midpoint march φ_{j+1} = φ_j + s·f(φ_j + s·f(φ_j)/2), and
+    the scale s that lands φ_{Ny-1} = 90 exactly is found by Newton iteration, the
+    derivative dφ_end/ds taken by ``torch.autograd`` through the march (the JAX
+    package takes ``jax.grad`` through a ``lax.scan``), in float64: at most
+    ``max_iter`` steps, until |φ_end - 90| <= ``tol``, from the scale of the mean of
+    65 law samples over the range (exact for a uniform law).
+
+    ``spacing``: a positive callable f(φ° tensor) -> relative spacing weight, on
+    float64 torch tensors. Returns float64 numpy rows, the first the southernmost
+    and the last pinned to 90; raises ``ValueError`` when the solve does not give
+    a monotone distribution (a law that is not positive)."""
+    lo, hi = float(southernmost_latitude), 90.0
+    f64 = torch.float64
+
+    def march(s, rows=None):
+        phi = torch.tensor(lo, dtype=f64)
+        for _ in range(Ny - 1):
+            phi = phi + s * spacing(phi + 0.5 * s * spacing(phi))
+            if rows is not None:
+                rows.append(phi)
+        return phi
+
+    def g_and_dg(s):
+        s = s.detach().requires_grad_(True)
+        end = march(s)
+        (dg,) = torch.autograd.grad(end, s, allow_unused=True)
+        return float(end.detach()) - hi, (torch.zeros_like(s) if dg is None else dg).detach()
+
+    x = torch.linspace(lo, hi, 65, dtype=f64)
+    w = torch.mean(torch.broadcast_to(torch.as_tensor(spacing(x), dtype=f64), x.shape))
+    s = (hi - lo) / ((Ny - 1) * w)
+    g, dg = g_and_dg(s)
+    it = 0
+    while abs(g) > tol and it < max_iter:
+        s = s - g / dg
+        g, dg = g_and_dg(s)
+        it += 1
+    rows = []
+    with torch.no_grad():
+        march(s, rows)
+    phis = np.concatenate([[lo], torch.stack(rows).numpy()]) if rows else np.array([lo])
+    # a degenerate law gives NaN rows, which must land here too
+    if not (abs(phis[-1] - hi) <= 1e-8 and np.all(np.diff(phis) > 0)):
+        raise ValueError(
+            "phi_spacing Newton solve did not converge to a monotone latitude "
+            f"distribution (endpoint {phis[-1]!r}); is the spacing law positive?")
+    phis[-1] = hi  # the pole row exactly (the Newton residual is <= tol)
+    return phis
+
+
 def _embed_with_halo(interior_yx, Hx, Hy):
     """Embed an interior (Ny, Nx) array into a halo-inclusive one, halo zeroed."""
     Ny, Nx = interior_yx.shape
@@ -106,21 +166,21 @@ def build_tripolar_arrays(
     z=(0.0, 1.0),
     north_poles_latitude=55.0,
     first_pole_longitude=70.0,
-    backend="numpy",
+    backend="auto",
     phi_spacing=None,
 ):
     """All tripolar coordinate/metric arrays in float64 numpy: a dict of
     halo-inclusive (Ny+2Hy, Nx+2Hx) arrays for the 8 coordinates and 12 metrics, the
     1-D z data, and ``meta``. Keyword names and defaults follow the reference
-    constructor (``src/tripolar_grid.jl:59-66``)."""
-    if phi_spacing is not None:
-        raise NotImplementedError(
-            "phi_spacing (newton_phi_nodes) is not ported yet: ROADMAP queue 1, "
-            "deferred slice options")
-    if backend != "numpy":
-        raise NotImplementedError(
-            f"grid-generation backend {backend!r} is not ported yet (the native C++ "
-            "backend, grids/native.py): ROADMAP queue 1, deferred slice options")
+    constructor (``src/tripolar_grid.jl:59-66``).
+
+    ``backend``: "numpy", "native" (the C++ kernels of ``grids/native.py``; raises
+    when they cannot be built) or "auto" (native at Nx·Ny >= 512·256 when it builds,
+    else numpy). ``phi_spacing``: None for uniform rows, or a spacing law on torch
+    float64 tensors (``newton_phi_nodes``)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown grid-generation backend {backend!r}; options: "
+                         f"{BACKENDS}")
     Nx, Ny, Nz = size
     Hx, Hy, Hz = halo
     if Nx % 2 != 0:
@@ -134,11 +194,27 @@ def build_tripolar_arrays(
     dlam = 360.0 / Nx
     lamF1 = -180.0 + dlam * np.arange(Nx, dtype=np.float64)
     lamC1 = lamF1 + dlam / 2.0
-    phiC1 = np.linspace(southernmost_latitude, 90.0, Ny)
-    dphi = phiC1[1] - phiC1[0]
-    phiF1 = phiC1 - dphi / 2.0
+    if phi_spacing is None:
+        phiC1 = np.linspace(southernmost_latitude, 90.0, Ny)
+        dphi = phiC1[1] - phiC1[0]
+        phiF1 = phiC1 - dphi / 2.0
+    else:
+        # faces midway between consecutive centers (the uniform rule for a constant
+        # law), the south face extrapolated
+        phiC1 = newton_phi_nodes(southernmost_latitude, Ny, phi_spacing)
+        phiF1 = np.empty_like(phiC1)
+        phiF1[1:] = 0.5 * (phiC1[1:] + phiC1[:-1])
+        phiF1[0] = phiC1[0] - 0.5 * (phiC1[1] - phiC1[0])
+
+    if backend == "native" and not native.available():
+        raise RuntimeError(f"native grid-generation backend requested but unavailable: "
+                           f"{native.build_error()}")
+    use_native = backend == "native" or (
+        backend == "auto" and Nx * Ny >= NATIVE_FROM and native.available())
 
     def mapper(l1, p1):
+        if use_native:
+            return native.murray_coords(l1, p1, Nx, focal_distance, first_pole_longitude)
         return _murray_mapping(l1, p1, Nx, focal_distance, first_pole_longitude)
 
     # circshift by Nλ÷4 puts pole 1 at i=1 and pole 2 at i=Nλ/2+1
@@ -182,30 +258,32 @@ def build_tripolar_arrays(
     def cart(phi, lam, Ja, Ia):
         return geo.lat_lon_to_cartesian(phi[Ja, Ia], lam[Ja, Ia], 1.0, xp=np)
 
-    dx_cc = hav(lamFC, phiFC, J, Ip, J, I)
-    dx_fc = hav(lamCC, phiCC, J, I, J, Im)
-    dx_cf = hav(lamFF, phiFF, J, Ip, J, I)
-    dx_ff = hav(lamCF, phiCF, J, I, J, Im)
-    dy_cc = hav(lamCF, phiCF, Jp, I, J, I)
-    dy_fc = hav(lamFF, phiFF, Jp, I, J, I)
-    dy_cf = hav(lamCC, phiCC, J, I, Jm, I)
-    dy_ff = hav(lamFC, phiFC, J, I, Jm, I)
-    az_cc = geo.spherical_area_quadrilateral(
-        cart(phiFF, lamFF, J, I), cart(phiFF, lamFF, J, Ip),
-        cart(phiFF, lamFF, Jp, Ip), cart(phiFF, lamFF, Jp, I), xp=np,
-    ) * radius**2
-    az_fc = dy_fc * dx_fc
-    az_cf = dy_cf * dx_cf
-    az_ff = geo.spherical_area_quadrilateral(
-        cart(phiCC, lamCC, Jm, Im), cart(phiCC, lamCC, Jm, I),
-        cart(phiCC, lamCC, J, I), cart(phiCC, lamCC, J, Im), xp=np,
-    ) * radius**2
-
-    metrics = {
-        "dx_cc": dx_cc, "dx_fc": dx_fc, "dx_cf": dx_cf, "dx_ff": dx_ff,
-        "dy_cc": dy_cc, "dy_fc": dy_fc, "dy_cf": dy_cf, "dy_ff": dy_ff,
-        "az_cc": az_cc, "az_fc": az_fc, "az_cf": az_cf, "az_ff": az_ff,
-    }
+    if use_native:
+        metrics = native.metric_arcs(coords, Nx, Ny, Hx, Hy, radius)
+    else:
+        dx_cc = hav(lamFC, phiFC, J, Ip, J, I)
+        dx_fc = hav(lamCC, phiCC, J, I, J, Im)
+        dx_cf = hav(lamFF, phiFF, J, Ip, J, I)
+        dx_ff = hav(lamCF, phiCF, J, I, J, Im)
+        dy_cc = hav(lamCF, phiCF, Jp, I, J, I)
+        dy_fc = hav(lamFF, phiFF, Jp, I, J, I)
+        dy_cf = hav(lamCC, phiCC, J, I, Jm, I)
+        dy_ff = hav(lamFC, phiFC, J, I, Jm, I)
+        az_cc = geo.spherical_area_quadrilateral(
+            cart(phiFF, lamFF, J, I), cart(phiFF, lamFF, J, Ip),
+            cart(phiFF, lamFF, Jp, Ip), cart(phiFF, lamFF, Jp, I), xp=np,
+        ) * radius**2
+        az_fc = dy_fc * dx_fc
+        az_cf = dy_cf * dx_cf
+        az_ff = geo.spherical_area_quadrilateral(
+            cart(phiCC, lamCC, Jm, Im), cart(phiCC, lamCC, Jm, I),
+            cart(phiCC, lamCC, J, I), cart(phiCC, lamCC, J, Im), xp=np,
+        ) * radius**2
+        metrics = {
+            "dx_cc": dx_cc, "dx_fc": dx_fc, "dx_cf": dx_cf, "dx_ff": dx_ff,
+            "dy_cc": dy_cc, "dy_fc": dy_fc, "dy_cf": dy_cf, "dy_ff": dy_ff,
+            "az_cc": az_cc, "az_fc": az_fc, "az_cf": az_cf, "az_ff": az_ff,
+        }
     for name in list(metrics):
         loc = loc_of[name.split("_")[1]]
         metrics[name] = _fill_coord_halos(_embed_with_halo(metrics[name], Hx, Hy), loc,
@@ -251,6 +329,7 @@ def build_tripolar_arrays(
         north_poles_latitude=float(north_poles_latitude),
         first_pole_longitude=float(first_pole_longitude),
         z_bounds=(z0, z1),
+        phi_spacing=phi_spacing,
         z_interfaces=z_interfaces,
     )
     return out
@@ -268,7 +347,7 @@ ARRAY_FIELDS = (
 META_FIELDS = (
     "Nx", "Ny", "Nz", "Hx", "Hy", "Hz", "radius", "Lz", "dz",
     "southernmost_latitude", "north_poles_latitude", "first_pole_longitude",
-    "z_bounds", "z_interfaces",
+    "z_bounds", "phi_spacing", "z_interfaces",
 )
 
 
@@ -276,7 +355,8 @@ class TripolarGrid(nn.Module):
     """Tripolar coordinates (degrees) and metrics (m, m²) as registered buffers.
 
     2-D buffers are halo-inclusive ``(Ny+2Hy, Nx+2Hx)`` with layout [y, x]; sizes,
-    halos and the conformal-mapping parameters are plain attributes. Build one with
+    halos, the conformal-mapping parameters and the latitude-spacing law
+    (``phi_spacing``, None for uniform rows) are plain attributes. Build one with
     ``TripolarGrid.make``; the constructor takes arrays already cast and placed."""
 
     def __init__(self, arrays, meta):
@@ -299,11 +379,12 @@ class TripolarGrid(nn.Module):
         *,
         device="cuda",
         phi_spacing=None,
-        backend="numpy",
+        backend="auto",
     ):
         """Generate the grid in float64 on the host and place it on ``device`` (the
-        card unless the caller asks for the CPU) in ``dtype``. The signature follows the reference constructor
-        (``src/tripolar_grid.jl:59-66``); ``dtype`` is its ``FT``."""
+        card unless the caller asks for the CPU) in ``dtype``. The signature follows
+        the reference constructor (``src/tripolar_grid.jl:59-66``); ``dtype`` is its
+        ``FT``; ``phi_spacing`` and ``backend`` as in ``build_tripolar_arrays``."""
         raw = build_tripolar_arrays(
             size, southernmost_latitude=southernmost_latitude, halo=halo,
             radius=radius, z=z, north_poles_latitude=north_poles_latitude,
@@ -344,11 +425,30 @@ class TripolarGrid(nn.Module):
     def device(self):
         return self.lam_cc.device
 
+    @property
+    def conformal_mapping(self):
+        """The reference's ``Tripolar`` mapping parameters (``src/tripolar_grid.jl:
+        6-10``)."""
+        return dict(north_poles_latitude=self.north_poles_latitude,
+                    first_pole_longitude=self.first_pole_longitude,
+                    southernmost_latitude=self.southernmost_latitude)
+
+
+def cartesian_nodes(grid: TripolarGrid, loc="ff"):
+    """Unit-sphere cartesian (x, y, z) interior node arrays (numpy, the grid's
+    dtype) at the staggered location ``loc`` ("ff", "fc", "cf" or "cc"): the node
+    half of the reference's ``get_cartesian_nodes_and_vertices`` (used by
+    ``examples/visualize_tripolar_grid.jl:41-45``)."""
+    lam = grid.interior(getattr(grid, f"lam_{loc}")).cpu().numpy()
+    phi = grid.interior(getattr(grid, f"phi_{loc}")).cpu().numpy()
+    return geo.lat_lon_to_cartesian(phi, lam, 1.0, xp=np)
+
 
 def with_halo(grid: TripolarGrid, new_halo) -> TripolarGrid:
     """Regenerate the grid with another halo from its conformal-mapping parameters
-    (``src/with_halo.jl:5-23``): the split-explicit free surface widens the halo so
-    the barotropic substep loop needs no exchange."""
+    and its latitude-spacing law (``src/with_halo.jl:5-23``): the split-explicit
+    free surface widens the halo so the barotropic substep loop needs no
+    exchange."""
     return TripolarGrid.make(
         grid.size,
         southernmost_latitude=grid.southernmost_latitude,
@@ -359,4 +459,5 @@ def with_halo(grid: TripolarGrid, new_halo) -> TripolarGrid:
         first_pole_longitude=grid.first_pole_longitude,
         dtype=grid.dtype,
         device=grid.device,
+        phi_spacing=grid.phi_spacing,
     )

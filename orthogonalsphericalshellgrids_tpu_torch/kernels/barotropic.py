@@ -7,6 +7,12 @@ loop. The kernel runs the substeps in time tiles (``launch_plan``) and folds dta
 into its factors once, as the TPU kernel does.
 
 ``static`` is the (9, Ye, Xe) stack ``STATIC_PLANES`` on the extended-halo grid.
+
+Members (an ensemble, ``models/ensemble.py``; the counterpart of ``jax.vmap`` over
+the TPU kernel): η, U, V, GU and GV may be (B, Ye, Xe) stacks of B members sharing
+``static``, ``dtau`` and the weights. One C entry call runs every member in each
+launch of the plan, and returns (B, Ye, Xe) averages, each member bitwise its own
+one-member call.
 """
 
 from __future__ import annotations
@@ -81,7 +87,8 @@ def launch_plan(Ye, Xe, n_sub, dtype):
 def barotropic_substeps_plain(static, eta, U, V, GU, GV, dtau, weights, Nx, Hx,
                               wrap_x_each_substep=True):
     """SM05-averaged forward-backward substeps of (η, U, V); returns the averages.
-    ``dtau`` is a 0-d tensor, ``weights`` the 1-D SM05 weights (one per substep)."""
+    ``dtau`` is a 0-d tensor, ``weights`` the 1-D SM05 weights (one per substep).
+    Broadcasts over a leading member axis of the state and forcing."""
     dy_fc, dx_cf, inv_az, gH_u, gH_v, inv_dx, inv_dy, mask_u, mask_v = static
 
     def wrapx(A):
@@ -100,19 +107,24 @@ def barotropic_substeps_plain(static, eta, U, V, GU, GV, dtau, weights, Nx, Hx,
 
 def barotropic_substeps(static, eta, U, V, GU, GV, dtau, weights, Nx, Hx,
                         wrap_x_each_substep=True):
-    """The barotropic subcycle; inputs are not modified. On a CUDA device one C
-    entry call runs the ``len(weights)`` substeps as the launches of
-    ``launch_plan`` on the current stream. Validity shrinks by one cell per substep
+    """The barotropic subcycle of one (Ye, Xe) state or a (B, Ye, Xe) stack of
+    members; inputs are not modified. On a CUDA device one C entry call runs the
+    ``len(weights)`` substeps as the launches of ``launch_plan`` on the current
+    stream, every member in each launch. Validity shrinks by one cell per substep
     from the array edge, as in the JAX package: beyond it the kernel's cells hold
     finite values of no meaning and the plain version's wrapped garbage."""
-    Ye, Xe = eta.shape
+    if eta.dim() not in (2, 3) or eta.numel() == 0:
+        raise ValueError(f"barotropic_substeps takes a (Ye, Xe) plane or a (B, Ye, Xe) "
+                         f"member stack, got shape {tuple(eta.shape)}")
+    Ye, Xe = eta.shape[-2:]
+    n_members = eta.shape[0] if eta.dim() == 3 else 1
     dt = eta.dtype
     n_sub = weights.shape[0]
     check_operands(
         "barotropic_substeps",
         dict(static=static, eta=eta, U=U, V=V, GU=GU, GV=GV, dtau=dtau, weights=weights),
-        dt, dict(static=(len(STATIC_PLANES), Ye, Xe), U=(Ye, Xe), V=(Ye, Xe),
-                 GU=(Ye, Xe), GV=(Ye, Xe), dtau=(), weights=(n_sub,)))
+        dt, dict(static=(len(STATIC_PLANES), Ye, Xe), U=eta.shape, V=eta.shape,
+                 GU=eta.shape, GV=eta.shape, dtau=(), weights=(n_sub,)))
     if n_sub < 1:
         raise ValueError("barotropic_substeps needs at least one weight")
     if not on_cuda(static, eta, U, V, GU, GV, dtau, weights):
@@ -123,11 +135,13 @@ def barotropic_substeps(static, eta, U, V, GU, GV, dtau, weights, Nx, Hx,
                          f"Xe={Xe}, Nx={Nx}, Hx={Hx}")
     plan = launch_plan(Ye, Xe, n_sub, dt)
     n_work = min(len(plan.launches) - 1, 2)
-    work = torch.empty((3 * n_work, Ye, Xe), dtype=dt, device=eta.device)
-    acc = torch.empty((3, Ye, Xe), dtype=dt, device=eta.device)
+    # each work set and the averages are (3, B, Ye, Xe): component-major, so that
+    # each average is one contiguous member stack
+    work = torch.empty((3 * n_work,) + eta.shape, dtype=dt, device=eta.device)
+    acc = torch.empty((3,) + eta.shape, dtype=dt, device=eta.device)
     call("osg_barotropic", dt, eta.device, static.data_ptr(), eta.data_ptr(),
          U.data_ptr(), V.data_ptr(), GU.data_ptr(), GV.data_ptr(), work.data_ptr(),
-         acc.data_ptr(), dtau.data_ptr(), weights.data_ptr(), int(n_sub), Ye, Xe, Nx, Hx,
-         int(wrap_x_each_substep), plan.k, plan.window[1], plan.window[0])
+         acc.data_ptr(), dtau.data_ptr(), weights.data_ptr(), int(n_sub), n_members, Ye,
+         Xe, Nx, Hx, int(wrap_x_each_substep), plan.k, plan.window[1], plan.window[0])
     count("barotropic")
     return acc[0], acc[1], acc[2]

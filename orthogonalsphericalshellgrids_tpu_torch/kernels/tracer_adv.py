@@ -4,7 +4,9 @@ Counterpart: ``orthogonalsphericalshellgrids_tpu/ops/pallas_adv.py:tracer_adv_pa
 with and without the fused κ_h Laplacian, in its two modes:
 
 - column (the single-layer model): ``c`` is one (Yb, Xb) tracer plane or a (P, Yb,
-  Xb) stack of P tracers over the (Yb, Xb) u and v; ``static`` is the (5, Yb, Xb)
+  Xb) stack of P tracers over the (Yb, Xb) u and v, or the (B, Yb, Xb) or (B, n, Yb,
+  Xb) tracers of an ensemble of B members over (B, Yb, Xb) u and v (member b's planes
+  over its own pair; ``models/ensemble.py``); ``static`` is the (5, Yb, Xb)
   stack ``STATIC_PLANES`` on the base grid, ``inv_vol_c = mask_c / (Az_cc h_c)``, or
   the (8, Yb, Xb) stack with ``KAPPA_PLANES`` appended (the JAX pack's S = 3 and 6:
   the port keeps h and the metric of each flux as separate planes); the plain version
@@ -26,9 +28,11 @@ copies its operands into shared memory ahead of use: c over the tile and the ste
 ``REACH`` and ``acc`` per plane, u and v at the tile's faces, IV and the κ_h planes per
 layer, the metric planes once. It reconstructs each face of the tile once and forms
 the cells' divergence from the stored fluxes; in layered mode it loops over the
-layers, and per layer over the tracer blocks, and over a column stack's P planes, with
-the next plane's copies in flight. Plane p of a P-plane column launch is bitwise a
-one-plane launch on plane p.
+layers, and per layer over the tracer blocks, and over a column stack's P planes
+(an ensemble's B·n planes, member b's u and v copied at its first plane), with the
+next plane's copies in flight. Plane p of a P-plane column launch, and plane t of
+member b of an ensemble launch, is bitwise a one-plane launch on that plane over its
+own u and v.
 """
 
 from __future__ import annotations
@@ -51,8 +55,8 @@ KAPPA_PLANES = ("k_u", "k_v", "k_c")
 G_PLANES = ("dy_fc", "dx_cf")
 REACH = 3  # the kernel writes 0 within this many cells of the edge (its stencil's reach)
 # the kernel's modes (csrc/tracer_adv.cu:Mode): one column plane, P column planes over
-# one (u, v) pair, layered
-MODES = ("column", "planes", "layered")
+# one (u, v) pair, the B·n column planes of B members over B (u, v) pairs, layered
+MODES = ("column", "planes", "members", "layered")
 
 # The output tile of one CTA of csrc/tracer_adv.cu for each dtype, (rows, columns); the
 # source holds the same numbers and refuses a plan made for others.
@@ -68,8 +72,9 @@ class LaunchPlan:
     operands into shared memory, reconstructs the tile's x faces (rows of columns + 1)
     and y faces (rows + 1 of columns) once and forms each cell from them.
     ``smem_bytes[mode, kappa, acc]`` is its shared memory in each of ``MODES``
-    (two buffers of what a plane copies in "planes" and "layered" mode, and of what
-    a layer copies in "layered" mode)."""
+    (two buffers of what a plane copies in every mode but "column", of u and v in
+    "members" and "layered" mode, and of what else a layer copies in "layered"
+    mode)."""
 
     tile: tuple
     window: tuple
@@ -85,8 +90,9 @@ def _smem(tile, itemsize, mode, kappa, acc):
     faces, cells = TY * (TX + 1) + (TY + 1) * TX, TY * TX
     layered = mode == "layered"
     n_p, n_l = (1 if mode == "column" else 2), (2 if layered else 1)
+    n_v = 2 if mode in ("members", "layered") else 1
     # windows, fluxes, velocities, lengths (+ column thicknesses), IV, κ_h planes, acc
-    n = (n_p * window + faces + n_l * faces + faces + (0 if layered else faces)
+    n = (n_p * window + faces + n_v * faces + faces + (0 if layered else faces)
          + n_l * cells + (n_l * (faces + cells) if kappa else 0)
          + (n_p * cells if acc else 0))
     return n * itemsize
@@ -113,9 +119,16 @@ def _diffusion(c, k_u, k_v, k_c):
 
 def tracer_adv_plain(c, u, v, static, g_pack=None, dz=None, acc=None):
     """Column mode: G = -(δx(u h_u Δy cx) + δy(v h_v Δx cy)) · mask_c/(Az h_c) of
-    halo-filled (Yb, Xb) fields, for each plane of a (P, Yb, Xb) ``c``. Layered mode (``g_pack``, ``dz``): G = -(δx(u dz_k
-    Δy cx) + δy(v dz_k Δx cy)) · IV for every tracer block of ``c``. Plus the κ_h
-    Laplacian when the pack carries its planes, then ``acc``."""
+    halo-filled (Yb, Xb) fields, for each plane of a (P, Yb, Xb) ``c``, or of each
+    member's planes over its own u and v (u and v (B, Yb, Xb)). Layered mode
+    (``g_pack``, ``dz``): G = -(δx(u dz_k Δy cx) + δy(v dz_k Δx cy)) · IV for every
+    tracer block of ``c``. Plus the κ_h Laplacian when the pack carries its planes,
+    then ``acc``."""
+    if g_pack is None and u.dim() == 3:  # members: (B, n, Yb, Xb) tracers over (B, 1, ...)
+        G = tracer_adv_plain(c.reshape((u.shape[0], -1) + c.shape[-2:]), u[:, None],
+                             v[:, None], static)
+        G = G.reshape(c.shape)
+        return G if acc is None else G + acc
     if g_pack is None:
         h_u, dy_fc, h_v, dx_cf, inv_vol_c = static[:5]
         kappa = static[5:] if static.shape[0] == 8 else None
@@ -149,8 +162,10 @@ def tracer_adv(c, u, v, static, g_pack=None, dz=None, acc=None):
     and ``dz``, in layered mode (module docstring), with κ_h when the pack carries
     its planes, plus ``acc`` (shaped like ``c``) when given; only cells at least
     ``REACH`` from the array edge are meaningful (the kernel writes 0 there). The
-    launch counts as ``tracer_adv_planes`` for a column stack of P > 1 planes, else as
-    ``tracer_adv_kappa`` with κ_h, else as ``tracer_adv`` or ``tracer_adv_layered``."""
+    launch counts as ``tracer_adv_members`` for the planes of B > 1 members, else
+    as ``tracer_adv_planes`` for a column stack of P > 1 planes, else as
+    ``tracer_adv_kappa`` with κ_h, else as ``tracer_adv`` or ``tracer_adv_layered``.
+    One member (B = 1) is the launch of its planes over its (u, v) pair."""
     if (g_pack is None) != (dz is None):
         raise ValueError("tracer_adv: layered mode takes both g_pack and dz")
     Yb, Xb = c.shape[-2:]
@@ -159,6 +174,8 @@ def tracer_adv(c, u, v, static, g_pack=None, dz=None, acc=None):
         if n_st not in (5, 8):
             raise ValueError(f"tracer_adv: the column pack holds 5 planes, or 8 with "
                              f"κ_h, got shape {tuple(static.shape)}")
+        if u.dim() == 3:
+            return _members(c, u, v, static, acc, n_st)
         if c.dim() not in (2, 3) or c.numel() == 0:
             raise ValueError(f"tracer_adv: column mode takes a (Yb, Xb) plane or a "
                              f"(P, Yb, Xb) stack of P >= 1, got {tuple(c.shape)}")
@@ -200,4 +217,30 @@ def tracer_adv(c, u, v, static, g_pack=None, dz=None, acc=None):
          v.data_ptr(), static.data_ptr(), g_pack.data_ptr(), dz.data_ptr(), data_ptr(acc),
          G.data_ptr(), c.shape[0], nz, Yb, Xb, int(has_diff), *plan.tile)
     count("tracer_adv_kappa" if has_diff else "tracer_adv_layered")
+    return G
+
+
+def _members(c, u, v, static, acc, n_st):
+    """Column mode over the (B, Yb, Xb) velocities of B members: ``c`` is (B, Yb, Xb)
+    (one tracer) or (B, n, Yb, Xb), member-major, each member's planes over its own u
+    and v (one launch of ``Mode::Members``; B = 1 is the column or P-plane launch)."""
+    B, Yb, Xb = u.shape
+    if c.dim() not in (3, 4) or c.shape[0] != B or c.numel() == 0:
+        raise ValueError(f"tracer_adv: {B} members take (B, Yb, Xb) or (B, n, Yb, Xb) "
+                         f"tracers, got {tuple(c.shape)}")
+    tensors = _with_acc(dict(c=c, u=u, v=v, static=static), acc)
+    check_operands("tracer_adv", tensors, c.dtype,
+                   dict(v=u.shape, static=(n_st, Yb, Xb), acc=c.shape))
+    if not on_cuda(*tensors.values()):
+        return tracer_adv_plain(c, u, v, static, acc=acc)
+    if B == 1:
+        G = tracer_adv(c[0], u[0], v[0], static, acc=None if acc is None else acc[0])
+        return G[None]
+    n_planes = c.numel() // (Yb * Xb)
+    plan = launch_plan(Yb, Xb, c.dtype)
+    G = torch.empty_like(c)
+    call("osg_tracer_adv_members", c.dtype, c.device, c.data_ptr(), u.data_ptr(),
+         v.data_ptr(), static.data_ptr(), data_ptr(acc), G.data_ptr(), n_planes, B, Yb,
+         Xb, int(n_st == 8), *plan.tile)
+    count("tracer_adv_members")
     return G

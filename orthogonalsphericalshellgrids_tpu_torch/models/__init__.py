@@ -1,4 +1,5 @@
-from . import hydrostatic, layered, split_explicit
+from . import ensemble, hydrostatic, layered, split_explicit
+from .ensemble import ensemble_multi_step, ensemble_step, member, stack_members
 from .hydrostatic import (HydrostaticModel, State, compute_cfl_dt, from_jax_arrays,
                           initial_state, make_model, multi_step, state_from_numpy, step,
                           tendencies, vorticity)

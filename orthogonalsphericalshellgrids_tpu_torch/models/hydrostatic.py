@@ -43,6 +43,14 @@ fields (locally x-wrapped on a y-partition) and is launched before the exchange;
 the rows (and on a 2-D mesh the columns) within a halo of an exchanged edge are then
 recomputed on 3·H-wide strips of the filled fields (``split_tendencies``), bitwise
 equal to the unsplit step.
+
+An ensemble (``models/ensemble.py``, the counterpart of ``jax.vmap(step)``) runs
+through the same ``step``: every field of its ``State`` carries a leading member
+axis B, and ``t`` and ``iteration`` are (B,) tensors. The group fills take the
+member stacks as planes, the momentum and tracer kernels run every member in one
+launch (the momentum kernel's layer loop; the tracer kernel's member mode), the
+barotropic kernel over a member axis of its grid, and the AB2 weights are chosen per
+member.
 """
 
 from __future__ import annotations
@@ -84,7 +92,9 @@ class State:
     """Prognostic state: u/v/c and the previous tendencies on base-halo arrays (c and
     Gc (Ye, Xe) for one tracer, the (n, Ye, Xe) stack in ``tracer_names`` order for
     several); η/U/V on extended-halo arrays; ``t`` and ``iteration`` are 0-d
-    tensors."""
+    tensors. An ensemble's state (``models/ensemble.py``) has a leading member axis
+    B on every field ((B, n, Ye, Xe) for several tracers) and (B,) ``t`` and
+    ``iteration``."""
 
     u: Any
     v: Any
@@ -363,9 +373,10 @@ def embed_ext(grid: TripolarGrid, grid_ext: TripolarGrid, A):
 
 
 def crop_ext(grid: TripolarGrid, grid_ext: TripolarGrid, A):
+    """The base-halo window of an extended-halo array (a view; any leading axes)."""
     dy = grid_ext.Hy - grid.Hy
     dx = grid_ext.Hx - grid.Hx
-    return A[dy : dy + grid.Ny + 2 * grid.Hy, dx : dx + grid.Nx + 2 * grid.Hx]
+    return A[..., dy : dy + grid.Ny + 2 * grid.Hy, dx : dx + grid.Nx + 2 * grid.Hx]
 
 
 def initial_state(model: HydrostaticModel, u=None, v=None, c=None, eta=None) -> State:
@@ -470,12 +481,16 @@ def tendencies(model: HydrostaticModel, u, v, c, t=0.0):
     kernel (WENO-5) the advection of every plane and κ_h; the centered momentum, the
     other tracer schemes and the closures those kernels do not carry, wind, linear
     drag, the biharmonic terms and the forcing (a tracer's into its own plane) follow
-    in torch. ``t`` is the model time handed to the forcing functions."""
+    in torch. ``t`` is the model time handed to the forcing functions. u, v and c
+    may carry a leading member axis (an ensemble; then ``t`` is (B, 1, 1))."""
     g, ib = model.grid, model.ib
     mom_kernel = model.momentum_advection == "weno_vector_invariant"
     adv_kernel = model.tracer_advection == "weno5"
     if mom_kernel:
-        Gu, Gv = momentum.momentum(u, v, model.mom_pack, lay=model.mom_lay,
+        lay = model.mom_lay
+        if lay is not None and u.dim() == 3:  # members: the kernel's layers
+            lay = _member_lay(model, u.shape[0])
+        Gu, Gv = momentum.momentum(u, v, model.mom_pack, lay=lay,
                                    has_lap=model.nu_h > 0.0,
                                    has_drag=model.drag_type == "quadratic")
     else:
@@ -484,10 +499,13 @@ def tendencies(model: HydrostaticModel, u, v, c, t=0.0):
     if adv_kernel:
         Gc = tracer_adv.tracer_adv(c, u, v, model.adv_pack)
     else:
-        cx = tracer_faces(c, u, axis=-1, scheme=model.tracer_advection)
-        cy = tracer_faces(c, v, axis=-2, scheme=model.tracer_advection)
-        fx = u * ib.h_u * g.dy_fc * cx
-        fy = v * ib.h_v * g.dx_cf * cy
+        # the velocities at the tracer planes: a member's planes over its own pair
+        uc, vc = (a.reshape(a.shape[:-2] + (1,) * (c.dim() - a.dim()) + a.shape[-2:])
+                  for a in (u, v))
+        cx = tracer_faces(c, uc, axis=-1, scheme=model.tracer_advection)
+        cy = tracer_faces(c, vc, axis=-2, scheme=model.tracer_advection)
+        fx = uc * ib.h_u * g.dy_fc * cx
+        fy = vc * ib.h_v * g.dx_cf * cy
         Gc = -(dxc(fx) + dyc(fy)) * model.inv_vol_c
     # surface stress and bottom drag act on the whole column: force / h
     if model.wind:
@@ -518,12 +536,21 @@ def tendencies(model: HydrostaticModel, u, v, c, t=0.0):
                 Gu = Gu + fn(g.lam_fc, g.phi_fc, t, fields) * ib.mask_u
             elif name == "v":
                 Gv = Gv + fn(g.lam_cf, g.phi_cf, t, fields) * ib.mask_v
-            elif c.dim() == 2:
+            elif len(model.tracer_names) == 1:
                 Gc = Gc + fn(g.lam_cc, g.phi_cc, t, fields) * ib.mask_c
             else:  # Gc is a fresh tensor
-                Gc[model.tracer_names.index(name)] += fn(g.lam_cc, g.phi_cc, t,
-                                                         fields) * ib.mask_c
+                Gc[..., model.tracer_names.index(name), :, :] += fn(
+                    g.lam_cc, g.phi_cc, t, fields) * ib.mask_c
     return Gu, Gv, Gc
+
+
+def _member_lay(model, n_members):
+    """The momentum kernel's closure pack repeated for ``n_members`` members (its
+    layers), built once a model and member count."""
+    cache = model.__dict__.setdefault("_member_lay", {})
+    if n_members not in cache:
+        cache[n_members] = model.mom_lay.repeat(n_members, 1, 1)
+    return cache[n_members]
 
 
 # --------------------------------------------------------------------------------------
@@ -702,8 +729,16 @@ def step(model: HydrostaticModel, state: State, dt, spmd=None, overlap=None) -> 
     the rank's (``parallel/distributed.py``, ``distributed2d.py``), and both fills
     exchange with the neighbouring ranks. ``overlap`` splits the tendencies
     (``split_tendencies``): by default on a sharded run where ``overlap_supported``;
-    True where the split is not exact raises."""
+    True where the split is not exact raises.
+
+    An ensemble's ``state`` (a leading member axis, ``models/ensemble.py``) steps
+    every member at once, each with its own AB2 weights, at one ``dt``; it runs
+    serial only."""
     g, ge, ib = model.grid, model.grid_ext, model.ib
+    members = state.t.dim() == 1
+    if members and spmd is not None:
+        raise NotImplementedError("a sharded ensemble is not ported (ROADMAP queue 1: "
+                                  "ensembles of sharded runs)")
     overlap = _resolve_overlap(model, g, spmd, overlap)
     # a number becomes a device scalar by a fill launch; copying it from the host
     # (torch.as_tensor) would wait for the stream to drain on every step
@@ -711,7 +746,8 @@ def step(model: HydrostaticModel, state: State, dt, spmd=None, overlap=None) -> 
           torch.full((), float(dt), dtype=model.dtype, device=model.device))
 
     base, ext = (g.Nx, g.Ny, g.Hx, g.Hy), (ge.Nx, ge.Ny, ge.Hx, ge.Hy)
-    fields = [(state.u, FC, -1, *base), (state.v, CF, -1, *base), (state.c, CC, 1, *base),
+    c_planes = state.c.flatten(0, -3) if state.c.dim() > 3 else state.c
+    fields = [(state.u, FC, -1, *base), (state.v, CF, -1, *base), (c_planes, CC, 1, *base),
               (state.eta, CC, 1, *ext), (state.U, FC, -1, *ext), (state.V, CF, -1, *ext)]
     fill = GroupFill(fields, spmd, wrap=overlap)
     try:
@@ -723,10 +759,11 @@ def step(model: HydrostaticModel, state: State, dt, spmd=None, overlap=None) -> 
             Gu, Gv, Gc = tendencies_overlapped(model, state, spmd, fill)
         else:
             fill.fill()
-            Gu, Gv, Gc = tendencies(model, state.u, state.v, state.c, t=state.t)
-        Gu_s = w1 * Gu - w2 * state.Gu
-        Gv_s = w1 * Gv - w2 * state.Gv
-        Gc_s = w1 * Gc - w2 * state.Gc
+            t = state.t.reshape(-1, 1, 1) if members else state.t
+            Gu, Gv, Gc = tendencies(model, state.u, state.v, state.c, t=t)
+        Gu_s = _lead(w1, Gu) * Gu - _lead(w2, Gu) * state.Gu
+        Gv_s = _lead(w1, Gv) * Gv - _lead(w2, Gv) * state.Gv
+        Gc_s = _lead(w1, Gc) * Gc - _lead(w2, Gc) * state.Gc
 
         # depth-integrated forcing, valid through the widened halo after its fill
         GU, GV = _forcing_ext(ge, embed_ext(g, ge, ib.h_u * Gu_s),
@@ -747,12 +784,18 @@ def step(model: HydrostaticModel, state: State, dt, spmd=None, overlap=None) -> 
                  Gc=Gc, t=state.t + dt, iteration=state.iteration + 1)
 
 
+def _lead(w, A):
+    """A 0-d weight as it is; an ensemble's (B,) weights shaped to broadcast over the
+    member axis of ``A``."""
+    return w if w.dim() == 0 else w.reshape(w.shape + (1,) * (A.dim() - 1))
+
+
 def compute_cfl_dt(model: HydrostaticModel, state: State, cfl=0.3):
     """Advective-CFL time step cfl / max(|u|/Δx + |v|/Δy), as a 0-d tensor on the
-    model's device."""
+    model's device; an ensemble's as a (B,) tensor, one per member."""
     g = model.grid
     speed = torch.abs(state.u) * model.inv_dx_fc + torch.abs(state.v) * model.inv_dy_cf
-    smax = torch.max(g.interior(speed))
+    smax = torch.amax(g.interior(speed), dim=(-2, -1))
     return torch.where(smax > 0, cfl / smax, torch.full_like(smax, float("inf")))
 
 

@@ -1,9 +1,9 @@
 """Zipper north-fold boundary condition and fused halo filling.
 
-Counterpart: ``orthogonalsphericalshellgrids_tpu/ops/zipper.py`` (``fold_strip``,
-``wrap_x``, ``fill_halos``, ``fill_halos_batch``, ``fold_north_batch``; ``fold_north``
-and ``fill_south`` are folded into ``fill_halos``) and the fold arithmetic of
-``ops/spmd2d.py:_fold_arith`` (``fold_rows``). The reference's
+Counterpart: ``orthogonalsphericalshellgrids_tpu/ops/zipper.py``
+(``ZipperBoundaryCondition``, ``fold_strip``, ``fold_north``, ``wrap_x``,
+``fill_south``, ``fill_halos``, ``fill_halos_batch``, ``fold_north_batch``) and the
+fold arithmetic of ``ops/spmd2d.py:_fold_arith`` (``fold_rows``). The reference's
 ``ZipperBoundaryCondition`` (``src/zipper_boundary_condition.jl``): the tripolar grid
 is periodic in x and folded onto itself at the north edge, so the north halo of
 column i is read from the mirrored column i' on the other half of the fold, with a
@@ -22,20 +22,40 @@ tensor (the model path). Both are pure data movement times ±1, so the two are
 bitwise equal to each other and to the JAX package. Arrays are halo-inclusive with
 layout ``(..., y, x)`` of shape ``(..., Ny + 2*Hy, Nx + 2*Hx)``.
 
-Writes: ``fill_halos`` copies its input first unless ``inplace=True`` (the caller
-owns the buffer); ``wrap_x`` always writes in place. The model's step fills fresh
+Writes: ``fill_halos``, ``fold_north`` and ``fill_south`` copy their input first
+unless ``inplace=True`` (the caller owns the buffer); ``wrap_x`` always writes in
+place. The model's step fills fresh
 copies in place (``kernels/halo_fill.py`` is the CUDA counterpart).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .location import CENTER, validate_location
 
-__all__ = ["fold_strip", "fold_rows", "wrap_x", "fill_halos", "fill_halos_batch",
-           "fold_north_batch"]
+__all__ = ["ZipperBoundaryCondition", "fold_strip", "fold_rows", "fold_north", "wrap_x",
+           "fill_south", "fill_halos", "fill_halos_batch", "fold_north_batch"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ZipperBoundaryCondition:
+    """The north-fold boundary condition with an explicit sign: the reference's
+    second public export (``src/OrthogonalSphericalShellGrids.jl:4``; constructor
+    ``src/zipper_boundary_condition.jl:52``, default ``sign = 1``). In the fills a
+    boundary condition is the (fold, sign) pair they apply; this class lets user
+    code override the location's default sign (``ops/location.default_zipper_sign``)
+    as in the reference, e.g. +1 on a face-located scalar."""
+
+    sign: int = 1
+
+    def apply(self, A, loc, grid):
+        """``A`` (halo-inclusive ``(..., y, x)`` at ``loc``, numpy or torch) with its
+        north halo filled across the fold with this sign, as a new array."""
+        return fold_north(A, loc, self.sign, grid.Nx, grid.Ny, grid.Hx, grid.Hy)
 
 
 def _is_torch(A):
@@ -139,6 +159,36 @@ def fill_halos_batch(S, locs, signs, Nx, Ny, Hx, Hy, south="zero_gradient"):
         S = S.clone() if _is_torch(S) else np.array(S, copy=True)
         S[..., 0:Hy, :] = S[..., Hy:Hy + 1, :]
     return wrap_x(fold_north_batch(S, locs, signs, Nx, Ny, Hx, Hy), Nx, Hx)
+
+
+def _owned(A, inplace):
+    if inplace:
+        return A
+    return A.clone() if _is_torch(A) else np.array(A, copy=True)
+
+
+def fold_north(A, loc, sign, Nx, Ny, Hx, Hy, inplace=False):
+    """The zipper fold: the north halo rows (and, at center-y locations, the
+    redundant half of the last interior row) rewritten, with the periodic wrap of
+    their x-halo columns (the reference's fill order: east/west after the fold,
+    ``test/test_zipper_boundary_conditions.jl:39-45``). Returns the array."""
+    A = _owned(A, inplace)
+    full, y0 = fold_strip(A, loc, sign, Nx, Ny, Hx, Hy)
+    A[..., y0:Hy + Ny + Hy, :] = full
+    return A
+
+
+def fill_south(A, Ny, Hy, mode, inplace=False):
+    """The south halo rows: ``"zero_gradient"`` copies the first interior row into
+    them; ``"none"`` leaves them (the grid-construction path; the reference leaves
+    the south open, ``src/tripolar_grid.jl:149``) and returns ``A`` itself."""
+    if mode == "none" or Hy == 0:
+        return A
+    if mode != "zero_gradient":
+        raise ValueError(f"Unknown south fill mode {mode!r}")
+    A = _owned(A, inplace)
+    A[..., 0:Hy, :] = A[..., Hy:Hy + 1, :]
+    return A
 
 
 def wrap_x(A, Nx, Hx):

@@ -67,20 +67,22 @@ def test_plan_fits_shared_memory(dtype):
     """Every mode fits one block's shared memory, and four CTAs an SM at float32 (the
     register budget of csrc/tracer_adv.cu:Tile); layered mode double-buffers what a
     plane and a layer copy, the P-plane column mode what a plane copies (the window
-    and acc), and κ_h and acc each take their own planes."""
+    and acc), the member mode that and u and v, and κ_h and acc each take their own
+    planes."""
     plan = tracer_adv.launch_plan(*MAIN, dtype)
     sm = plan.smem_bytes
-    assert len(sm) == 12 and max(sm.values()) <= SMEM_PER_BLOCK and plan.threads <= 1024
+    assert len(sm) == 16 and max(sm.values()) <= SMEM_PER_BLOCK and plan.threads <= 1024
     if dtype == torch.float32:
         assert 4 * (max(sm.values()) + 1024) <= SMEM_PER_SM
     item = torch.empty((), dtype=dtype).element_size()
-    window, cells = 22 * 38, 16 * 32
+    window, cells, faces = 22 * 38, 16 * 32, 16 * 33 + 17 * 32
     for kappa in (False, True):
         for acc in (False, True):
             assert sm["layered", kappa, acc] > sm["column", kappa, acc]
             assert sm["layered", kappa, acc] > sm["planes", kappa, acc]
             assert (sm["planes", kappa, acc] - sm["column", kappa, acc]
                     == (window + (cells if acc else 0)) * item)
+            assert sm["members", kappa, acc] - sm["planes", kappa, acc] == faces * item
             assert sm["layered", True, acc] > sm["layered", False, acc]
             assert sm["layered", kappa, True] > sm["layered", kappa, False]
 
@@ -163,10 +165,12 @@ def replay(c, u, v, static, plan, g_pack=None, dz=None, acc=None):
         c3, u3, v3 = c, u, v
         lp = static.reshape(nz, S, Yb, Xb)
         diff = S == 4
-    else:  # one plane, or a column stack of P planes over one (u, v) pair
-        nz = 1
-        c3, u3, v3 = (c if c.dim() == 3 else c[None]), u[None], v[None]
-        lp = static[None, 4:]
+    else:  # one plane, a column stack of P planes over one (u, v) pair, or members
+        members = u.dim() == 3  # member k's n planes over its own (u, v), as layers
+        u3, v3 = (u, v) if members else (u[None], v[None])
+        nz = u3.shape[0]
+        c3 = c.reshape((-1,) + c.shape[-2:])
+        lp = static[None, 4:].expand((nz,) + static[4:].shape)
         diff = static.shape[0] == 8
     n_blocks = c3.shape[0] // nz
     acc3 = None if acc is None else acc.reshape(c3.shape)
@@ -210,11 +214,11 @@ def replay(c, u, v, static, plan, g_pack=None, dz=None, acc=None):
                 if layered:
                     ux, vy, h_x, h_y, len_x, len_y = xf(u3[k]), yf(v3[k]), dz[k], dz[k], dyx, dxy
                 else:
-                    ux, vy = xf(u3[0]), yf(v3[0])
+                    ux, vy = xf(u3[k]), yf(v3[k])
                     h_x, len_x = xf(static[0]), xf(static[1])
                     h_y, len_y = yf(static[2]), yf(static[3])
                 for t in range(n_blocks):
-                    plane = t * nz + k
+                    plane = k * n_blocks + t if not layered and members else t * nz + k
                     sc = region(c3[plane], y0 - R, x0 - R, WY, WX)
                     # x face lx of row ly: window row ly+3, columns lx..lx+5
                     sx = [sc[R:R + TY, d:d + TX + 1] for d in range(6)]
@@ -236,12 +240,13 @@ def replay(c, u, v, static, plan, g_pack=None, dz=None, acc=None):
                         out = out + cell(acc3[plane])
                     G[plane, y0:y0 + ny, x0:x0 + nx] = torch.where(edge, zero, out[:ny, :nx])
                     writes[plane, y0:y0 + ny, x0:x0 + nx] += 1
-    return (G, writes) if c.dim() == 3 else (G[0], writes[0])
+    return (G.reshape(c.shape), writes.reshape(c.shape))
 
 
 def _inputs(mode, n_tr, kappa, Yb, Xb, seed, nz=3):
     """(args, acc) of one tracer call at float64: column mode with the 5- or 8-plane
-    pack (``planes``: a stack of ``n_tr`` tracer planes, some rows exactly 0), or
+    pack (``planes``: a stack of ``n_tr`` tracer planes, some rows exactly 0;
+    ``members``: ``nz`` members of ``n_tr`` planes each over their own u and v), or
     layered mode over masked velocities with S = 1 or 4; the κ_h term and acc drawn
     at 1e-1 to 1 of the tendency."""
     r = np.random.default_rng(seed)
@@ -265,6 +270,15 @@ def _inputs(mode, n_tr, kappa, Yb, Xb, seed, nz=3):
             st[7] *= 0.1
         args = (t(c), t(u), t(v), t(st))
         shape = c.shape
+    elif mode == "members":
+        u, v = r.standard_normal((2, nz, Yb, Xb))
+        c = r.standard_normal((nz, n_tr, Yb, Xb) if n_tr > 1 else (nz, Yb, Xb))
+        c[1:, ..., : Yb // 3, :] = 0.0
+        st = 1.0 + r.random((8 if kappa else 5, Yb, Xb))
+        if kappa:
+            st[7] *= 0.1
+        args = (t(c), t(u), t(v), t(st))
+        shape = c.shape
     else:
         mask = (r.random((nz, Yb, Xb)) > 0.2).astype(np.float64)
         u = r.standard_normal((nz, Yb, Xb)) * mask
@@ -281,8 +295,9 @@ def _inputs(mode, n_tr, kappa, Yb, Xb, seed, nz=3):
 
 
 MODES = [("column", 1, False), ("column", 1, True), ("planes", 3, False),
-         ("planes", 2, True), ("layered", 1, False), ("layered", 2, False),
-         ("layered", 1, True), ("layered", 2, True)]
+         ("planes", 2, True), ("members", 1, False), ("members", 2, True),
+         ("layered", 1, False), ("layered", 2, False), ("layered", 1, True),
+         ("layered", 2, True)]
 
 
 @pytest.mark.parametrize("mode,n_tr,kappa", MODES)
@@ -309,7 +324,7 @@ def test_tiled_replay_matches_plain(mode, n_tr, kappa, with_acc, Yb, Xb):
 
 
 @pytest.mark.parametrize("mode,n_tr,kappa", [("column", 1, True), ("planes", 3, True),
-                                           ("layered", 2, True)])
+                                           ("members", 2, True), ("layered", 2, True)])
 def test_tiled_replay_independent_of_the_tile(mode, n_tr, kappa):
     """Two tiles (the float64 one and 8 x 64, so other tile edges and other windows)
     give the same bits everywhere: each face is reconstructed from the same cells."""
@@ -333,6 +348,26 @@ def test_tiled_replay_planes_are_one_plane_launches(n_tr, kappa):
         for p in range(n_tr):
             one = replay(c[p], u, v, st, plan, acc=None if a is None else a[p])[0]
             assert torch.equal(G[p], one)
+
+
+@pytest.mark.parametrize("n_tr", [1, 2])
+@pytest.mark.parametrize("kappa", [False, True])
+def test_tiled_replay_members_are_one_plane_launches(n_tr, kappa):
+    """Plane t of member b of a member launch is the one-plane launch on that plane
+    over member b's u and v, bit for bit, with acc and without."""
+    args, acc = _inputs("members", n_tr, kappa, 41, 97, seed=13 + n_tr + 2 * kappa)
+    c, u, v, st = args
+    B = u.shape[0]
+    plan = tracer_adv.launch_plan(41, 97, torch.float64)
+    for a in (None, acc):
+        G = replay(c, u, v, st, plan, acc=a)[0].reshape(B, n_tr, 41, 97)
+        c4 = c.reshape(B, n_tr, 41, 97)
+        a4 = None if a is None else a.reshape(B, n_tr, 41, 97)
+        for b in range(B):
+            for p in range(n_tr):
+                one = replay(c4[b, p], u[b], v[b], st, plan,
+                             acc=None if a4 is None else a4[b, p])[0]
+                assert torch.equal(G[b, p], one), (b, p)
 
 
 def test_tiled_replay_matches_pallas():

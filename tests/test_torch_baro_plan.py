@@ -74,55 +74,87 @@ def test_plan_fits_shared_memory(dtype):
 
 
 def replay(static, eta, U, V, GU, GV, dtau, weights, Nx, Hx, wrap, plan):
-    """The tile algorithm of csrc/barotropic.cu, one window at a time."""
-    Ye, Xe = eta.shape
+    """The tile algorithm of csrc/barotropic.cu, one window at a time. With (B, Ye, Xe)
+    members the kernel's addressing is replayed on flat buffers: member b (the grid's
+    z index) reads and writes its planes at b·P from each component, the work sets
+    and the averages hold (3, B, Ye, Xe)."""
+    B = eta.shape[0] if eta.dim() == 3 else 1
+    Ye, Xe = eta.shape[-2:]
+    P = Ye * Xe
+    MP = B * P  # one component of every member
     (WY, WX), (TY, TX), k = plan.window, plan.tile, plan.k
     dy_fc, dx_cf, inv_az, gh_u, gh_v, inv_dx, inv_dy, mask_u, mask_v = static
-    planes = (dy_fc, dx_cf, dtau * inv_az, dtau * gh_u * inv_dx, dtau * gh_v * inv_dy,
-              mask_u, mask_v, dtau * GU, dtau * GV)
-    state = (eta, U, V)
-    acc = torch.zeros((3, Ye, Xe), dtype=eta.dtype)
+    acc_flat = torch.zeros(3 * MP, dtype=eta.dtype)
+    work = torch.zeros(2 * 3 * MP, dtype=eta.dtype)
+    sources = [(a.reshape(-1), 0) for a in (eta, U, V)]  # (buffer, component offset)
     ty, tx = torch.arange(WY), torch.arange(WX)
-    for m0, m1 in plan.launches:
-        nxt = torch.zeros((3, Ye, Xe), dtype=eta.dtype)
-        for by in range(plan.grid[0]):
-            for bx in range(plan.grid[1]):
-                rows, L = by * TY - k + ty, bx * TX - k + tx
-                gx = Hx + (L - Hx) % Nx if wrap else L
-                inside = ((rows >= 0) & (rows < Ye))[:, None] & (
-                    torch.ones(WX, dtype=torch.bool) if wrap else (L >= 0) & (L < Xe))[None]
-                r, c = rows.clamp(0, Ye - 1), gx.clamp(0, Xe - 1)
 
-                def win(A, cols=c):
-                    return torch.where(inside, A[r][:, cols], torch.zeros((), dtype=A.dtype))
+    def plane(buf, off):
+        return buf[off:off + P].view(Ye, Xe)
 
-                dy, dx, caz, cu, cv, mu, mv, gu, gv = (win(p) for p in planes)
-                e, u, v = (win(s) for s in state)
-                seam = (gx == Hx) if wrap else torch.zeros(WX, dtype=torch.bool)
-                east = torch.full((WX,), min(Hx + Nx, Xe - 1))
-                seam_dy, seam_u0 = win(dy_fc, east), win(U, east)
-                tile = ((ty >= k) & (ty < WY - k) & (rows < Ye))[:, None] & (
-                    (tx >= k) & (tx < WX - k) & (L < Xe))[None]
-                Lc = L.clamp(0, Xe - 1)
-                a = torch.where(tile, acc[:, r][:, :, Lc], 0.0) if m0 > 0 else \
-                    torch.zeros((3, WY, WX), dtype=eta.dtype)
-                for m in range(m0, m1):
-                    fx, fy = dy * u, dx * v
-                    pub = torch.where(seam, seam_dy * (seam_u0 if m == 0 else u), fx)
-                    fx_e = torch.cat([pub[:, 1:], pub[:, -1:]], 1)
-                    fy_n = torch.cat([fy[1:], fy[-1:]], 0)
-                    e = e - caz * ((fx_e - fx) + (fy_n - fy))
-                    e_w = torch.cat([e[:, :1], e[:, :-1]], 1)
-                    e_s = torch.cat([e[:1], e[:-1]], 0)
-                    u = (u - (cu * (e - e_w) - gu)) * mu
-                    v = (v - (cv * (e - e_s) - gv)) * mv
-                    w = weights[m]
-                    a = a + w * torch.stack([e, u, v])
-                ii, jj = torch.nonzero(tile, as_tuple=True)
-                acc[:, rows[ii], L[jj]] = a[:, ii, jj]
-                nxt[:, rows[ii], L[jj]] = torch.stack([e, u, v])[:, ii, jj]
-        state = tuple(nxt)
-    return acc
+    for l, (m0, m1) in enumerate(plan.launches):
+        out0 = (l % 2) * 3 * MP
+        for b in range(B):
+            mo = b * P
+            state = tuple(plane(buf, off + mo) for buf, off in sources)
+            gu_m, gv_m = (plane(a.reshape(-1), mo) for a in (GU, GV))
+            acc = torch.stack([plane(acc_flat, c * MP + mo) for c in range(3)])
+            nxt = torch.zeros((3, Ye, Xe), dtype=eta.dtype)
+            planes = (dy_fc, dx_cf, dtau * inv_az, dtau * gh_u * inv_dx,
+                      dtau * gh_v * inv_dy, mask_u, mask_v, dtau * gu_m, dtau * gv_m)
+            U0 = state[1] if m0 == 0 else None
+            _launch(planes, state, acc, nxt, weights, m0, m1, Nx, Hx, wrap, plan, dy_fc,
+                    U0, ty, tx)
+            for c in range(3):
+                plane(acc_flat, c * MP + mo).copy_(acc[c])
+                plane(work, out0 + c * MP + mo).copy_(nxt[c])
+        sources = [(work, out0 + c * MP) for c in range(3)]
+    return acc_flat.view((3,) + tuple(eta.shape))
+
+
+def _launch(planes, state, acc, nxt, weights, m0, m1, Nx, Hx, wrap, plan, dy_fc, U0,
+            ty, tx):
+    """One launch of one member: every window of the plan, substeps [m0, m1); the
+    averages in ``acc`` and the state in ``nxt``, written at the tiles' cells."""
+    Ye, Xe = acc.shape[-2:]
+    (WY, WX), (TY, TX), k = plan.window, plan.tile, plan.k
+    for by in range(plan.grid[0]):
+        for bx in range(plan.grid[1]):
+            rows, L = by * TY - k + ty, bx * TX - k + tx
+            gx = Hx + (L - Hx) % Nx if wrap else L
+            inside = ((rows >= 0) & (rows < Ye))[:, None] & (
+                torch.ones(WX, dtype=torch.bool) if wrap else (L >= 0) & (L < Xe))[None]
+            r, c = rows.clamp(0, Ye - 1), gx.clamp(0, Xe - 1)
+
+            def win(A, cols=c):
+                return torch.where(inside, A[r][:, cols], torch.zeros((), dtype=A.dtype))
+
+            dy, dx, caz, cu, cv, mu, mv, gu, gv = (win(p) for p in planes)
+            e, u, v = (win(s) for s in state)
+            seam = (gx == Hx) if wrap else torch.zeros(WX, dtype=torch.bool)
+            east = torch.full((WX,), min(Hx + Nx, Xe - 1))
+            seam_dy = win(dy_fc, east)
+            seam_u0 = win(U0, east) if U0 is not None else None
+            tile = ((ty >= k) & (ty < WY - k) & (rows < Ye))[:, None] & (
+                (tx >= k) & (tx < WX - k) & (L < Xe))[None]
+            Lc = L.clamp(0, Xe - 1)
+            a = torch.where(tile, acc[:, r][:, :, Lc], 0.0) if m0 > 0 else \
+                torch.zeros((3, WY, WX), dtype=acc.dtype)
+            for m in range(m0, m1):
+                fx, fy = dy * u, dx * v
+                pub = torch.where(seam, seam_dy * (seam_u0 if m == 0 else u), fx)
+                fx_e = torch.cat([pub[:, 1:], pub[:, -1:]], 1)
+                fy_n = torch.cat([fy[1:], fy[-1:]], 0)
+                e = e - caz * ((fx_e - fx) + (fy_n - fy))
+                e_w = torch.cat([e[:, :1], e[:, :-1]], 1)
+                e_s = torch.cat([e[:1], e[:-1]], 0)
+                u = (u - (cu * (e - e_w) - gu)) * mu
+                v = (v - (cv * (e - e_s) - gv)) * mv
+                w = weights[m]
+                a = a + w * torch.stack([e, u, v])
+            ii, jj = torch.nonzero(tile, as_tuple=True)
+            acc[:, rows[ii], L[jj]] = a[:, ii, jj]
+            nxt[:, rows[ii], L[jj]] = torch.stack([e, u, v])[:, ii, jj]
 
 
 def _inputs(Ny, Nx, H, seed):

@@ -10,6 +10,9 @@ JAX tests' own limits:
 - a tracer blob advected through the zipper fold by a frozen fold-consistent flow
   keeps its content (1e-8 before it reaches the seam row, 1e-6 after the crossing)
   and re-emerges at the mirrored column.
+
+Each check is a function of the device; ``tests/test_torch_cuda.py`` runs the same
+three through the kernels on a card.
 """
 
 import os
@@ -44,20 +47,24 @@ def _hav(lam1, phi1, lam2, phi2, radius):
 
 
 def _np(a):
-    return a.numpy()
+    return a.cpu().numpy()
 
 
 def test_gravity_wave_speed():
     """The surface ring's elevation maximum travels at √(gH) along the meridian
     through the bump, deep in the lat-lon region (``tests/test_gravity_wave.py``)."""
-    grid = TripolarGrid.make((180, 90, 1), dtype=torch.float64, z=(-H, 0.0), device="cpu")
+    gravity_wave_speed("cpu")
+
+
+def gravity_wave_speed(device):
+    grid = TripolarGrid.make((180, 90, 1), dtype=torch.float64, z=(-H, 0.0), device=device)
 
     def bottom(lam, phi):
         land = (((np.abs(lam - 70.0) < 12) | (np.abs(lam - 250.0) < 12)) & (phi > 45))
         return np.where(land, 1.0, -H - 1.0)
 
     model = TH.make_model(grid, free_surface=SplitExplicitFreeSurface(substeps=30),
-                          bottom_height=bottom, device="cpu")
+                          bottom_height=bottom, device=device)
     lam0, phi0 = 90.0, -40.0
 
     def eta0(lam, phi):
@@ -89,16 +96,20 @@ def test_internal_gravity_wave_speed_two_layer():
     c² = Δb·h/4, measured from the ring-peak radius at two times, and the
     measurement tells it from the isopycnal √(Δb·h1·h2/H)
     (``tests/test_gravity_wave.py:test_internal_gravity_wave_speed_two_layer``)."""
+    internal_gravity_wave_speed_two_layer("cpu")
+
+
+def internal_gravity_wave_speed_two_layer(device):
     H2, hl, B0 = 1000.0, 500.0, 0.05
     R = 6371000.0 / 64.0
     grid = TripolarGrid.make((180, 90, 2), dtype=torch.float64, z=(-H2, 0.0), radius=R,
-                             device="cpu")
+                             device=device)
 
     def bottom(lam, phi):
         return np.where((phi > 30.0) | (phi < -60.0), 1.0, -H2 - 1.0)
 
     model = TL.make_layered_model(grid, free_surface=SplitExplicitFreeSurface(substeps=30),
-                                  bottom_height=bottom, buoyancy=True, device="cpu")
+                                  bottom_height=bottom, buoyancy=True, device=device)
     lam0, phi0 = 90.0, -40.0
 
     def bi(lam, phi, z):
@@ -136,22 +147,26 @@ def test_blob_crosses_fold():
     its content and re-emerges at the mirrored column moving south in index space
     (``tests/test_fold_advection.py``); advection-only Euler steps on the tracer
     tendency."""
+    blob_crosses_fold("cpu")
+
+
+def blob_crosses_fold(device):
     nx, ny = 64, 48
     grid = TripolarGrid.make((nx, ny, 1), dtype=torch.float64, first_pole_longitude=45.0,
-                             north_poles_latitude=55.0, device="cpu")
+                             north_poles_latitude=55.0, device=device)
     model = TH.make_model(grid, free_surface=SplitExplicitFreeSurface(substeps=8),
-                          device="cpu")
+                          device=device)
 
     j_blob, i_blob, sig = ny - 20, nx // 4, 3.0
     jj, ii = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
     blob = np.exp(-((jj - j_blob) ** 2 + (ii - i_blob) ** 2) / (2 * sig**2))
     blob = np.where(blob > 1e-10, blob, 0.0)
-    c0 = torch.zeros(grid.shape2d, dtype=torch.float64)
-    c0[grid.interior2d] = torch.as_tensor(blob)
+    c0 = torch.zeros(grid.shape2d, dtype=torch.float64, device=device)
+    c0[grid.interior2d] = torch.as_tensor(blob, device=device)
     # northward on the blob's half, southward on the mirrored half: through the seam
-    v0 = torch.zeros(grid.shape2d, dtype=torch.float64)
-    v0[grid.interior2d] = torch.as_tensor(np.where(ii < nx // 2, 0.5, -0.5))
-    u0 = torch.zeros(grid.shape2d, dtype=torch.float64)
+    v0 = torch.zeros(grid.shape2d, dtype=torch.float64, device=device)
+    v0[grid.interior2d] = torch.as_tensor(np.where(ii < nx // 2, 0.5, -0.5), device=device)
+    u0 = torch.zeros(grid.shape2d, dtype=torch.float64, device=device)
 
     def advect(c, dt):
         S = zipper.fill_halos_batch(torch.stack([u0, v0, c]), [FC, CF, CC], [-1, -1, 1],

@@ -12,6 +12,7 @@ multiply by ±1, so the group fill (with and without its save), the group restor
 and the out-of-place fill are held bitwise.
 """
 
+import dataclasses
 import os
 import sys
 
@@ -307,7 +308,7 @@ def test_cuda_barotropic_refuses_what_it_cannot_run():
         kernels.call("osg_barotropic", torch.float32, eta.device, static.data_ptr(),
                      eta.data_ptr(), U.data_ptr(), V.data_ptr(), GU.data_ptr(),
                      GV.data_ptr(), 0, acc.data_ptr(), dtau.data_ptr(), w.data_ptr(), 7,
-                     *eta.shape, 30, 8, 0, 7, 32, 48)
+                     1, *eta.shape, 30, 8, 0, 7, 32, 48)
     with pytest.raises(ValueError, match="x-wrap"):
         barotropic.barotropic_substeps(static, eta, U, V, GU, GV, dtau, w, 29, 8, True)
 
@@ -1271,3 +1272,210 @@ def test_cuda_local_exchange_2d_step_bitwise(which, mesh, mode):
             assert counts["halo_pack_block"] == counts["halo_fill_block"] == 12, counts
             assert counts["halo_restore"] == 3 and counts["halo_wrap"] == 0, counts
             assert counts["halo_pack"] == counts["halo_fill_shard"] == 0, counts
+
+
+# ------------------------------------------------------------------------------------
+# ensembles: the member axis of the barotropic, tracer and momentum kernels
+# ------------------------------------------------------------------------------------
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("wrap", [False, True])
+@pytest.mark.parametrize("substeps,Ny,Nx", [(10, 10, 12), (24, 53, 37), (44, 61, 97)])
+@pytest.mark.parametrize("B", [1, 3, 4])
+def test_cuda_barotropic_members(dtype, wrap, substeps, Ny, Nx, B):
+    """B members in one wrapper call (one ``barotropic`` count) at odd shapes: each
+    member bitwise its own one-member call, the stack within the band of the plain
+    version, the inputs unchanged."""
+    from orthogonalsphericalshellgrids_tpu_torch.models.split_explicit import (
+        averaging_weights)
+
+    w = averaging_weights(substeps)[1]
+    n_sub, H = len(w), len(w) + 1
+    sets = [_baro_inputs(Ny, Nx, H, dtype, seed=substeps + 7 * b) for b in range(B)]
+    static = sets[0][0]
+    stacks = [torch.stack([s[k] for s in sets]) for k in range(1, 6)]
+    kept = [a.clone() for a in stacks]
+    tail = (torch.tensor(0.01, dtype=dtype, device="cuda"),
+            torch.as_tensor(w, dtype=dtype, device="cuda"), Nx, H, wrap)
+    kernels.reset_launch_counts()
+    got = barotropic.barotropic_substeps(static, *stacks, *tail)
+    assert kernels.launch_counts()["barotropic"] == 1
+    assert all(g.shape == (B, Ny + 2 * H, Nx + 2 * H) and g.is_contiguous() for g in got)
+    want = barotropic.barotropic_substeps_plain(static, *stacks, *tail)
+    I = (slice(n_sub, -n_sub), slice(None) if wrap else slice(n_sub, -n_sub))
+    for g, ww in zip(got, want):
+        assert _rel_err(g, ww, I) <= BANDS[dtype]
+        assert torch.isfinite(g).all()
+    for b in range(B):
+        one = barotropic.barotropic_substeps(static, *(s[b] for s in stacks), *tail)
+        for name, g, o in zip(("eta", "U", "V"), got, one):
+            assert torch.equal(g[b], o), (b, name)
+    for a, a0 in zip(stacks, kept):
+        assert torch.equal(a, a0)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n", [(2, 1), (3, 1), (4, 1), (2, 2), (3, 2)])
+@pytest.mark.parametrize("kappa", [False, True])
+@pytest.mark.parametrize("with_acc", [False, True])
+def test_cuda_tracer_adv_members(dtype, B, n, kappa, with_acc):
+    """The member mode (one launch, counted as ``tracer_adv_members``) against its
+    plain version, and each member's plane bitwise a one-plane launch over that
+    member's u and v (some rows of the later planes exactly 0, as on land)."""
+    Yb, Xb = 37, 131
+    r = np.random.default_rng(B + 5 * n + 11 * kappa + 23 * with_acc)
+    shape = (B, Yb, Xb) if n == 1 else (B, n, Yb, Xb)
+    c = r.standard_normal(shape)
+    c[1:, ..., : Yb // 3, :] = 0.0
+    u, v = r.standard_normal((2, B, Yb, Xb))
+    static = 1.0 + r.random((8 if kappa else 5, Yb, Xb))
+    c, u, v, static = (torch.as_tensor(a, dtype=dtype, device="cuda")
+                       for a in (c, u, v, static))
+    acc = (torch.as_tensor(0.5 * r.standard_normal(shape), dtype=dtype, device="cuda")
+           if with_acc else None)
+    R = tracer_adv.REACH
+    kernels.reset_launch_counts()
+    got = tracer_adv.tracer_adv(c, u, v, static, acc=acc)
+    counts = kernels.launch_counts()
+    assert counts["tracer_adv_members"] == 1 and sum(counts.values()) == 1
+    want = tracer_adv.tracer_adv_plain(c, u, v, static, acc=acc)
+    assert _rel_err(got, want, (slice(R, -R), slice(R, -R))) <= BANDS[dtype]
+    assert torch.isfinite(got).all() and _edge_zero(got, R)
+    g4 = got.reshape(B, n, Yb, Xb)
+    c4, a4 = c.reshape(B, n, Yb, Xb), None if acc is None else acc.reshape(B, n, Yb, Xb)
+    for b in range(B):
+        for t in range(n):
+            one = tracer_adv.tracer_adv(c4[b, t].contiguous(), u[b].contiguous(),
+                                        v[b].contiguous(), static,
+                                        acc=None if a4 is None else a4[b, t].contiguous())
+            assert torch.equal(g4[b, t], one), (b, t)
+
+
+@needs_cuda
+def test_cuda_tracer_adv_members_route_and_refusals():
+    """One member takes the column (or P-plane) launch; the member entry refuses
+    planes that the members do not divide and a plan for another tile, writing
+    nothing."""
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import call
+
+    c, u, v, static = _adv_inputs(torch.float32)
+    kernels.reset_launch_counts()
+    one = tracer_adv.tracer_adv(c[None].contiguous(), u[None].contiguous(),
+                                v[None].contiguous(), static)
+    assert kernels.launch_counts()["tracer_adv"] == 1
+    assert torch.equal(one[0], tracer_adv.tracer_adv(c, u, v, static))
+    Yb, Xb = c.shape
+    c3, u2, v2 = torch.stack([c, c, c]), torch.stack([u, u]), torch.stack([v, v])
+    G = torch.full_like(c3, 7.0)
+    TY, TX = tracer_adv.launch_plan(Yb, Xb, torch.float32).tile
+    for n_planes, n_members, tile in ((3, 2, (TY, TX)), (2, 2, (TY // 2, TX)),
+                                      (2, 0, (TY, TX))):
+        with pytest.raises(RuntimeError):
+            call("osg_tracer_adv_members", torch.float32, c.device, c3.data_ptr(),
+                 u2.data_ptr(), v2.data_ptr(), static.data_ptr(), None, G.data_ptr(),
+                 n_planes, n_members, Yb, Xb, 0, *tile)
+    torch.cuda.synchronize()
+    assert (G == 7.0).all()
+    with pytest.raises(ValueError, match="members"):
+        tracer_adv.tracer_adv(c3, u2, v2, static)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("closures", [False, True])
+def test_cuda_momentum_members(dtype, closures):
+    """A (B, Yb, Xb) member stack with the masked 10-plane pack through the kernel's
+    layer loop: each member bitwise its one-plane launch, with the closure pack
+    repeated per member when it is given."""
+    B = 4
+    r = np.random.default_rng(31 + closures)
+    u, v, static = _mom_inputs(dtype, seed=31)
+    u = torch.as_tensor(r.standard_normal((B,) + tuple(u.shape)), dtype=dtype,
+                        device="cuda")
+    v = torch.as_tensor(r.standard_normal(tuple(u.shape)), dtype=dtype, device="cuda")
+    lay = (torch.as_tensor(0.1 * (0.5 + r.random((8,) + tuple(u.shape[1:]))), dtype=dtype,
+                           device="cuda") if closures else None)
+    kw = dict(has_lap=closures, has_drag=closures)
+    got = momentum.momentum(u, v, static, lay=None if lay is None else lay.repeat(B, 1, 1),
+                            **kw)
+    for b in range(B):
+        one = momentum.momentum(u[b].contiguous(), v[b].contiguous(), static, lay=lay, **kw)
+        assert torch.equal(got[0][b], one[0]) and torch.equal(got[1][b], one[1]), b
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_tracers", [1, 2])
+def test_cuda_ensemble_step_bitwise(dtype, n_tracers):
+    """Three members (at iterations 0, 1 and 0) stepped together on the card: each
+    bitwise its own serial steps, and a step launching each kernel as often as one
+    serial step does."""
+    from examples.bickley_jet_torch import build
+
+    from orthogonalsphericalshellgrids_tpu_torch.models import ensemble
+
+    model, base = build(48, 40, dtype=dtype, substeps=12, device="cuda")
+    if n_tracers > 1:  # a second tracer, c², on the same grid and bottom
+        from examples.bickley_jet_torch import bottom_height
+
+        from orthogonalsphericalshellgrids_tpu_torch.models import SplitExplicitFreeSurface
+
+        model = TH.make_model(model.grid, free_surface=SplitExplicitFreeSurface(substeps=12),
+                              bottom_height=bottom_height(), tracers=("c", "d"),
+                              device="cuda")
+        c = torch.stack([base.c, base.c * base.c])
+        base = dataclasses.replace(base, c=c, Gc=torch.zeros_like(c))
+    serial = [_scaled(base, s) for s in (0.5, 1.0, 1.5)]
+    serial[1] = TH.step(model, serial[1], 60.0)
+    batch = ensemble.stack_members(serial)
+    kernels.reset_launch_counts()
+    ensemble.ensemble_step(model, batch, 60.0)
+    counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    TH.step(model, serial[0], 60.0)
+    assert {k: v for k, v in counts.items() if v} == {
+        "halo_fill": 2, "halo_restore": 1, "barotropic": 1, "momentum": 1,
+        "tracer_adv_members": 1}, counts
+    serial_counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert sum(serial_counts.values()) == sum(counts.values()), serial_counts
+    out = ensemble.ensemble_multi_step(model, batch, 60.0, 3)
+    for i, s in enumerate(serial):
+        want = TH.multi_step(model, s, 60.0, 3)
+        got = ensemble.member(out, i)
+        for name in ("u", "v", "eta", "U", "V", "c", "Gu", "Gv", "Gc", "t", "iteration"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), (i, name)
+
+
+def _scaled(state, s):
+    """A state with its fields scaled by ``s`` (t and iteration kept), as
+    ``tests/test_ensemble.py`` makes its members."""
+    return TH.State(**{f.name: getattr(state, f.name) * s
+                       if f.name not in ("t", "iteration") else getattr(state, f.name)
+                       for f in dataclasses.fields(TH.State)})
+
+
+# ------------------------------------------------------------------------------------
+# the behaviour pins of tests/test_torch_behaviour.py, through the kernels
+# ------------------------------------------------------------------------------------
+
+@needs_cuda
+def test_cuda_gravity_wave_speed():
+    from test_torch_behaviour import gravity_wave_speed
+
+    gravity_wave_speed("cuda")
+
+
+@needs_cuda
+def test_cuda_internal_gravity_wave_speed_two_layer():
+    from test_torch_behaviour import internal_gravity_wave_speed_two_layer
+
+    internal_gravity_wave_speed_two_layer("cuda")
+
+
+@needs_cuda
+def test_cuda_blob_crosses_fold():
+    from test_torch_behaviour import blob_crosses_fold
+
+    blob_crosses_fold("cuda")

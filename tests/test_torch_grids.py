@@ -129,7 +129,10 @@ def test_sm05_weights_exact(substeps):
 
 
 def test_deferred_options_raise():
-    with pytest.raises(NotImplementedError, match="phi_spacing"):
-        ttri.TripolarGrid.make((16, 12, 1), device="cpu", phi_spacing=lambda p: 1.0 + 0 * p)
-    with pytest.raises(NotImplementedError, match="native"):
-        ttri.build_tripolar_arrays((16, 12, 1), backend="native")
+    """The grid options once deferred (``phi_spacing``, the native backend) run now
+    (``tests/test_torch_grid_options.py``); what they cannot do raises: a spacing
+    law that is not positive, as in the JAX package, and an unknown backend."""
+    with pytest.raises(ValueError, match="monotone"):
+        ttri.TripolarGrid.make((16, 12, 1), device="cpu", phi_spacing=lambda p: 0.0 * p)
+    with pytest.raises(ValueError, match="backend"):
+        ttri.build_tripolar_arrays((16, 12, 1), backend="fortran")
