@@ -21,7 +21,8 @@ it times with CUDA events (``utils/profiling.py:time_ms``), in turns:
   process that imports that tree's package: its ``momentum`` alone and, where this
   tree folds ``acc`` and ``mask_out`` into the kernel, its ``momentum`` followed by
   the torch adds and mask multiplies the fold replaces, so that the two compare like
-  for like.
+  for like; where that tree's kernel takes ``acc`` and ``mask_out`` itself, its
+  call with them as well (``folded``, the same call as this tree's).
 
 The layered tracer kernel too, at the front's (c, 10 planes, S = 1) and the gyre's
 (T and S, 20 planes, S = 4, kappa_h) shapes over masked velocities, and the front's
@@ -189,10 +190,14 @@ def unfolded(kw):
 
 
 def time_tree(rounds):
-    """Child mode: this process's ``momentum`` (another tree's) with the glue; JSON."""
+    """Child mode: this process's ``momentum`` (another tree's) with the glue, and
+    with the fold where it takes one; JSON."""
+    import inspect
+
     from orthogonalsphericalshellgrids_tpu_torch.kernels import momentum
     from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import time_ms
 
+    folds = "acc" in inspect.signature(momentum.momentum).parameters
     out = {}
     for shape in SHAPES:
         u, v, st, kw = inputs(shape)
@@ -206,7 +211,9 @@ def time_tree(rounds):
             "kernel_ms": [time_ms(lambda: momentum.momentum(u, v, st, **base))
                           for _ in range(rounds)],
             "with_glue_ms": [time_ms(lambda: glue(*momentum.momentum(u, v, st, **base)))
-                             for _ in range(rounds)]}
+                             for _ in range(rounds)],
+            "folded_ms": [time_ms(lambda: momentum.momentum(u, v, st, **kw))
+                          for _ in range(rounds)] if folds else []}
     from orthogonalsphericalshellgrids_tpu_torch.kernels import tracer_adv
 
     for shape in TRACER_SHAPES:
@@ -221,7 +228,9 @@ def time_tree(rounds):
             "kernel_ms": [time_ms(lambda: tracer_adv.tracer_adv(*args), ahead=ahead)
                           for _ in range(rounds)],
             "with_glue_ms": [time_ms(lambda: tracer_adv.tracer_adv(*args) + acc,
-                                     ahead=ahead) for _ in range(rounds)]}
+                                     ahead=ahead) for _ in range(rounds)],
+            "folded_ms": [time_ms(lambda: tracer_adv.tracer_adv(*args, acc=acc), ahead=ahead)
+                          for _ in range(rounds)] if folds else []}
     from orthogonalsphericalshellgrids_tpu_torch.kernels import vertical
 
     for shape in VERTICAL_SHAPES:
@@ -232,7 +241,7 @@ def time_tree(rounds):
         if not rel <= BAND:
             raise RuntimeError(f"{shape}: the tree's kernel is off its plain version: {rel}")
         out[shape] = {"rel": rel, "kernel_ms": [time_ms(run) for _ in range(rounds)],
-                      "with_glue_ms": []}
+                      "with_glue_ms": [], "folded_ms": []}
     print(json.dumps(out))
     return 0
 
@@ -308,9 +317,9 @@ def main():
             for shape in SHAPES + TRACER_SHAPES + VERTICAL_SHAPES:
                 p = res["shapes"][shape].setdefault(
                     "parent", {"rel": other[shape]["rel"], "kernel_ms": [],
-                               "with_glue_ms": []})
-                p["kernel_ms"] += other[shape]["kernel_ms"]
-                p["with_glue_ms"] += other[shape]["with_glue_ms"]
+                               "with_glue_ms": [], "folded_ms": []})
+                for key in ("kernel_ms", "with_glue_ms", "folded_ms"):
+                    p[key] += other[shape][key]
         for shape, (u, v, st, kw) in data.items():
             res["shapes"][shape]["this"]["ms"].append(
                 time_ms(lambda: momentum.momentum(u, v, st, **kw)))
@@ -324,14 +333,16 @@ def main():
         other = other_tree(args.parent, 1)
         for shape in SHAPES + TRACER_SHAPES + VERTICAL_SHAPES:
             p = res["shapes"][shape]["parent"]
-            p["kernel_ms"] += other[shape]["kernel_ms"]
-            p["with_glue_ms"] += other[shape]["with_glue_ms"]
+            for key in ("kernel_ms", "with_glue_ms", "folded_ms"):
+                p[key] += other[shape][key]
     for shape, row in res["shapes"].items():
         for name, r in row.items():
             if name == "parent":
                 glue = (f"; with the glue the fold replaces "
                         f"{', '.join(f'{t:.4f}' for t in r['with_glue_ms'])} ms"
                         if r["with_glue_ms"] else "")
+                glue += (f"; folded {', '.join(f'{t:.4f}' for t in r['folded_ms'])} ms"
+                         if r["folded_ms"] else "")
                 print(f"{shape} parent: kernel {', '.join(f'{t:.4f}' for t in r['kernel_ms'])}"
                       f" ms{glue} [{card}]", flush=True)
             else:

@@ -119,6 +119,22 @@ Phase 16 the grid options: (a) the 1/4-degree grid built on the host with the
          (the law of tests/test_tripolar_grid.py:238 in torch, rows by the Newton
          solve), 10 steps through the kernels: finite, the extended grid carrying
          the law.
+Phase 17 ensembles of the layered model (run after phase 13, while phase 7's gyre
+         lives): (a) the four member launches at the gyre's shapes, B = 4 members of
+         (10, 690, 1450), T and S, the linear EOS: the vertical kernel (nu_v,
+         kappa_v), the corrector (per-member weights and crops of U_a, V_a), the
+         momentum kernel over 40 layers with period 10 (closure planes, dG, the
+         closing mask) and the layered tracer kernel over the members (kappa_h, dGc a
+         view): within the bands of their plain versions at float32 and float64,
+         each member bitwise its one-member launch, timed at float32 with the host
+         ahead beside 4 one-member launches, with their byte and WENO bounds; (b)
+         phase 7's gyre as 4 members (the base state times 0.5, 0.75, 1.0, 1.25),
+         10 steps after 3 warm-up: one serial step's launches a step through the
+         member launches, every member bitwise its serial run in every field; ms/step
+         as run and with the host ahead, device busy and idle share, beside the
+         serial step; (c) the f64 front oracle through member 0 of a 2-member
+         ensemble (member 1 the state times 0.9, one step ahead), phase 6's
+         tolerances.
 
 Phase 2 holds the halo fills first: the group fill with save, the group fill without
 save and the group restore against their plain versions, bitwise at float32 and
@@ -214,6 +230,12 @@ REPLACES = {
     # the column mode over the planes of an ensemble's members, each over its own
     # (u, v): the batching rule of pallas_call under jax.vmap(step) (phase 15)
     "tracer_adv_members": "orthogonalsphericalshellgrids_tpu/ops/pallas_adv.py:258",
+    # the layered kernels over the members of a layered ensemble: the batching rule
+    # of pallas_call under jax.vmap(layered_step) (phase 17)
+    "vertical_members": "orthogonalsphericalshellgrids_tpu/ops/pallas_vert.py:309",
+    "momentum_members": "orthogonalsphericalshellgrids_tpu/ops/pallas_mom.py:281",
+    "tracer_adv_layered_members": "orthogonalsphericalshellgrids_tpu/ops/pallas_adv.py:258",
+    "corrector_members": "orthogonalsphericalshellgrids_tpu/ops/pallas_corr.py:83",
     "corrector": "orthogonalsphericalshellgrids_tpu/ops/pallas_corr.py:83",
     "baro_substep_sol": "benchmarks/roofline.py:121",
     "weno_probe": "benchmarks/weno_sol.py:167",
@@ -228,6 +250,8 @@ SOURCE_FILE = {"halo_restore": "halo_fill", "halo_fill_copy": "halo_fill",
                "momentum_layered": "momentum", "tracer_adv_layered": "tracer_adv",
                "momentum_closures": "momentum", "tracer_adv_kappa": "tracer_adv",
                "tracer_adv_planes": "tracer_adv", "tracer_adv_members": "tracer_adv",
+               "vertical_members": "vertical", "momentum_members": "momentum",
+               "tracer_adv_layered_members": "tracer_adv", "corrector_members": "corrector",
                "baro_substep_sol": "probes", "weno_probe": "probes", "stream_probe": "probes",
                "fma_ceiling": "probes"}
 SOURCES = {name: "orthogonalsphericalshellgrids_tpu_torch/csrc/{}.cu".format(
@@ -258,6 +282,10 @@ PLANES = ("halo_fill", "halo_restore", "barotropic", "momentum", "tracer_adv_pla
 # the kernels an ensemble of the Bickley jet launches (phase 15), and its members
 ENSEMBLE = ("halo_fill", "halo_restore", "barotropic", "momentum", "tracer_adv_members")
 ENSEMBLE_SCALES = (0.5, 0.75, 1.0, 1.25)
+# the kernels an ensemble of the gyre launches once a step (phase 17b), besides the
+# two group fills
+LAYERED_ENSEMBLE = ("halo_restore", "barotropic", "vertical_members", "momentum_members",
+                    "tracer_adv_layered_members", "corrector_members")
 # the single-layer options that run outside the kernels (phase 14c), and the kernel
 # each leaves in the step
 OPTIONS = {"weno7": dict(tracer_advection="weno7"),
@@ -317,7 +345,8 @@ FLOPS = {"halo_fill": 1, "halo_restore": 0, "halo_fill_copy": 1, "halo_fill_shar
          "momentum": 300, "momentum_layered": 304, "momentum_closures": 344,
          "tracer_adv": 160, "tracer_adv_layered": 160, "tracer_adv_kappa": 172,
          "tracer_adv_planes": 160, "tracer_adv_members": 160,
-         "vertical": 40, "corrector": 8}
+         "vertical": 40, "corrector": 8, "vertical_members": 40, "momentum_members": 344,
+         "tracer_adv_layered_members": 172, "corrector_members": 8}
 
 
 def phase2_kernels(card):
@@ -1281,7 +1310,8 @@ def phase9_probes(card, kres):
     """The two probes and the two ceiling kernels against their plain versions at the
     measurement's shapes (f32 and f64), then the four ceilings measured through them
     and the bounds they put on the kernels of phase 2. Returns ({name: (max_abs_err at
-    f32, kernel ms, plain ms, bound, library ms)}, the measurement's launch counts)."""
+    f32, kernel ms, plain ms, bound, library ms)}, the measurement's launch counts, the
+    ceilings)."""
     import torch
 
     from benchmarks import torch_roofline as roof
@@ -1404,7 +1434,7 @@ def phase9_probes(card, kres):
                 kernel_ms={name: row[1] for name, row in kres.items()},
                 kernel_bytes={name: row[3][2] for name, row in kres.items()})
     log(f"phase 9: launches {counts}")
-    return rows, counts
+    return rows, counts, ceil
 
 
 def phase10_simulation(card, model, state0, n_iter=60, n_time=100, warm=3):
@@ -2889,6 +2919,288 @@ def phase16_grids(card, bmodel, n_steps=10):
         f"[{card}]")
 
 
+def scaled_layered(state, s):
+    """A layered ``state`` with every field times ``s`` (t and iteration kept)."""
+    import dataclasses
+
+    from orthogonalsphericalshellgrids_tpu_torch.models import LayeredState
+
+    return LayeredState(**{f.name: getattr(state, f.name) * s
+                           if f.name not in ("t", "iteration") else getattr(state, f.name)
+                           for f in dataclasses.fields(LayeredState)})
+
+
+def phase17a_layered_members(card, ceil, B=4):
+    """The four member launches of a layered ensemble at the gyre's shapes (B members
+    of (10, 690, 1450), T and S, the linear EOS, the closure planes): the vertical
+    kernel (nu_v, kappa_v), the corrector (T and S, per-member weights, each member's
+    crop of the widened U_a, V_a), the momentum kernel over B Nz layers with period
+    Nz (closure pack, dG, the closing mask) and the layered tracer kernel over the
+    members (kappa_h, dGc as a view of a larger stack). Each within the band of its
+    plain version at float32 and float64 and each member bitwise its one-member
+    launch; timed at float32 with the host ahead beside B one-member launches and the
+    plain version, with the data-sheet and measured byte bounds (``ceil``: phase 9's
+    stream and WENO-5 rates) and the WENO bound. Returns the kernel-table rows."""
+    import numpy as np
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch import kernels
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import (corrector, momentum,
+                                                                 tracer_adv, vertical)
+
+    Yb, Xb = FILL_SHAPES["base"]
+    Ye, Xe = FILL_SHAPES["ext"]
+    nz = 10
+    eos = (9.80665, 1.67e-4, 7.8e-4, 0.0, 35.0)
+    rows = {}
+    for name in ("float32", "float64"):
+        dt = getattr(torch, name)
+        rng = np.random.default_rng(1717)
+
+        def rnd(shape, scale=1.0, lo=None):
+            a = rng.random(shape) + lo if lo is not None else scale * rng.standard_normal(shape)
+            return torch.as_tensor(a, dtype=dt, device="cuda")
+
+        n_wet = torch.as_tensor(np.minimum(rng.integers(0, nz + 3, (Yb, Xb)), nz),
+                                dtype=torch.int32, device="cuda")
+        mc, mu, mv = (m.contiguous() for m in vertical.wet_pack(n_wet, nz, 3, dt).reshape(
+            nz, 3, Yb, Xb).transpose(0, 1))
+        u, v = rnd((B, nz, Yb, Xb)) * mu, rnd((B, nz, Yb, Xb)) * mv
+        c = rnd((B, 2 * nz, Yb, Xb))
+        c[:, :nz] += 10.0
+        c[:, nz:] = 35.0 + 0.1 * c[:, nz:]
+        dzs = [10.0 * 1.7 ** k for k in range(nz)]
+        item = u.element_size()
+        cases = {}
+        # the vertical kernel in the gyre's mode
+        vkw = dict(mode="linear_eos", eos=eos, it_T=0, it_S=1, viscous=True, diffusive=True)
+        g5 = rnd((5, Yb, Xb), lo=0.5)
+        coef = torch.as_tensor(vertical.coefficients(
+            dzs, [0.5 * (dzs[k] + dzs[k + 1]) for k in range(nz - 1)], 1e-3, 1e-5),
+            dtype=dt, device="cuda")
+        s_pack = vertical.wet_pack(n_wet, nz, 3, dt)
+        cases["vertical_members"] = dict(
+            run=lambda: vertical.vertical(u, v, c, None, n_wet, g5, coef, **vkw),
+            one=lambda m: vertical.vertical(u[m], v[m], c[m], None, n_wet, g5, coef, **vkw),
+            plain=lambda: vertical.vertical_plain(u, v, c, None, s_pack, g5, coef, **vkw),
+            I=(slice(1, -1), slice(1, -1)), weno=0,
+            bytes=nbytes(u, v, c, n_wet, g5, coef) + nbytes(u, v, c),
+            flops=FLOPS["vertical"] * (u.numel() + c.numel()))
+        # the corrector: T and S, each member's weights (member 0 at its first step)
+        # and crop of the widened U_a, V_a
+        stacks = [rnd((B, nz, Yb, Xb)) for _ in range(6)]
+        tracers = [rnd((B, 2 * nz, Yb, Xb)) for _ in range(3)]
+        dz3 = torch.as_tensor(dzs, dtype=dt, device="cuda").view(-1, 1, 1)
+        ext = rnd((2, B, Ye, Xe))
+        dy, dx = (Ye - Yb) // 2, (Xe - Xb) // 2
+        w1 = torch.tensor([1.0] + [1.6] * (B - 1), dtype=dt, device="cuda")
+        w2 = torch.tensor([0.0] + [0.6] * (B - 1), dtype=dt, device="cuda")
+        step_dt = torch.tensor(40.0, dtype=dt, device="cuda")
+        shared = (dz3 * mu, dz3 * mv, mc, rnd((Yb, Xb), lo=0.0), rnd((Yb, Xb), lo=0.0))
+        crops = (ext[0, :, dy:dy + Yb, dx:dx + Xb], ext[1, :, dy:dy + Yb, dx:dx + Xb])
+        cases["corrector_members"] = dict(
+            run=lambda: corrector.corrector(*stacks, *tracers, *shared, *crops, w1, w2,
+                                            step_dt),
+            one=lambda m: corrector.corrector(*(a[m] for a in stacks + tracers), *shared,
+                                              crops[0][m], crops[1][m], w1[m], w2[m],
+                                              step_dt),
+            plain=lambda: corrector.corrector_plain(*stacks, *tracers, *shared, *crops, w1,
+                                                    w2, step_dt),
+            I=(slice(None), slice(None)), weno=0,
+            bytes=nbytes(*stacks, *tracers, *shared, w1, w2, step_dt)
+            + 2 * B * Yb * Xb * item + nbytes(u, v, c),
+            flops=FLOPS["corrector"] * (2 * u.numel() + c.numel()))
+        # momentum over B Nz layers, period Nz: the closure pack, dG, the closing mask
+        ul, vl = u.reshape(B * nz, Yb, Xb), v.reshape(B * nz, Yb, Xb)
+        st = rnd((8, Yb, Xb), lo=1.0)
+        st[3] = 0.1 * rnd((Yb, Xb))
+        lay = rnd((nz, 8, Yb, Xb), lo=0.5)
+        lay[:, 6:] *= 0.1
+        lay = lay.reshape(8 * nz, Yb, Xb)
+        mkw = dict(has_mask=False, lay=lay, has_lap=True, has_drag=True,
+                   acc=(rnd((B * nz, Yb, Xb), 0.5), rnd((B * nz, Yb, Xb), 0.5)),
+                   mask_out=(mu, mv))
+
+        def mom_one(m):
+            layers = slice(m * nz, (m + 1) * nz)
+            return momentum.momentum(ul[layers], vl[layers], st, **dict(
+                mkw, acc=tuple(a[layers] for a in mkw["acc"])))
+
+        cases["momentum_members"] = dict(
+            run=lambda: momentum.momentum(ul, vl, st, period=nz, **mkw),
+            one=mom_one,
+            plain=lambda: momentum.momentum_plain(ul, vl, st, period=nz, **mkw),
+            I=(slice(momentum.REACH, -momentum.REACH),) * 2, weno=2 * ul.numel(),
+            bytes=nbytes(ul, vl, st, lay, *mkw["acc"], *mkw["mask_out"]) + 2 * nbytes(ul),
+            flops=FLOPS["momentum_closures"] * ul.numel())
+        # the layered tracer kernel over the members: T and S with kappa_h, dGc a view
+        # of a stack that holds two more planes a member (as a b block would)
+        pack = (mu[:, None] * rnd((nz, 4, Yb, Xb), lo=0.5)).reshape(4 * nz, Yb, Xb)
+        g2 = rnd((2, Yb, Xb), lo=0.5)
+        dz = torch.as_tensor(dzs, dtype=dt, device="cuda")
+        acc = rnd((B, 2 * nz + 2, Yb, Xb), 0.5)[:, :2 * nz]
+        cases["tracer_adv_layered_members"] = dict(
+            run=lambda: tracer_adv.tracer_adv(c, u, v, pack, g2, dz, acc=acc),
+            one=lambda m: tracer_adv.tracer_adv(c[m], u[m], v[m], pack, g2, dz, acc=acc[m]),
+            plain=lambda: tracer_adv.tracer_adv_plain(c, u, v, pack, g2, dz, acc=acc),
+            I=(slice(tracer_adv.REACH, -tracer_adv.REACH),) * 2, weno=2 * c.numel(),
+            bytes=nbytes(c, u, v, pack, g2, dz) + c.numel() * item + nbytes(c),
+            flops=FLOPS["tracer_adv_kappa"] * c.numel())
+
+        def outputs(r):
+            return [a for a in (r if isinstance(r, tuple) else (r,)) if a is not None]
+
+        for kname, case in cases.items():
+            kernels.reset_launch_counts()
+            got = outputs(case["run"]())
+            counts = {k: n for k, n in kernels.launch_counts().items() if n}
+            check(counts == {kname: 1}, f"phase 17a: {kname} one launch: {counts}")
+            want = outputs(case["plain"]())
+            errs = [rel_err(g, w, case["I"]) for g, w in zip(got, want)]
+            ea, er = max(e[0] for e in errs), max(e[1] for e in errs)
+            check(er <= BANDS[name] and all(bool(torch.isfinite(g).all()) for g in got),
+                  f"phase 17a: {kname} {name}: rel err {er:.3e}, finite")
+            del want
+            for m in range(B):
+                part = slice(m * nz, (m + 1) * nz) if kname == "momentum_members" else m
+                for g, o in zip(got, outputs(case["one"](m))):
+                    check(torch.equal(g[part], o), f"phase 17a: {kname} {name}: member "
+                          f"{m} bitwise its one-member launch")
+            msg = (f"phase 17a: {kname} over B = {B} members of (10, {Yb}, {Xb}), {name}: "
+                   f"max abs err {ea:.3e}, max rel err {er:.3e} (band {BANDS[name]:g}), "
+                   f"finite, each member bitwise its one-member launch")
+            if name == "float32":
+                t_k = time_ms(case["run"], n=10, ahead=True)
+                t_1 = time_ms(lambda: [case["one"](m) for m in range(B)], n=10, ahead=True)
+                t_p = time_ms(case["plain"], n=2, reps=3, warm=1)
+                b_ = bound(case["bytes"], case["flops"])
+                t_meas = case["bytes"] / (ceil["stream_gbps"] * 1e9) * 1e3
+                msg += (f"; host ahead {t_k:.4f} ms, {B} one-member launches {t_1:.4f} ms, "
+                        f"plain {t_p:.4f} ms; data-sheet bound {b_[0]:.4f} ms by {b_[1]} "
+                        f"({b_[2]} bytes), measured byte bound {t_meas:.4f} ms "
+                        f"({ceil['stream_gbps']:.1f} GB/s)")
+                if case["weno"]:
+                    msg += (f", WENO bound {case['weno'] / ceil['weno_recon_per_s'] * 1e3:.4f}"
+                            f" ms ({ceil['weno_recon_per_s'] / 1e9:.1f} G/s)")
+                rows[kname] = (ea, t_k, t_p, b_, None)
+            log(msg + f" [{card}]")
+            del got
+        del cases, stacks, tracers, u, v, c, ul, vl, mkw, acc
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase17b_layered_ensemble(card, model, state0, gyre_ms, n_steps=10, warm=3, dt=40.0):
+    """Phase 7's gyre as 4 members (the base state times 0.5, 0.75, 1.0, 1.25), 10
+    steps after 3 warm-up through ensemble_multi_step: one serial layered step's
+    launches a step, each through its member launch; every member bitwise its serial
+    run in every field; ms/step as run and with the host ahead, device busy and idle
+    share, beside the serial step. Returns the launch counts."""
+    import dataclasses
+
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch import kernels
+    from orthogonalsphericalshellgrids_tpu_torch.models import (LayeredState, ensemble,
+                                                                layered_multi_step,
+                                                                layered_step)
+
+    B = len(ENSEMBLE_SCALES)
+    serial0 = [scaled_layered(state0, s) for s in ENSEMBLE_SCALES]
+    batch = ensemble.ensemble_multi_step(model, ensemble.stack_members(serial0), dt, warm)
+    kernels.reset_launch_counts()
+    layered_step(model, state0, dt)
+    serial_counts = kernels.launch_counts()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    batch = ensemble.ensemble_multi_step(model, batch, dt, n_steps)
+    end.record()
+    end.synchronize()
+    counts = kernels.launch_counts()
+    ms = start.elapsed_time(end) / n_steps
+    expected = {k: 0 for k in counts}
+    expected.update({k: n_steps for k in LAYERED_ENSEMBLE}, halo_fill=2 * n_steps)
+    check(counts == expected, f"phase 17b: launch counts {counts} != {expected}")
+    check(sum(counts.values()) == n_steps * sum(serial_counts.values()),
+          f"phase 17b: a step launches as often as a serial step {serial_counts}")
+    for i, s0 in enumerate(serial0):
+        want = layered_multi_step(model, s0, dt, warm + n_steps)
+        got = ensemble.member(batch, i)
+        for f in dataclasses.fields(LayeredState):
+            check(torch.equal(getattr(got, f.name), getattr(want, f.name)),
+                  f"phase 17b: member {i} {f.name} bitwise its serial run")
+        del want
+    check(all(bool(torch.isfinite(getattr(batch, n)).all()) for n in ("u", "v", "c", "eta")),
+          "phase 17b: finite")
+    ms_ahead = time_ms(lambda: ensemble.ensemble_step(model, batch, dt), n=5, ahead=True)
+    serial_ahead = time_ms(lambda: layered_step(model, state0, dt), n=10, ahead=True)
+    serial_ms = time_ms(lambda: layered_step(model, state0, dt), n=10)
+    _, ops, busy, idle = device_busy(lambda s: ensemble.ensemble_step(model, s, dt), batch, 5)
+    _, s_ops, s_busy, s_idle = device_busy(lambda s: layered_step(model, s, dt), state0, 5)
+    log(f"phase 17b: the 1440 x 680 x 10 gyre as an ensemble of {B} members (scales "
+        f"{ENSEMBLE_SCALES}), {n_steps} steps after {warm} warm-up at dt = {dt:g} s: "
+        f"{ms:.4f} ms/step as run, {ms_ahead:.4f} with the host ahead; device busy "
+        f"{busy:.4f} ms a step in {ops:.0f} device operations, idle share {idle:.3f}; the "
+        f"serial step in this phase {serial_ms:.4f} as run, {serial_ahead:.4f} host ahead, "
+        f"busy {s_busy:.4f} ms in {s_ops:.0f} operations, idle {s_idle:.3f}; phase 7 "
+        f"{gyre_ms:.4f} ms/step, {B} x that {B * gyre_ms:.4f}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }; every member bitwise its serial run "
+        f"in every field [{card}]")
+    return counts
+
+
+def phase17c_front_oracle_member(card):
+    """The f64 front oracle through member 0 of a 2-member ensemble: member 0 the
+    oracle's initial state, member 1 that state times 0.9 and one step ahead; 15
+    ensemble steps through the member launches, member 0 within phase 6's
+    tolerances."""
+    import numpy as np
+    import torch
+
+    from examples.baroclinic_front_torch import build, kinetic_energy
+    from orthogonalsphericalshellgrids_tpu_torch import kernels
+    from orthogonalsphericalshellgrids_tpu_torch.models import ensemble, layered_step
+
+    with np.load(os.path.join(ROOT, "tests", "data", "front_oracle_120x60x4.npz")) as d:
+        nx, ny, nz, dt, _, _ = d["meta"]
+        ref = {k: d[k] for k in ("u.015", "v.015", "b.015")}
+        ke_ref = d["ke"][:15]
+    model, s = build(int(nx), int(ny), int(nz), dtype=torch.float64, device="cuda")
+    batch = ensemble.stack_members([s, layered_step(model, scaled_layered(s, 0.9),
+                                                    float(dt))])
+    kernels.reset_launch_counts()
+    ke = []
+    for _ in range(15):
+        batch = ensemble.ensemble_step(model, batch, float(dt))
+        ke.append(kinetic_energy(model, ensemble.member(batch, 0)))
+    counts = kernels.launch_counts()
+    check(all(counts[k] == 15 for k in ("vertical_members", "momentum_members",
+                                         "corrector_members", "barotropic")) and
+          counts["tracer_adv_layered_members"] == 30,
+          f"phase 17c: the member launches ran: {counts}")
+    m0 = ensemble.member(batch, 0)
+    check(int(m0.iteration) == 15 and int(batch.iteration[1]) == 16, "phase 17c: iterations")
+    I3 = (slice(None),) + model.grid.interior2d
+    worst = []
+    for name in ("u", "v", "b"):
+        a = getattr(m0, name).cpu().numpy()[I3]
+        r = ref[f"{name}.015"]
+        diff = float(np.abs(a - r).max())
+        worst.append(f"{name} {diff:.3e}")
+        check(np.allclose(a, r, rtol=1e-9, atol=1e-14), f"phase 17c: front oracle {name}: "
+              f"max diff {diff}")
+    rel = float(np.max(np.abs(np.asarray(ke) / ke_ref - 1.0)))
+    worst.append(f"ke rel {rel:.3e}")
+    check(np.allclose(ke, ke_ref, rtol=1e-10, atol=0), f"phase 17c: front oracle ke: rel {rel}")
+    log(f"phase 17c: 120 x 60 x 4 float64 front oracle through member 0 of a 2-member "
+        f"ensemble (member 1 the state x 0.9, one step ahead), 15 steps through the member "
+        f"launches: max |diff| {', '.join(worst)} (rtol 1e-9, atol 1e-14; ke rtol 1e-10) "
+        f"[{card}]")
+
+
 def main():
     import torch
 
@@ -2920,7 +3232,7 @@ def main():
     phase6_layered_parity(card)
     gyre_counts, gyre_ms, gyre_model, gyre_state0 = phase7_gyre_path(card)
     phase8_gyre_parity(card)
-    probe_rows, probe_counts = phase9_probes(card, kres)
+    probe_rows, probe_counts, ceil = phase9_probes(card, kres)
     kres.update(probe_rows)
     phase10_simulation(card, gyre_model, gyre_state0)
     diag_counts = phase11_bickley_50_days(card)
@@ -2930,6 +3242,12 @@ def main():
     kres.update(phase13a_block_fills(card))
     block_counts = phase13_runs(card, (bickley_model, bickley_state0, bickley_ms),
                                 (gyre_model, gyre_state0, gyre_ms), shard_ms)
+    # phase 17 while phase 7's gyre lives: the layered ensemble's member launches, the
+    # gyre as 4 members, the front oracle through an ensemble member
+    kres.update(phase17a_layered_members(card, ceil))
+    layered_ensemble_counts = phase17b_layered_ensemble(card, gyre_model, gyre_state0,
+                                                        gyre_ms)
+    phase17c_front_oracle_member(card)
     del gyre_model, gyre_state0
     kres.update(phase14a_planes(card))
     planes_counts = phase14_options(card, bickley_model, bickley_state0, bickley_ms)
@@ -2942,12 +3260,13 @@ def main():
     # the last path that runs it (the gyre's for every kernel of the gyre; the
     # sharded Bickley jet's for the pack, the wrap and the shard fill; the 2 x 2
     # Bickley jet's for the block pack and the block fill; the two-tracer jet's for
-    # the P-plane column mode; the ensemble's for the member mode)
+    # the P-plane column mode; the ensembles' for the member modes)
     launches = {}
     for path, names, cnt in (("2-D Bickley", BLOCKS, block_counts),
                              ("sharded Bickley", SHARDED, shard_counts),
                              ("two-tracer Bickley", PLANES, planes_counts),
                              ("Bickley ensemble", ENSEMBLE, ensemble_counts),
+                             ("gyre ensemble", LAYERED_ENSEMBLE, layered_ensemble_counts),
                              ("Bickley", BICKLEY, counts), ("front", FRONT, front_counts),
                              ("gyre", GYRE, gyre_counts), ("ceilings", PROBES, probe_counts),
                              ("50-day run", DIAGNOSTICS, diag_counts)):

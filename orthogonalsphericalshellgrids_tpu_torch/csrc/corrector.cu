@@ -21,6 +21,12 @@
 // U_a for u and v (4), and writes u, v and c (40): 194 planes, 0.78 GB, 0.23 ms at
 // 3.35 TB/s. About 8 flops per value, far below the f32 rate.
 //
+// An ensemble's B members are the grid's z index: each CTA offsets its member's
+// stacks and its cropped U_a, V_a (a member stride of its own) once, in 64 bits, and
+// reads its member's w1, w2 and dt (members may be at different iterations); the
+// thicknesses, masks and inverse depths are shared. One member is the launch of one
+// stack (member 0, weight strides 0).
+//
 // Design: one thread per (y, x) column loops over the layers twice. The first pass
 // writes u*_k to the output and sums u*_k dzu_k in a register; the second reads u*_k
 // back (mostly from L2: the columns in flight hold about 20 MB) and applies the
@@ -77,25 +83,38 @@ struct Args {
   T *un, *vn, *cn, *bn;
 };
 
+// Where the members lie: U_a and V_a rows (pitch_a) and members (member_a) apart,
+// the weights w1, w2 and the step dt sw and sdt elements apart (0: shared).
+struct Strides {
+  int64_t pitch_a, member_a;
+  int sw, sdt;
+};
+
 template <typename T>
-__global__ void corrector_kernel(Args<T> a, int n_c, int nz, int Yb, int Xb,
-                                 int64_t pitch_a) {
+__global__ void corrector_kernel(Args<T> a, int n_c, int nz, int Yb, int Xb, Strides st) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= Xb || j >= Yb) return;
   const int64_t P = (int64_t)Yb * Xb;
   const int64_t k = (int64_t)j * Xb + i;
-  const int64_t ka = (int64_t)j * pitch_a + i;
-  const T w1 = *a.w1, w2 = *a.w2, dt = *a.dt;
-  velocity_column(a.u0, a.gu, a.guo, a.dzu, a.ihu[k], a.Ua[ka], a.un, nz, P, k, w1, w2, dt);
-  velocity_column(a.v0, a.gv, a.gvo, a.dzv, a.ihv[k], a.Va[ka], a.vn, nz, P, k, w1, w2, dt);
-  tracer_planes(a.c0, a.gc, a.gco, a.mc, a.cn, n_c, nz, P, k, w1, w2, dt);
-  if (a.b0 != nullptr) tracer_planes(a.b0, a.gb, a.gbo, a.mc, a.bn, nz, nz, P, k, w1, w2, dt);
+  const int64_t m = blockIdx.z;
+  const int64_t ka = m * st.member_a + (int64_t)j * st.pitch_a + i;
+  const int64_t ov = m * nz * P, oc = m * n_c * P;  // the member's stacks
+  const T w1 = a.w1[m * st.sw], w2 = a.w2[m * st.sw], dt = a.dt[m * st.sdt];
+  velocity_column(a.u0 + ov, a.gu + ov, a.guo + ov, a.dzu, a.ihu[k], a.Ua[ka], a.un + ov,
+                  nz, P, k, w1, w2, dt);
+  velocity_column(a.v0 + ov, a.gv + ov, a.gvo + ov, a.dzv, a.ihv[k], a.Va[ka], a.vn + ov,
+                  nz, P, k, w1, w2, dt);
+  tracer_planes(a.c0 + oc, a.gc + oc, a.gco + oc, a.mc, a.cn + oc, n_c, nz, P, k, w1, w2, dt);
+  if (a.b0 != nullptr)
+    tracer_planes(a.b0 + ov, a.gb + ov, a.gbo + ov, a.mc, a.bn + ov, nz, nz, P, k, w1, w2, dt);
 }
 
 template <typename T>
-int launch(void* const* p, int n_c, int nz, int Yb, int Xb, int64_t pitch_a,
+int launch(void* const* p, int n_c, int nz, int Yb, int Xb, int n_members, Strides st,
            void* stream) {
+  if (n_members < 1 || n_members > 65535 || nz < 1 || n_c < nz || n_c % nz)
+    return (int)cudaErrorInvalidValue;
   Args<T> a;
   const T** in[] = {&a.u0, &a.gu, &a.guo, &a.v0, &a.gv, &a.gvo, &a.c0, &a.gc, &a.gco,
                     &a.b0, &a.gb, &a.gbo, &a.dzu, &a.dzv, &a.mc, &a.ihu, &a.ihv, &a.Ua,
@@ -107,9 +126,8 @@ int launch(void* const* p, int n_c, int nz, int Yb, int Xb, int64_t pitch_a,
   a.cn = (T*)p[n_in + 2];
   a.bn = (T*)p[n_in + 3];
   const dim3 block(32, 8);
-  const dim3 grid((Xb + block.x - 1) / block.x, (Yb + block.y - 1) / block.y);
-  corrector_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(a, n_c, nz, Yb, Xb,
-                                                                 pitch_a);
+  const dim3 grid((Xb + block.x - 1) / block.x, (Yb + block.y - 1) / block.y, n_members);
+  corrector_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(a, n_c, nz, Yb, Xb, st);
   return (int)cudaGetLastError();
 }
 
@@ -117,13 +135,18 @@ int launch(void* const* p, int n_c, int nz, int Yb, int Xb, int64_t pitch_a,
 
 // ptrs: u0, Gu, Gu_old, v0, Gv, Gv_old, c0, Gc, Gc_old, b0, Gb, Gb_old (the three b
 // pointers null without a prognostic b), dzu, dzv, mask_c, inv_h_u, inv_h_v, U_a, V_a,
-// w1, w2, dt, then the outputs u, v, c, b (b null without it).
+// w1, w2, dt, then the outputs u, v, c, b (b null without it). n_c is a member's
+// tracer planes; the member stacks follow each other, U_a and V_a member_a apart.
 extern "C" int osg_corrector_f32(void* const* ptrs, int n_c, int nz, int Yb, int Xb,
-                                 int pitch_a, void* stream) {
-  return launch<float>(ptrs, n_c, nz, Yb, Xb, pitch_a, stream);
+                                 int64_t pitch_a, int n_members, int64_t member_a, int sw,
+                                 int sdt, void* stream) {
+  return launch<float>(ptrs, n_c, nz, Yb, Xb, n_members, {pitch_a, member_a, sw, sdt},
+                       stream);
 }
 
 extern "C" int osg_corrector_f64(void* const* ptrs, int n_c, int nz, int Yb, int Xb,
-                                 int pitch_a, void* stream) {
-  return launch<double>(ptrs, n_c, nz, Yb, Xb, pitch_a, stream);
+                                 int64_t pitch_a, int n_members, int64_t member_a, int sw,
+                                 int sdt, void* stream) {
+  return launch<double>(ptrs, n_c, nz, Yb, Xb, n_members, {pitch_a, member_a, sw, sdt},
+                        stream);
 }

@@ -22,7 +22,13 @@
 // sp_u = sqrt(u^2 + ixf(iyc v)^2), sp_v = sqrt(v^2 + iyf(ixc u)^2); then
 //   Gu = (Gu + acc_u) out_u,   Gv = (Gv + acc_v) out_v
 // where each pair is given. The 8 metric planes are shared by every layer; the two
-// mask planes exist only with has_mask.
+// mask planes exist only with has_mask. The closure pack and the closing mask repeat
+// with a period of `period` layers: layer k reads their layer k mod period, so the
+// Nz layers of B ensemble members (B Nz layers, period Nz), or B single-layer
+// members (period 1), share one pack and one mask; acc is per layer. The period is
+// a template switch (PERIODIC): a period equal to the layer count compiles to the
+// one-stack kernel unchanged (carried in registers it cost the one-layer launch 7 %
+// on the H100).
 //
 // What bounds it on the H100: bytes and the WENO-5 arithmetic, about equally at f32.
 // Ten layers of 690 x 1450 (4 MB a plane): u, v, Gu, Gv (40 planes) and the 8
@@ -157,16 +163,17 @@ __device__ __forceinline__ void add_closures(const T* su, const T* sv, int w,
 struct Args {
   const void *u, *v, *st, *lay, *acc_u, *acc_v, *out_u, *out_v;
   void *Gu, *Gv;
-  int nz, Yb, Xb;
+  int nz, Yb, Xb, period;
 };
 
-template <typename T, bool HAS_MASK, bool HAS_LAP, bool HAS_DRAG>
+template <typename T, bool HAS_MASK, bool HAS_LAP, bool HAS_DRAG, bool PERIODIC>
 __global__ void __launch_bounds__(THREADS)
     momentum_kernel(const T* __restrict__ u, const T* __restrict__ v,
                     const T* __restrict__ st, const T* __restrict__ lay,
                     const T* __restrict__ acc_u, const T* __restrict__ acc_v,
                     const T* __restrict__ out_u, const T* __restrict__ out_v,
-                    T* __restrict__ Gu, T* __restrict__ Gv, int nz, int Yb, int Xb) {
+                    T* __restrict__ Gu, T* __restrict__ Gv, int nz, int Yb, int Xb,
+                    int period) {
   using Lo = Layout<T>;
   constexpr int TY = Lo::TY, TX = Lo::TX, WX = Lo::WX, WN = Lo::WN;
   constexpr int QX = Lo::QX, KX = Lo::KX;
@@ -193,6 +200,8 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll 1
   for (int layer = 0; layer < nz; ++layer) {
     const int64_t off = layer * P;
+    // the layer of the closure pack and the closing mask
+    const int64_t off_p = PERIODIC ? (int64_t)(layer % period) * P : off;
     if (layer > 0) {
       __syncthreads();  // the previous layer's reads of su, sv, sq, ske are done
       const T* const src[2] = {u + off, v + off};
@@ -261,15 +270,14 @@ __global__ void __launch_bounds__(THREADS)
         gv = gv * st[MASK_V * P + kk];
       }
       if constexpr (L > 0)
-        add_closures<T, HAS_LAP, HAS_DRAG, WX>(su, sv, w, lay + (int64_t)layer * L * P, P,
-                                               kk, X, gu, gv);
+        add_closures<T, HAS_LAP, HAS_DRAG, WX>(su, sv, w, lay + L * off_p, P, kk, X, gu, gv);
       if (acc_u != nullptr) {
         gu = gu + acc_u[k];
         gv = gv + acc_v[k];
       }
       if (out_u != nullptr) {
-        gu = gu * out_u[k];
-        gv = gv * out_v[k];
+        gu = gu * out_u[off_p + kk];
+        gv = gv * out_v[off_p + kk];
       }
       Gu[k] = gu;
       Gv[k] = gv;
@@ -277,21 +285,27 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T, bool HAS_MASK, bool HAS_LAP, bool HAS_DRAG>
-int launch_one(const Args& a, cudaStream_t s) {
+template <typename T, bool HAS_MASK, bool HAS_LAP, bool HAS_DRAG, bool PERIODIC>
+int launch_periodic(const Args& a, cudaStream_t s) {
   using Lo = Layout<T>;
   if constexpr (Lo::BYTES > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        momentum_kernel<T, HAS_MASK, HAS_LAP, HAS_DRAG>,
+        momentum_kernel<T, HAS_MASK, HAS_LAP, HAS_DRAG, PERIODIC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, Lo::BYTES);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((a.Xb + Lo::TX - 1) / Lo::TX, (a.Yb + Lo::TY - 1) / Lo::TY);
-  momentum_kernel<T, HAS_MASK, HAS_LAP, HAS_DRAG><<<grid, THREADS, Lo::BYTES, s>>>(
+  momentum_kernel<T, HAS_MASK, HAS_LAP, HAS_DRAG, PERIODIC><<<grid, THREADS, Lo::BYTES, s>>>(
       (const T*)a.u, (const T*)a.v, (const T*)a.st, (const T*)a.lay, (const T*)a.acc_u,
       (const T*)a.acc_v, (const T*)a.out_u, (const T*)a.out_v, (T*)a.Gu, (T*)a.Gv, a.nz,
-      a.Yb, a.Xb);
+      a.Yb, a.Xb, a.period);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool HAS_MASK, bool HAS_LAP, bool HAS_DRAG>
+int launch_one(const Args& a, cudaStream_t s) {
+  return a.period < a.nz ? launch_periodic<T, HAS_MASK, HAS_LAP, HAS_DRAG, true>(a, s)
+                         : launch_periodic<T, HAS_MASK, HAS_LAP, HAS_DRAG, false>(a, s);
 }
 
 template <typename T, bool HAS_MASK>
@@ -306,7 +320,7 @@ template <typename T>
 int launch(const Args& a, int has_mask, int has_lap, int has_drag, int ty, int tx,
            void* stream) {
   // a plan made for another tile, or a grid the launch cannot take, is refused
-  if (ty != Tile<T>::Y || tx != Tile<T>::X || a.nz < 1 ||
+  if (ty != Tile<T>::Y || tx != Tile<T>::X || a.nz < 1 || a.period < 1 || a.nz % a.period ||
       (a.Yb + Tile<T>::Y - 1) / Tile<T>::Y > 65535 ||
       (a.acc_u == nullptr) != (a.acc_v == nullptr) ||
       (a.out_u == nullptr) != (a.out_v == nullptr) ||
@@ -322,17 +336,18 @@ int launch(const Args& a, int has_mask, int has_lap, int has_drag, int ty, int t
 extern "C" int osg_momentum_f32(const void* u, const void* v, const void* st,
                                 const void* lay, const void* acc_u, const void* acc_v,
                                 const void* out_u, const void* out_v, void* Gu, void* Gv,
-                                int nz, int Yb, int Xb, int has_mask, int has_lap,
-                                int has_drag, int ty, int tx, void* stream) {
-  return launch<float>({u, v, st, lay, acc_u, acc_v, out_u, out_v, Gu, Gv, nz, Yb, Xb},
+                                int nz, int Yb, int Xb, int period, int has_mask,
+                                int has_lap, int has_drag, int ty, int tx, void* stream) {
+  return launch<float>({u, v, st, lay, acc_u, acc_v, out_u, out_v, Gu, Gv, nz, Yb, Xb, period},
                        has_mask, has_lap, has_drag, ty, tx, stream);
 }
 
 extern "C" int osg_momentum_f64(const void* u, const void* v, const void* st,
                                 const void* lay, const void* acc_u, const void* acc_v,
                                 const void* out_u, const void* out_v, void* Gu, void* Gv,
-                                int nz, int Yb, int Xb, int has_mask, int has_lap,
-                                int has_drag, int ty, int tx, void* stream) {
-  return launch<double>({u, v, st, lay, acc_u, acc_v, out_u, out_v, Gu, Gv, nz, Yb, Xb},
+                                int nz, int Yb, int Xb, int period, int has_mask,
+                                int has_lap, int has_drag, int ty, int tx, void* stream) {
+  return launch<double>({u, v, st, lay, acc_u, acc_v, out_u, out_v, Gu, Gv, nz, Yb, Xb,
+                         period},
                         has_mask, has_lap, has_drag, ty, tx, stream);
 }

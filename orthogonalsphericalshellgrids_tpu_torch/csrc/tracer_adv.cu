@@ -49,6 +49,12 @@
 //     plane p of a P-plane launch is bitwise a one-plane launch on plane p.
 //     No operand waits in a register, which keeps the kernel within 64 registers a
 //     thread at f32 and the SM at 4 CTAs of 8 warps.
+//   - An ensemble of B layered members is one launch with the members as the grid's z
+//     index (Mode::LayeredMembers): each CTA offsets its member's c, u, v, acc (a
+//     member stride of its own, so acc may be a view) and G once, in 64 bits, and
+//     loops over that member's planes and layers as the one-member launch does; the
+//     pack, the metric planes and dz are shared. Mode::Layered, one member, keeps no
+//     offsets (they cost it 1-2 % on the H100).
 //   - Per plane every x face of the tile (TY rows of TX + 1) and every y face (TY + 1
 //     rows of TX) is reconstructed once, with the stencil's operands selected on the
 //     upwind side, into shared memory; then each cell's divergence from the stored
@@ -81,9 +87,10 @@ template <> struct Tile<float> { static constexpr int Y = 16, X = 32, MIN_BLOCKS
 template <> struct Tile<double> { static constexpr int Y = 16, X = 32, MIN_BLOCKS = 2; };
 
 // The kernel's modes: one column plane, P column planes over one (u, v) pair, B n
-// column planes over B (u, v) pairs (an ensemble of B members of n tracers), or
-// layered (tracer-major planes over Nz layers of u and v).
-enum class Mode { Column, Planes, Members, Layered };
+// column planes over B (u, v) pairs (an ensemble of B members of n tracers),
+// layered (tracer-major planes over Nz layers of u and v), or the layered mode of B
+// members on the grid's z index.
+enum class Mode { Column, Planes, Members, Layered, LayeredMembers };
 
 // Shared memory of one CTA, as offsets in elements of T. Faces are numbered x faces
 // first (TY rows of TX + 1: face lx lies west of cell lx), then y faces (TY + 1 rows
@@ -92,7 +99,7 @@ enum class Mode { Column, Planes, Members, Layered };
 // layer copies (IV and the kappa_h planes): two where the next one is in flight.
 template <typename T, Mode M, bool HAS_DIFF, bool HAS_ACC>
 struct Layout {
-  static constexpr bool LAYERED = M == Mode::Layered;
+  static constexpr bool LAYERED = M == Mode::Layered || M == Mode::LayeredMembers;
   static constexpr int TY = Tile<T>::Y, TX = Tile<T>::X;
   static constexpr int WY = TY + 2 * REACH, WX = TX + 2 * REACH, WN = WY * WX;
   static constexpr int NXF = TY * (TX + 1), NF = NXF + (TY + 1) * TX;
@@ -169,14 +176,15 @@ __device__ __forceinline__ void copy_cells(T* dst, const T* src, int y0, int x0,
 // planes (1 in Mode::Column) over one (u, v) pair, nz = 1. Members: the column pack,
 // c holds n_planes = nz n member-major planes over nz (u, v) pairs. Layered: c holds
 // n_planes = n_tr nz tracer-major planes over nz layers of u and v, st the (nz S)
-// layer-major pack [IV (, K_u, K_v, K_c)], g = [dy_fc, dx_cf], dz (nz).
+// layer-major pack [IV (, K_u, K_v, K_c)], g = [dy_fc, dx_cf], dz (nz); member
+// blockIdx.z's stacks lie blockIdx.z (n_planes P, nz P, acc_ms) after the first.
 template <typename T, Mode M, bool HAS_DIFF, bool HAS_ACC>
 __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
     tracer_adv_kernel(const T* __restrict__ c, const T* __restrict__ u,
                       const T* __restrict__ v, const T* __restrict__ st,
                       const T* __restrict__ g, const T* __restrict__ dz,
                       const T* __restrict__ acc, T* __restrict__ G, int n_planes, int nz,
-                      int Yb, int Xb) {
+                      int Yb, int Xb, int64_t acc_ms) {
   using Lo = Layout<T, M, HAS_DIFF, HAS_ACC>;
   constexpr bool LAYERED = Lo::LAYERED;
   constexpr int TX = Lo::TX, WX = Lo::WX, WN = Lo::WN, NXF = Lo::NXF, NF = Lo::NF;
@@ -185,6 +193,14 @@ __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
   T* const sm = reinterpret_cast<T*>(smem_raw);
   const int y0 = blockIdx.y * Lo::TY, x0 = blockIdx.x * TX;
   const int64_t P = (int64_t)Yb * Xb;
+  if constexpr (M == Mode::LayeredMembers) {  // this CTA's member
+    const int64_t m = blockIdx.z;
+    c += m * n_planes * P;
+    G += m * n_planes * P;
+    u += m * nz * P;
+    v += m * nz * P;
+    if constexpr (HAS_ACC) acc += m * acc_ms;
+  }
   constexpr bool MEMBERS = M == Mode::Members;
   // layer by layer, each layer's blocks in turn (column mode: one layer of n_planes
   // blocks; members: a member is a layer); plane t of layer k lies at (t nz + k) P,
@@ -303,7 +319,8 @@ __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
 struct Args {
   const void *c, *u, *v, *st, *g, *dz, *acc;
   void* G;
-  int n_planes, nz, Yb, Xb;
+  int n_planes, nz, Yb, Xb, n_members;
+  int64_t acc_ms;
 };
 
 template <typename T, Mode M, bool HAS_DIFF, bool HAS_ACC>
@@ -315,10 +332,10 @@ int launch_one(const Args& a, cudaStream_t s) {
         cudaFuncAttributeMaxDynamicSharedMemorySize, Lo::BYTES);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((a.Xb + Lo::TX - 1) / Lo::TX, (a.Yb + Lo::TY - 1) / Lo::TY);
+  const dim3 grid((a.Xb + Lo::TX - 1) / Lo::TX, (a.Yb + Lo::TY - 1) / Lo::TY, a.n_members);
   tracer_adv_kernel<T, M, HAS_DIFF, HAS_ACC><<<grid, THREADS, Lo::BYTES, s>>>(
       (const T*)a.c, (const T*)a.u, (const T*)a.v, (const T*)a.st, (const T*)a.g,
-      (const T*)a.dz, (const T*)a.acc, (T*)a.G, a.n_planes, a.nz, a.Yb, a.Xb);
+      (const T*)a.dz, (const T*)a.acc, (T*)a.G, a.n_planes, a.nz, a.Yb, a.Xb, a.acc_ms);
   return (int)cudaGetLastError();
 }
 
@@ -336,12 +353,16 @@ int launch(const Args& a, int has_diff, int ty, int tx, void* stream) {
   // overflow an int, or a grid the launch cannot take, is refused
   if (ty != Tile<T>::Y || tx != Tile<T>::X || a.nz < 1 || a.n_planes < a.nz ||
       a.n_planes % a.nz || (int64_t)a.Yb * a.Xb > 2147483647LL ||
-      (a.Yb + Tile<T>::Y - 1) / Tile<T>::Y > 65535)
+      (a.Yb + Tile<T>::Y - 1) / Tile<T>::Y > 65535 || a.n_members < 1 ||
+      a.n_members > 65535 || (M != Mode::Layered && a.n_members != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if constexpr (M == Mode::Column) {
     if (a.n_planes > 1) return launch_mode<T, Mode::Planes>(a, has_diff, s);
     return launch_mode<T, Mode::Column>(a, has_diff, s);
+  } else if constexpr (M == Mode::Layered) {
+    if (a.n_members > 1) return launch_mode<T, Mode::LayeredMembers>(a, has_diff, s);
+    return launch_mode<T, Mode::Layered>(a, has_diff, s);
   } else {
     return launch_mode<T, M>(a, has_diff, s);
   }
@@ -354,7 +375,8 @@ extern "C" int osg_tracer_adv_f32(const void* c, const void* u, const void* v,
                                   int Yb, int Xb, int has_diff, int ty, int tx,
                                   void* stream) {
   return launch<float, Mode::Column>(
-      {c, u, v, st, nullptr, nullptr, acc, G, n_planes, 1, Yb, Xb}, has_diff, ty, tx, stream);
+      {c, u, v, st, nullptr, nullptr, acc, G, n_planes, 1, Yb, Xb, 1, 0}, has_diff, ty, tx,
+      stream);
 }
 
 extern "C" int osg_tracer_adv_f64(const void* c, const void* u, const void* v,
@@ -362,7 +384,8 @@ extern "C" int osg_tracer_adv_f64(const void* c, const void* u, const void* v,
                                   int Yb, int Xb, int has_diff, int ty, int tx,
                                   void* stream) {
   return launch<double, Mode::Column>(
-      {c, u, v, st, nullptr, nullptr, acc, G, n_planes, 1, Yb, Xb}, has_diff, ty, tx, stream);
+      {c, u, v, st, nullptr, nullptr, acc, G, n_planes, 1, Yb, Xb, 1, 0}, has_diff, ty, tx,
+      stream);
 }
 
 // n_planes = n_members n member-major planes, plane p over member p / n's u and v
@@ -371,8 +394,8 @@ extern "C" int osg_tracer_adv_members_f32(const void* c, const void* u, const vo
                                           int n_planes, int n_members, int Yb, int Xb,
                                           int has_diff, int ty, int tx, void* stream) {
   return launch<float, Mode::Members>(
-      {c, u, v, st, nullptr, nullptr, acc, G, n_planes, n_members, Yb, Xb}, has_diff, ty, tx,
-      stream);
+      {c, u, v, st, nullptr, nullptr, acc, G, n_planes, n_members, Yb, Xb, 1, 0}, has_diff,
+      ty, tx, stream);
 }
 
 extern "C" int osg_tracer_adv_members_f64(const void* c, const void* u, const void* v,
@@ -380,24 +403,28 @@ extern "C" int osg_tracer_adv_members_f64(const void* c, const void* u, const vo
                                           int n_planes, int n_members, int Yb, int Xb,
                                           int has_diff, int ty, int tx, void* stream) {
   return launch<double, Mode::Members>(
-      {c, u, v, st, nullptr, nullptr, acc, G, n_planes, n_members, Yb, Xb}, has_diff, ty, tx,
-      stream);
+      {c, u, v, st, nullptr, nullptr, acc, G, n_planes, n_members, Yb, Xb, 1, 0}, has_diff,
+      ty, tx, stream);
 }
 
+// n_planes = n_tr nz tracer-major planes a member over nz layers of u and v, for each
+// of n_members members; member b's acc lies b acc_ms after the first (acc_ms >= 0)
 extern "C" int osg_tracer_adv_layered_f32(const void* c, const void* u, const void* v,
                                           const void* iv, const void* g, const void* dz,
                                           const void* acc, void* G, int n_planes, int nz,
-                                          int Yb, int Xb, int has_diff, int ty, int tx,
-                                          void* stream) {
-  return launch<float, Mode::Layered>({c, u, v, iv, g, dz, acc, G, n_planes, nz, Yb, Xb},
-                                      has_diff, ty, tx, stream);
+                                          int Yb, int Xb, int has_diff, int n_members,
+                                          int64_t acc_ms, int ty, int tx, void* stream) {
+  return launch<float, Mode::Layered>(
+      {c, u, v, iv, g, dz, acc, G, n_planes, nz, Yb, Xb, n_members, acc_ms}, has_diff, ty, tx,
+      stream);
 }
 
 extern "C" int osg_tracer_adv_layered_f64(const void* c, const void* u, const void* v,
                                           const void* iv, const void* g, const void* dz,
                                           const void* acc, void* G, int n_planes, int nz,
-                                          int Yb, int Xb, int has_diff, int ty, int tx,
-                                          void* stream) {
-  return launch<double, Mode::Layered>({c, u, v, iv, g, dz, acc, G, n_planes, nz, Yb, Xb},
-                                       has_diff, ty, tx, stream);
+                                          int Yb, int Xb, int has_diff, int n_members,
+                                          int64_t acc_ms, int ty, int tx, void* stream) {
+  return launch<double, Mode::Layered>(
+      {c, u, v, iv, g, dz, acc, G, n_planes, nz, Yb, Xb, n_members, acc_ms}, has_diff, ty, tx,
+      stream);
 }

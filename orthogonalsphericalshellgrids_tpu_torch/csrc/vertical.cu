@@ -29,6 +29,12 @@
 // at 3.35 TB/s; the gyre (T and S, linear EOS) the same bytes. About 60 flops per
 // cell and layer: the flops do not bound it at f32 or f64.
 //
+// An ensemble's B members are the grid's z index: every CTA offsets its member's u,
+// v, c, b and dGu, dGv, dGc once, before its loads (in 64 bits), and shares the
+// counts, the metric planes and the coefficients. The offsets are a template switch
+// (MEMBERS): held in registers they cost the one-stack launch spills and 6-25 % of
+// its time on the H100, so one member compiles to the one-stack kernel unchanged.
+//
 // Design: one launch. A CTA of 256 threads owns a TY x TX tile of columns and the
 // window of the tile plus one column to the west and one row to the south, where the
 // stencil reads w and p (Tile<T>; kernels/vertical.py:launch_plan holds the same
@@ -90,7 +96,7 @@ struct Args {
   const int* n_wet;
   const void *g, *coef;
   void *dgu, *dgv, *dgc;
-  int nz, n_c, n_tr, Yb, Xb, it_T, it_S, viscous, diffusive, chunk;
+  int nz, n_c, n_tr, Yb, Xb, it_T, it_S, viscous, diffusive, chunk, n_members;
   double g_b, alpha, beta, T0, S0;
 };
 
@@ -164,10 +170,12 @@ __device__ __forceinline__ T buoyancy(const Args& a, T x0, T x1, T mc) {
   return T(a.g_b) * bb * mc;
 }
 
-template <typename T, int MODE>
+template <typename T, int MODE, bool MEMBERS>
 __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS) vertical_kernel(const Args a) {
   using Lo = Layout<T>;
   constexpr int TX = Lo::TX, WX = Lo::WX, WN = Lo::WN, PTS = Lo::PTS;
+  const int nz = a.nz, Yb = a.Yb, Xb = a.Xb, chunk = a.chunk;
+  const int64_t P = (int64_t)Yb * Xb;
   const T* __restrict__ u = (const T*)a.u;
   const T* __restrict__ v = (const T*)a.v;
   const T* __restrict__ c = (const T*)a.c;
@@ -177,13 +185,21 @@ __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS) vertical_kernel(
   T* __restrict__ dgu = (T*)a.dgu;
   T* __restrict__ dgv = (T*)a.dgv;
   T* __restrict__ dgc = (T*)a.dgc;
-  const int nz = a.nz, Yb = a.Yb, Xb = a.Xb, chunk = a.chunk;
+  if constexpr (MEMBERS) {  // this CTA's member: its stacks start m (planes a member) P on
+    const int64_t m = blockIdx.z, off_v = m * nz * P;
+    u += off_v;
+    v += off_v;
+    c += m * a.n_c * nz * P;
+    if (b != nullptr) b += off_v;
+    dgu += off_v;
+    dgv += off_v;
+    dgc += m * a.n_tr * nz * P;
+  }
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sw = reinterpret_cast<T*>(smem_raw);  // w of the chunk's interfaces over the window
   T* sp = sw + chunk * WN;                 // p of the layer over the window
   int* sn = reinterpret_cast<int*>(sp + WN);  // wet-layer counts over the window
   const int y0 = blockIdx.y * Lo::TY, x0 = blockIdx.x * TX;
-  const int64_t P = (int64_t)Yb * Xb;
 
   // the window points this thread owns: counts, and the buoyancy inputs of layer 0
   int64_t pcol[PTS];
@@ -346,18 +362,25 @@ __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS) vertical_kernel(
   }
 }
 
-template <typename T, int MODE>
-int launch_mode(const Args& a, cudaStream_t s) {
+template <typename T, int MODE, bool MEMBERS>
+int launch_members(const Args& a, cudaStream_t s) {
   using Lo = Layout<T>;
   const int bytes = Lo::bytes(a.chunk);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        vertical_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        vertical_kernel<T, MODE, MEMBERS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((a.Xb + Lo::TX - 1) / Lo::TX, (a.Yb + Lo::TY - 1) / Lo::TY);
-  vertical_kernel<T, MODE><<<grid, THREADS, bytes, s>>>(a);
+  const dim3 grid((a.Xb + Lo::TX - 1) / Lo::TX, (a.Yb + Lo::TY - 1) / Lo::TY, a.n_members);
+  vertical_kernel<T, MODE, MEMBERS><<<grid, THREADS, bytes, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int MODE>
+int launch_mode(const Args& a, cudaStream_t s) {
+  return a.n_members > 1 ? launch_members<T, MODE, true>(a, s)
+                         : launch_members<T, MODE, false>(a, s);
 }
 
 template <typename T>
@@ -365,7 +388,8 @@ int launch(const Args& a, int mode, int ty, int tx, void* stream) {
   // a plan made for another tile or chunk, or a grid the launch cannot take, is refused
   const int chunk = a.nz > 1 ? (a.nz - 1 < Tile<T>::CHUNK ? a.nz - 1 : Tile<T>::CHUNK) : 1;
   if (ty != Tile<T>::Y || tx != Tile<T>::X || a.chunk != chunk || a.nz < 1 ||
-      a.n_tr < a.n_c || (a.Yb + Tile<T>::Y - 1) / Tile<T>::Y > 65535)
+      a.n_tr < a.n_c || (a.Yb + Tile<T>::Y - 1) / Tile<T>::Y > 65535 || a.n_members < 1 ||
+      a.n_members > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (mode == MODE_TRACER_B) return launch_mode<T, MODE_TRACER_B>(a, s);
@@ -380,11 +404,11 @@ int launch(const Args& a, int mode, int ty, int tx, void* stream) {
       const void* u, const void* v, const void* c, const void* b, const void* n_wet,     \
       const void* g, const void* coef, void* dgu, void* dgv, void* dgc, int nz, int n_c, \
       int n_tr, int Yb, int Xb, int mode, int it_T, int it_S, int viscous,               \
-      int diffusive, int ty, int tx, int chunk, double g_b, double alpha, double beta,   \
-      double T0, double S0, void* stream) {                                              \
+      int diffusive, int ty, int tx, int chunk, int n_members, double g_b, double alpha, \
+      double beta, double T0, double S0, void* stream) {                                 \
     const Args a{u,  v,    c,    b,       (const int*)n_wet, g,     coef,  dgu, dgv,     \
                  dgc, nz,  n_c,  n_tr,    Yb,                Xb,    it_T,  it_S,         \
-                 viscous, diffusive, chunk, g_b, alpha, beta, T0, S0};                   \
+                 viscous, diffusive, chunk, n_members, g_b, alpha, beta, T0, S0};        \
     return launch<TYPE>(a, mode, ty, tx, stream);                                        \
   }
 

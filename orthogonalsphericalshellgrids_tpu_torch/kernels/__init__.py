@@ -23,7 +23,8 @@ LAUNCHES = {"halo_fill": 0, "halo_restore": 0, "halo_fill_copy": 0, "halo_pack":
             "halo_pack_block": 0, "barotropic": 0,
             "momentum": 0, "tracer_adv": 0, "vertical": 0, "momentum_layered": 0,
             "tracer_adv_layered": 0, "momentum_closures": 0, "tracer_adv_kappa": 0,
-            "tracer_adv_planes": 0, "tracer_adv_members": 0,
+            "tracer_adv_planes": 0, "tracer_adv_members": 0, "vertical_members": 0,
+            "momentum_members": 0, "tracer_adv_layered_members": 0, "corrector_members": 0,
             "corrector": 0, "baro_substep_sol": 0, "weno_probe": 0, "stream_probe": 0,
             "fma_ceiling": 0}
 

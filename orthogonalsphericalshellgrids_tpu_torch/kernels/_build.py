@@ -42,12 +42,12 @@ _SIGNATURES = {
     "osg_halo_restore_group": [_T, _I, _P, _I, _P],
     "osg_halo_fill_copy": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "osg_barotropic": [_P] * 10 + [_I] * 10 + [_P],
-    "osg_momentum": [_P] * 10 + [_I] * 8 + [_P],
+    "osg_momentum": [_P] * 10 + [_I] * 9 + [_P],
     "osg_tracer_adv": [_P] * 6 + [_I] * 6 + [_P],
     "osg_tracer_adv_members": [_P] * 6 + [_I] * 7 + [_P],
-    "osg_tracer_adv_layered": [_P] * 8 + [_I] * 7 + [_P],
-    "osg_corrector": [_P] + [_I] * 5 + [_P],
-    "osg_vertical": [_P] * 10 + [_I] * 13 + [_D] * 5 + [_P],
+    "osg_tracer_adv_layered": [_P] * 8 + [_I] * 6 + [_L] + [_I] * 2 + [_P],
+    "osg_corrector": [_P] + [_I] * 4 + [_L, _I, _L, _I, _I, _P],
+    "osg_vertical": [_P] * 10 + [_I] * 14 + [_D] * 5 + [_P],
 }
 
 _lock = threading.Lock()

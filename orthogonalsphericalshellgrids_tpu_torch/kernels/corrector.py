@@ -18,6 +18,14 @@ Operands: (Nz, Yb, Xb) velocity stacks, their tendencies and ``dzu``/``dzv``; th
 (Yb, Xb); ``U_a``/``V_a`` the barotropic averages cropped to the base layout (a
 view with unit x stride, read in place); ``w1``, ``w2`` and ``dt`` 0-d tensors on the
 operands' device, so the step makes no host sync.
+
+An ensemble of B members (``models/ensemble.py``) gives the stacks, tendencies and
+tracers a leading member axis, (B, Nz, Yb, Xb) and (B, n·Nz, Yb, Xb), ``U_a``/``V_a``
+(B, Yb, Xb) crops of the members' free-surface planes, and ``w1``, ``w2`` (and
+``dt``) each a 0-d tensor or one per member, (B,): members may be at different
+iterations. ``dzu``, ``dzv``, ``mask_c`` and ``inv_h_*`` are shared. The kernel takes
+the members as its grid's z index, one launch; the plain versions broadcast, with
+the depth sums over the layer axis −3.
 """
 
 from __future__ import annotations
@@ -32,7 +40,14 @@ __all__ = ["corrector", "corrector_plain", "predictor_plain", "depth_mean_plain"
            "tracer_update_plain"]
 
 
+def _lead(w, A):
+    """A 0-d weight as it is; a (B,) weight shaped to broadcast over the member axis
+    of ``A``."""
+    return w if w.dim() == 0 else w.reshape(w.shape + (1,) * (A.dim() - 1))
+
+
 def _ab2(x0, G, G_old, w1, w2, dt):
+    w1, w2, dt = (_lead(w, x0) for w in (w1, w2, dt))
     return x0 + dt * (w1 * G - w2 * G_old)
 
 
@@ -44,10 +59,10 @@ def predictor_plain(u0, Gu, Gu_old, v0, Gv, Gv_old, dzu, dzv, w1, w2, dt):
 
 def depth_mean_plain(u_star, v_star, dzu, dzv, inv_h_u, inv_h_v, U_a, V_a):
     """(u, v): u* with its depth mean replaced by the barotropic one, masked."""
-    ubar = torch.sum(u_star * dzu, dim=0) * inv_h_u
-    vbar = torch.sum(v_star * dzv, dim=0) * inv_h_v
-    return ((u_star + (U_a * inv_h_u - ubar)[None]) * (dzu != 0).to(dzu.dtype),
-            (v_star + (V_a * inv_h_v - vbar)[None]) * (dzv != 0).to(dzv.dtype))
+    ubar = torch.sum(u_star * dzu, dim=-3) * inv_h_u
+    vbar = torch.sum(v_star * dzv, dim=-3) * inv_h_v
+    return ((u_star + (U_a * inv_h_u - ubar).unsqueeze(-3)) * (dzu != 0).to(dzu.dtype),
+            (v_star + (V_a * inv_h_v - vbar).unsqueeze(-3)) * (dzv != 0).to(dzv.dtype))
 
 
 def tracer_update_plain(c0, Gc, Gc_old, mask_c, w1, w2, dt, b=None):
@@ -55,7 +70,7 @@ def tracer_update_plain(c0, Gc, Gc_old, mask_c, w1, w2, dt, b=None):
     None (then the returned b is None)."""
     nz = mask_c.shape[0]
     c = _ab2(c0, Gc, Gc_old, w1, w2, dt)
-    c = (c.reshape((-1, nz) + c.shape[-2:]) * mask_c).reshape(c.shape)
+    c = (c.reshape(c.shape[:-3] + (-1, nz) + c.shape[-2:]) * mask_c).reshape(c.shape)
     return c, None if b is None else _ab2(*b, w1, w2, dt) * mask_c
 
 
@@ -71,35 +86,46 @@ def corrector_plain(u0, Gu, Gu_old, v0, Gv, Gv_old, c0, Gc, Gc_old, dzu, dzv, ma
 
 def corrector(u0, Gu, Gu_old, v0, Gv, Gv_old, c0, Gc, Gc_old, dzu, dzv, mask_c,
               inv_h_u, inv_h_v, U_a, V_a, w1, w2, dt, b=None):
-    """The fused update (module docstring): the kernel on a CUDA device, the plain
-    version on the CPU. Returns (u, v, c, b), b None when not given. The launch
-    counts as ``corrector``."""
-    if u0.dim() != 3:
-        raise ValueError(f"corrector takes (Nz, Yb, Xb) stacks, got {tuple(u0.shape)}")
-    nz, Yb, Xb = u0.shape
-    if c0.dim() != 3 or c0.shape[0] % nz:
-        raise ValueError(f"corrector: {tuple(c0.shape)} tracer planes over Nz={nz}")
+    """The fused update (module docstring) of one stack or of B members: the kernel on
+    a CUDA device, the plain version on the CPU. Returns (u, v, c, b), b None when
+    not given. The launch counts as ``corrector``, or ``corrector_members`` for
+    B > 1."""
+    if u0.dim() not in (3, 4):
+        raise ValueError(f"corrector takes (Nz, Yb, Xb) stacks or the (B, Nz, Yb, Xb) "
+                         f"stacks of B members, got {tuple(u0.shape)}")
+    lead = tuple(u0.shape[:-3])
+    nz, Yb, Xb = u0.shape[-3:]
+    if c0.dim() != u0.dim() or tuple(c0.shape[:-3]) != lead or c0.shape[-3] % nz:
+        raise ValueError(f"corrector: {tuple(c0.shape)} tracer planes over "
+                         f"{tuple(u0.shape)} velocities")
     stack, plane = (nz, Yb, Xb), (Yb, Xb)
+    weight = {(), lead} if lead else {()}
     tensors = dict(u0=u0, Gu=Gu, Gu_old=Gu_old, v0=v0, Gv=Gv, Gv_old=Gv_old, c0=c0,
                    Gc=Gc, Gc_old=Gc_old, dzu=dzu, dzv=dzv, mask_c=mask_c,
                    inv_h_u=inv_h_u, inv_h_v=inv_h_v, w1=w1, w2=w2, dt=dt)
-    shapes = dict(Gu=stack, Gu_old=stack, v0=stack, Gv=stack, Gv_old=stack,
-                  Gc=c0.shape, Gc_old=c0.shape, dzu=stack, dzv=stack, mask_c=stack,
-                  inv_h_u=plane, inv_h_v=plane, w1=(), w2=(), dt=())
+    shapes = dict(Gu=u0.shape, Gu_old=u0.shape, v0=u0.shape, Gv=u0.shape,
+                  Gv_old=u0.shape, Gc=c0.shape, Gc_old=c0.shape, dzu=stack, dzv=stack,
+                  mask_c=stack, inv_h_u=plane, inv_h_v=plane)
     if b is not None:
         tensors.update(b0=b[0], Gb=b[1], Gb_old=b[2])
-        shapes.update(b0=stack, Gb=stack, Gb_old=stack)
+        shapes.update(b0=u0.shape, Gb=u0.shape, Gb_old=u0.shape)
     check_operands("corrector", tensors, u0.dtype, shapes)
+    if tuple(w1.shape) not in weight or w2.shape != w1.shape or \
+            tuple(dt.shape) not in weight:
+        raise ValueError(f"corrector: w1, w2 (one shape) and dt are 0-d or one per "
+                         f"member {lead}, got {tuple(w1.shape)}, {tuple(w2.shape)}, "
+                         f"{tuple(dt.shape)}")
     for name, a in (("U_a", U_a), ("V_a", V_a)):
-        if a.dtype != u0.dtype or tuple(a.shape) != plane or a.stride(-1) != 1:
-            raise ValueError(f"corrector: {name} must be a {plane} {u0.dtype} view "
-                             f"with unit x stride, got {tuple(a.shape)} {a.dtype} "
+        if a.dtype != u0.dtype or tuple(a.shape) != lead + plane or a.stride(-1) != 1:
+            raise ValueError(f"corrector: {name} must be a {lead + plane} {u0.dtype} "
+                             f"view with unit x stride, got {tuple(a.shape)} {a.dtype} "
                              f"strides {a.stride()}")
     if U_a.stride() != V_a.stride():
         raise ValueError("corrector: U_a and V_a must share their strides")
     if not on_cuda(*tensors.values(), U_a, V_a):
         return corrector_plain(u0, Gu, Gu_old, v0, Gv, Gv_old, c0, Gc, Gc_old, dzu, dzv,
                                mask_c, inv_h_u, inv_h_v, U_a, V_a, w1, w2, dt, b)
+    n_members = lead[0] if lead else 1
     u, v, c = torch.empty_like(u0), torch.empty_like(v0), torch.empty_like(c0)
     b_new = None if b is None else torch.empty_like(b[0])
     bs = (None, None, None) if b is None else b
@@ -107,7 +133,8 @@ def corrector(u0, Gu, Gu_old, v0, Gv, Gv_old, c0, Gc, Gc_old, dzu, dzv, mask_c,
             inv_h_u, inv_h_v, U_a, V_a, w1, w2, dt, u, v, c, b_new]
     arr = (ctypes.c_void_p * len(ptrs))(*(None if t is None else t.data_ptr()
                                           for t in ptrs))
-    call("osg_corrector", u0.dtype, u0.device, arr, c0.shape[0], nz, Yb, Xb,
-         U_a.stride(0))
-    count("corrector")
+    call("osg_corrector", u0.dtype, u0.device, arr, c0.shape[-3], nz, Yb, Xb,
+         U_a.stride(-2), n_members, U_a.stride(0) if lead else 0, int(w1.dim() == 1),
+         int(dt.dim() == 1))
+    count("corrector_members" if n_members > 1 else "corrector")
     return u, v, c, b_new

@@ -15,6 +15,13 @@ per-layer closure pack, plane ``k·L + i`` the i-th factor of layer k, L = 6·ha
 without the mask planes, which ride in ``static`` here). ``acc`` and ``mask_out`` are
 pairs of tensors shaped exactly like ``u`` (``pallas_mom.py:331, 335``).
 
+``period`` (default: the layer count) repeats the closure pack and the closing mask
+over the layers: layer k reads their layer k mod period, so ``lay`` holds
+period·L planes and ``mask_out`` (period, Yb, Xb). An ensemble runs its members as
+layers (``models/ensemble.py``): B layered members as B·Nz layers with period Nz,
+B single-layer members as B layers with period 1, one pack and one mask for all;
+``acc`` stays per layer.
+
 The kernel runs in tiles (``launch_plan``): each CTA owns a tile of output cells,
 loads the metric planes of the tile and its ``REACH`` ring into shared memory once,
 and loops over the layers.
@@ -84,19 +91,30 @@ def launch_plan(Yb, Xb, dtype):
 
 
 def _lay_planes(lay, u, n_lay):
-    """The closure pack as a list of n_lay planes shaped like ``u`` (one plane per
-    layer each)."""
+    """The closure pack as a list of n_lay planes broadcasting against ``u`` (one
+    plane per layer, or per layer of a period, each)."""
     if u.dim() == 2:
         return list(lay)
-    return list(lay.reshape((u.shape[0], n_lay) + lay.shape[-2:]).transpose(0, 1))
+    return list(lay.reshape((u.shape[-3], n_lay) + lay.shape[-2:]).transpose(0, 1))
 
 
 def momentum_plain(u, v, static, has_mask=True, lay=None, has_lap=False, has_drag=False,
-                   acc=None, mask_out=None):
+                   acc=None, mask_out=None, period=None):
     """(Gu, Gv) of halo-filled (Yb, Xb) velocities or (Nz, Yb, Xb) stacks, in the
     TPU kernel's order (``pallas_mom.py:235-268``): the advective terms, masked by the
     last two planes of ``static`` with ``has_mask``; the ν_h Laplacians and the
-    quadratic drag from ``lay`` when asked; + ``acc``; × ``mask_out``."""
+    quadratic drag from ``lay`` when asked; + ``acc``; × ``mask_out``. With a
+    ``period`` below the layer count the layers run as (Nz / period, period) groups
+    over which ``lay`` and ``mask_out`` broadcast."""
+    if u.dim() == 3 and period is not None and period != u.shape[0]:
+        shape = u.shape
+        grouped = (-1, period) + tuple(shape[-2:])
+        u, v = u.reshape(grouped), v.reshape(grouped)
+        if acc is not None:
+            acc = tuple(a.reshape(grouped) for a in acc)
+        Gu, Gv = momentum_plain(u, v, static, has_mask, lay, has_lap, has_drag, acc,
+                                mask_out)
+        return Gu.reshape(shape), Gv.reshape(shape)
     dy_cf, dx_fc, inv_az_ff, f_ff, dx_cf, inv_dx_fc, dy_fc, inv_dy_cf = static[:8]
     zeta = (dxf(dy_cf * v) - dyf(dx_fc * u)) * inv_az_ff
     q = zeta + f_ff
@@ -149,20 +167,26 @@ def _pair(name, pair):
 
 
 def momentum(u, v, static, has_mask=True, lay=None, has_lap=False, has_drag=False,
-             acc=None, mask_out=None):
+             acc=None, mask_out=None, period=None):
     """(Gu, Gv) of halo-filled (Yb, Xb) velocities or (Nz, Yb, Xb) stacks: masked,
     with the 10-plane ``static``, when ``has_mask``; unmasked, with the 8-plane
     ``static``, when not; plus the fused ν_h Laplacians and quadratic drag of the
-    (Nz·L, Yb, Xb) pack ``lay`` with ``has_lap``/``has_drag``; plus the pair ``acc``;
-    times the pair ``mask_out``. Only cells at least ``REACH`` from the array edge
-    are meaningful (the kernel writes 0 there). The launch counts as
-    ``momentum_closures`` with a closure pack, else as ``momentum`` with the masks and
-    as ``momentum_layered`` without."""
+    (period·L, Yb, Xb) pack ``lay`` with ``has_lap``/``has_drag``; plus the pair
+    ``acc``; times the pair ``mask_out`` ((period, Yb, Xb) each); ``period``
+    (default Nz) divides the layer count. Only cells at least ``REACH`` from the
+    array edge are meaningful (the kernel writes 0 there). The launch counts as
+    ``momentum_members`` for the layers of several layered members (no ``has_mask``,
+    a period below the layer count), else as ``momentum_closures`` with a closure
+    pack, else as ``momentum`` with the masks and as ``momentum_layered`` without."""
     if u.dim() not in (2, 3):
         raise ValueError(f"momentum takes a (Yb, Xb) plane or an (Nz, Yb, Xb) stack, "
                          f"got shape {tuple(u.shape)}")
     Yb, Xb = u.shape[-2:]
     nz = u.shape[0] if u.dim() == 3 else 1
+    period = nz if period is None else int(period)
+    if period < 1 or nz % period:
+        raise ValueError(f"momentum: the period {period} does not divide the {nz} layers")
+    per_layer = (period, Yb, Xb) if u.dim() == 3 else (Yb, Xb)
     n_static = len(STATIC_PLANES if has_mask else LAYERED_PLANES)
     n_lay = 6 * bool(has_lap) + 2 * bool(has_drag)
     if (lay is None) != (n_lay == 0):
@@ -173,15 +197,15 @@ def momentum(u, v, static, has_mask=True, lay=None, has_lap=False, has_drag=Fals
     shapes = dict(v=u.shape, static=(n_static, Yb, Xb))
     if n_lay:
         tensors["lay"] = lay
-        shapes["lay"] = (nz * n_lay, Yb, Xb)
-    for key, pair in (("acc", acc_uv), ("mask_out", out_uv)):
+        shapes["lay"] = (period * n_lay, Yb, Xb)
+    for key, pair, shape in (("acc", acc_uv, u.shape), ("mask_out", out_uv, per_layer)):
         for comp, t in zip("uv", pair):
             tensors[f"{key}_{comp}"] = t
-            shapes[f"{key}_{comp}"] = u.shape
+            shapes[f"{key}_{comp}"] = shape
     check_operands("momentum", tensors, u.dtype, shapes)
     if not on_cuda(*tensors.values()):
         return momentum_plain(u, v, static, has_mask, lay, has_lap, has_drag, acc,
-                              mask_out)
+                              mask_out, period)
     plan = launch_plan(Yb, Xb, u.dtype)
     Gu = torch.empty_like(u)
     Gv = torch.empty_like(v)
@@ -189,8 +213,9 @@ def momentum(u, v, static, has_mask=True, lay=None, has_lap=False, has_drag=Fals
     m_u, m_v = out_uv or (None, None)
     call("osg_momentum", u.dtype, u.device, u.data_ptr(), v.data_ptr(),
          static.data_ptr(), *map(data_ptr, (lay, a_u, a_v, m_u, m_v)),
-         Gu.data_ptr(), Gv.data_ptr(), nz, Yb, Xb, int(has_mask), int(bool(has_lap)),
-         int(bool(has_drag)), plan.tile[0], plan.tile[1])
-    count("momentum_closures" if n_lay else
+         Gu.data_ptr(), Gv.data_ptr(), nz, Yb, Xb, period, int(has_mask),
+         int(bool(has_lap)), int(bool(has_drag)), plan.tile[0], plan.tile[1])
+    count("momentum_members" if not has_mask and period < nz else
+          "momentum_closures" if n_lay else
           "momentum" if has_mask else "momentum_layered")
     return Gu, Gv

@@ -17,6 +17,10 @@ with and without the fused κ_h Laplacian, in its two modes:
   ``KAPPA_PLANES`` of the layer), ``g_pack`` the (2, Yb, Xb) planes [dy_fc, dx_cf]
   and ``dz`` the (Nz,) layer thicknesses on the tensors' device. u and v must be
   masked, so that u·dzu == u·dz_k; the plain version is ``models/layered.py:820-824``.
+  An ensemble of B layered members gives ``c`` (B, n_tr·Nz, Yb, Xb) over (B, Nz,
+  Yb, Xb) velocities, member b's planes over its own u and v, the pack, ``g_pack``
+  and ``dz`` shared; its ``acc`` may be a view whose members lie any stride apart
+  (the c block of a dGc stack that also holds b).
 
 κ_h adds G += (δx⁺(K_u·δx⁻c) + δy⁺(K_v·δy⁻c))·K_c (``pallas_adv.py:239-243``). A pack
 of any other size is refused, never read at another stride. In both modes an
@@ -56,6 +60,7 @@ G_PLANES = ("dy_fc", "dx_cf")
 REACH = 3  # the kernel writes 0 within this many cells of the edge (its stencil's reach)
 # the kernel's modes (csrc/tracer_adv.cu:Mode): one column plane, P column planes over
 # one (u, v) pair, the B·n column planes of B members over B (u, v) pairs, layered
+# (its B members, if any, on the grid's z index)
 MODES = ("column", "planes", "members", "layered")
 
 # The output tile of one CTA of csrc/tracer_adv.cu for each dtype, (rows, columns); the
@@ -132,15 +137,17 @@ def tracer_adv_plain(c, u, v, static, g_pack=None, dz=None, acc=None):
     if g_pack is None:
         h_u, dy_fc, h_v, dx_cf, inv_vol_c = static[:5]
         kappa = static[5:] if static.shape[0] == 8 else None
-    else:
-        nz = u.shape[0]
+    else:  # the tracer blocks of each member over its own u, v: (..., n, Nz, Yb, Xb)
+        shape = c.shape
+        nz = u.shape[-3]
         h_u = h_v = dz.reshape(nz, 1, 1)
         dy_fc, dx_cf = g_pack
         S = static.shape[0] // nz
         planes = static.reshape((nz, S) + static.shape[-2:]).transpose(0, 1)
         inv_vol_c = planes[0]
         kappa = planes[1:] if S == 4 else None
-        c = c.reshape((-1, nz) + c.shape[-2:])
+        c = c.reshape(c.shape[:-3] + (-1, nz) + c.shape[-2:])
+        u, v = u.unsqueeze(-4), v.unsqueeze(-4)
     cx = weno5_upwind_faces_from_centers(c, u, axis=-1)
     cy = weno5_upwind_faces_from_centers(c, v, axis=-2)
     fx = u * h_u * dy_fc * cx
@@ -149,7 +156,7 @@ def tracer_adv_plain(c, u, v, static, g_pack=None, dz=None, acc=None):
     if kappa is not None:
         G = G + _diffusion(c, *kappa)
     if g_pack is not None:
-        G = G.reshape((-1,) + G.shape[-2:])
+        G = G.reshape(shape)
     return G if acc is None else G + acc
 
 
@@ -164,6 +171,7 @@ def tracer_adv(c, u, v, static, g_pack=None, dz=None, acc=None):
     ``REACH`` from the array edge are meaningful (the kernel writes 0 there). The
     launch counts as ``tracer_adv_members`` for the planes of B > 1 members, else
     as ``tracer_adv_planes`` for a column stack of P > 1 planes, else as
+    ``tracer_adv_layered_members`` for B > 1 layered members, else as
     ``tracer_adv_kappa`` with κ_h, else as ``tracer_adv`` or ``tracer_adv_layered``.
     One member (B = 1) is the launch of its planes over its (u, v) pair."""
     if (g_pack is None) != (dz is None):
@@ -193,17 +201,15 @@ def tracer_adv(c, u, v, static, g_pack=None, dz=None, acc=None):
         count("tracer_adv_planes" if n_planes > 1 else
               "tracer_adv_kappa" if n_st == 8 else "tracer_adv")
         return G
+    if u.dim() == 4:
+        return _layered_members(c, u, v, static, g_pack, dz, acc)
     if u.dim() != 3 or c.dim() != 3:
         raise ValueError("tracer_adv: layered mode takes (P, Yb, Xb) tracers over "
                          "(Nz, Yb, Xb) velocities")
     nz = u.shape[0]
     if c.shape[0] % nz:
         raise ValueError(f"tracer_adv: {c.shape[0]} tracer planes over Nz={nz} layers")
-    # exactly 1 or 4 planes per layer: any other pack is refused, not misread
-    n_st = static.shape[0] if static.dim() == 3 else -1
-    if n_st not in (nz, 4 * nz):
-        raise ValueError(f"tracer_adv: the layered pack holds Nz = {nz} planes, or "
-                         f"4·Nz with κ_h, got shape {tuple(static.shape)}")
+    n_st = _layered_pack(static, nz)
     tensors = _with_acc(dict(c=c, u=u, v=v, static=static, g_pack=g_pack, dz=dz), acc)
     check_operands("tracer_adv", tensors, c.dtype,
                    dict(u=(nz, Yb, Xb), v=(nz, Yb, Xb), static=(n_st, Yb, Xb),
@@ -215,8 +221,54 @@ def tracer_adv(c, u, v, static, g_pack=None, dz=None, acc=None):
     G = torch.empty_like(c)
     call("osg_tracer_adv_layered", c.dtype, c.device, c.data_ptr(), u.data_ptr(),
          v.data_ptr(), static.data_ptr(), g_pack.data_ptr(), dz.data_ptr(), data_ptr(acc),
-         G.data_ptr(), c.shape[0], nz, Yb, Xb, int(has_diff), *plan.tile)
+         G.data_ptr(), c.shape[0], nz, Yb, Xb, int(has_diff), 1, 0, *plan.tile)
     count("tracer_adv_kappa" if has_diff else "tracer_adv_layered")
+    return G
+
+
+def _layered_pack(static, nz):
+    """The planes of a layered pack: exactly 1 or 4 a layer; any other pack is
+    refused, not misread."""
+    n_st = static.shape[0] if static.dim() == 3 else -1
+    if n_st not in (nz, 4 * nz):
+        raise ValueError(f"tracer_adv: the layered pack holds Nz = {nz} planes, or "
+                         f"4·Nz with κ_h, got shape {tuple(static.shape)}")
+    return n_st
+
+
+def _layered_members(c, u, v, static, g_pack, dz, acc):
+    """Layered mode over the (B, Nz, Yb, Xb) velocities of B members: ``c`` is (B,
+    n_tr·Nz, Yb, Xb), each member's planes over its own u and v, and ``acc``, shaped
+    like ``c``, may be a view with any member stride (one launch with the members as
+    the grid's z index; B = 1 is the one-member launch)."""
+    B, nz, Yb, Xb = u.shape
+    if c.dim() != 4 or c.shape[0] != B or c.shape[1] % nz or c.shape[1] == 0:
+        raise ValueError(f"tracer_adv: {B} layered members of {nz} layers take (B, "
+                         f"n·Nz, Yb, Xb) tracers, got {tuple(c.shape)}")
+    n_st = _layered_pack(static, nz)
+    tensors = dict(c=c, u=u, v=v, static=static, g_pack=g_pack, dz=dz)
+    check_operands("tracer_adv", tensors, c.dtype,
+                   dict(v=u.shape, static=(n_st, Yb, Xb), g_pack=(len(G_PLANES), Yb, Xb),
+                        dz=(nz,)))
+    if acc is not None:
+        if acc.dtype != c.dtype or acc.shape != c.shape or not acc[0].is_contiguous():
+            raise ValueError(f"tracer_adv: acc of {B} members is shaped like c "
+                             f"{tuple(c.shape)} with contiguous members, got "
+                             f"{tuple(acc.shape)} {acc.dtype} strides {acc.stride()}")
+        tensors["acc"] = acc
+    if not on_cuda(*tensors.values()):
+        return tracer_adv_plain(c, u, v, static, g_pack, dz, acc)
+    if B == 1:
+        G = tracer_adv(c[0], u[0], v[0], static, g_pack, dz,
+                       acc=None if acc is None else acc[0])
+        return G[None]
+    plan = launch_plan(Yb, Xb, c.dtype)
+    G = torch.empty_like(c)
+    call("osg_tracer_adv_layered", c.dtype, c.device, c.data_ptr(), u.data_ptr(),
+         v.data_ptr(), static.data_ptr(), g_pack.data_ptr(), dz.data_ptr(), data_ptr(acc),
+         G.data_ptr(), c.shape[1], nz, Yb, Xb, int(n_st == 4 * nz), B,
+         0 if acc is None else acc.stride(0), *plan.tile)
+    count("tracer_adv_layered_members")
     return G
 
 

@@ -25,9 +25,16 @@ Operands:
 Returns (dGu, dGv, dGc), dGc (P, Yb, Xb) with P = n_c·Nz (+ Nz with ``b``); cells
 within ``REACH`` of the array edge are garbage (the kernel writes 0 there).
 
+An ensemble of B members (``models/ensemble.py``) gives u, v, c, b a leading member
+axis, (B, Nz, Yb, Xb) and (B, n_c·Nz, Yb, Xb), and gets (B, ...) stacks back, member
+b's terms from its own fields; the counts, metric planes and coefficients are
+shared. The plain version broadcasts over the member axis.
+
 The kernel makes one launch (``launch_plan``): each CTA owns a tile of columns, sums
 w over the tile and one column west and one row south of it from the floor up into
-shared memory (a chunk of interfaces at a time), then runs the layers top down.
+shared memory (a chunk of interfaces at a time), then runs the layers top down. An
+ensemble's members are the grid's z index, so B members are one launch and each
+member is bitwise its one-member launch.
 """
 
 from __future__ import annotations
@@ -158,13 +165,15 @@ def vertical_plain(u, v, c, b, s_pack, g_pack, coef, mode="none",
                    eos=(0.0, 0.0, 0.0, 0.0, 0.0), it_T=-1, it_S=-1, viscous=False,
                    diffusive=False):
     """(dGu, dGv, dGc) on whole planes, layer by layer, in ``pallas_vert.py``'s
-    order (lines 198-298). ``eos`` = (g_b, α, β, T0, S0)."""
-    nz = u.shape[0]
+    order (lines 198-298), over the layer axis −3 (a leading member axis broadcasts).
+    ``eos`` = (g_b, α, β, T0, S0)."""
+    nz = u.shape[-3]
     S = s_pack.shape[0] // nz
     IAZ, IDX, IDY, DYFC, DXCF = g_pack
     dz, rdzc, mrdz, nudz, kapdz = coef
-    u = list(u)
-    v = list(v)
+    u = u.unbind(-3)
+    v = v.unbind(-3)
+    cl = c.unbind(-3)
 
     def MC(k):
         return s_pack[k * S]
@@ -218,13 +227,13 @@ def vertical_plain(u, v, c, b, s_pack, g_pack, coef, mode="none",
             if mode == "linear_eos":
                 bk = None
                 if it_T >= 0:
-                    bk = alpha * (c[it_T * nz + k] - T0)
+                    bk = alpha * (cl[it_T * nz + k] - T0)
                 if it_S >= 0:
-                    t = beta * (c[it_S * nz + k] - S0)
+                    t = beta * (cl[it_S * nz + k] - S0)
                     bk = -t if bk is None else bk - t
                 bk = g_b * bk * MC(k)
             else:
-                bk = b[k]
+                bk = b[..., k, :, :]
             bdz = dz[k] * bk
             csum = bdz if csum is None else csum + bdz
             p = 0.5 * bdz - csum
@@ -232,9 +241,9 @@ def vertical_plain(u, v, c, b, s_pack, g_pack, coef, mode="none",
             dgv[k] = dgv[k] - (p - _ym(p)) * IDY
 
     # tracers: centered vertical flux divergence, κ_v
-    blocks = [c[t * nz:(t + 1) * nz] for t in range(c.shape[0] // nz)]
+    blocks = [cl[t * nz:(t + 1) * nz] for t in range(len(cl) // nz)]
     if b is not None:
-        blocks.append(b)
+        blocks.append(b.unbind(-3))
     dgc = []
     for ct in blocks:
         F = [None] * (nz + 1)
@@ -252,21 +261,28 @@ def vertical_plain(u, v, c, b, s_pack, g_pack, coef, mode="none",
                 if s is not None:
                     G = G + kapdz[k] * s
             dgc.append(G * MC(k))
-    return torch.stack(dgu), torch.stack(dgv), torch.stack(dgc)
+    return torch.stack(dgu, dim=-3), torch.stack(dgv, dim=-3), torch.stack(dgc, dim=-3)
 
 
 def vertical(u, v, c, b, n_wet, g_pack, coef, mode="none",
              eos=(0.0, 0.0, 0.0, 0.0, 0.0), it_T=-1, it_S=-1, viscous=False,
              diffusive=False):
     """(dGu, dGv, dGc) of the module docstring, with the masks from the (Yb, Xb) int32
-    plane ``n_wet`` of wet-layer counts. On the CPU the plain version runs on the mask
-    pack ``wet_pack`` builds from the same counts; on a CUDA device one launch."""
-    nz, Yb, Xb = u.shape
-    n_c = c.shape[0] // nz
+    plane ``n_wet`` of wet-layer counts, of one stack or of the (B, ...) stacks of B
+    members. On the CPU the plain version runs on the mask pack ``wet_pack`` builds
+    from the same counts; on a CUDA device one launch, counted as ``vertical`` (one
+    member) or ``vertical_members``."""
+    if u.dim() not in (3, 4):
+        raise ValueError(f"vertical takes (Nz, Yb, Xb) stacks or the (B, Nz, Yb, Xb) "
+                         f"stacks of B members, got {tuple(u.shape)}")
+    lead = tuple(u.shape[:-3])
+    nz, Yb, Xb = u.shape[-3:]
+    n_c = c.shape[-3] // nz
     if mode not in MODES:
         raise ValueError(f"vertical: unknown mode {mode!r}; options: {sorted(MODES)}")
-    if c.shape[0] != n_c * nz or n_c < 1:
-        raise ValueError(f"vertical: c has {c.shape[0]} planes, not a multiple of Nz={nz}")
+    if c.dim() != u.dim() or c.shape[-3] != n_c * nz or n_c < 1:
+        raise ValueError(f"vertical: c of shape {tuple(c.shape)} is not a stack of "
+                         f"tracer blocks of Nz={nz} layers like u {tuple(u.shape)}")
     if not torch.is_tensor(n_wet) or n_wet.dtype != torch.int32 or \
             tuple(n_wet.shape) != (Yb, Xb) or not n_wet.is_contiguous():
         raise ValueError(f"vertical: n_wet is a contiguous ({Yb}, {Xb}) int32 plane of "
@@ -279,21 +295,22 @@ def vertical(u, v, c, b, n_wet, g_pack, coef, mode="none",
     if b is not None:
         ops["b"] = b
     check_operands("vertical", ops, u.dtype,
-                   dict(v=(nz, Yb, Xb), c=(n_c * nz, Yb, Xb), b=(nz, Yb, Xb),
+                   dict(v=u.shape, c=lead + (n_c * nz, Yb, Xb), b=u.shape,
                         g_pack=(5, Yb, Xb), coef=(len(COEF_ROWS), nz)))
     args = (mode, eos, it_T, it_S, viscous, diffusive)
     if not on_cuda(*ops.values(), n_wet):
         s_pack = wet_pack(n_wet, nz, 3 if viscous else 1, u.dtype)
         return vertical_plain(u, v, c, b, s_pack, g_pack, coef, *args)
+    n_members = lead[0] if lead else 1
     plan = launch_plan(nz, Yb, Xb, u.dtype)
     n_tr = n_c + (1 if b is not None else 0)
     dgu = torch.empty_like(u)
     dgv = torch.empty_like(v)
-    dgc = torch.empty((n_tr * nz, Yb, Xb), dtype=u.dtype, device=u.device)
+    dgc = torch.empty(lead + (n_tr * nz, Yb, Xb), dtype=u.dtype, device=u.device)
     call("osg_vertical", u.dtype, u.device, u.data_ptr(), v.data_ptr(), c.data_ptr(),
          None if b is None else b.data_ptr(), n_wet.data_ptr(), g_pack.data_ptr(),
          coef.data_ptr(), dgu.data_ptr(), dgv.data_ptr(), dgc.data_ptr(), nz, n_c, n_tr,
          Yb, Xb, MODES[mode], int(it_T), int(it_S), int(bool(viscous)),
-         int(bool(diffusive)), *plan.tile, plan.chunk, *(float(x) for x in eos))
-    count("vertical")
+         int(bool(diffusive)), *plan.tile, plan.chunk, n_members, *(float(x) for x in eos))
+    count("vertical_members" if n_members > 1 else "vertical")
     return dgu, dgv, dgc

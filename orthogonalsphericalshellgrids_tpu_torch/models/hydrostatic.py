@@ -486,13 +486,11 @@ def tendencies(model: HydrostaticModel, u, v, c, t=0.0):
     g, ib = model.grid, model.ib
     mom_kernel = model.momentum_advection == "weno_vector_invariant"
     adv_kernel = model.tracer_advection == "weno5"
-    if mom_kernel:
-        lay = model.mom_lay
-        if lay is not None and u.dim() == 3:  # members: the kernel's layers
-            lay = _member_lay(model, u.shape[0])
-        Gu, Gv = momentum.momentum(u, v, model.mom_pack, lay=lay,
+    if mom_kernel:  # members are the kernel's layers, sharing one closure pack
+        Gu, Gv = momentum.momentum(u, v, model.mom_pack, lay=model.mom_lay,
                                    has_lap=model.nu_h > 0.0,
-                                   has_drag=model.drag_type == "quadratic")
+                                   has_drag=model.drag_type == "quadratic",
+                                   period=1)
     else:
         Gu, Gv = centered_momentum(model, u, v)
         Gu, Gv = Gu * ib.mask_u, Gv * ib.mask_v
@@ -542,15 +540,6 @@ def tendencies(model: HydrostaticModel, u, v, c, t=0.0):
                 Gc[..., model.tracer_names.index(name), :, :] += fn(
                     g.lam_cc, g.phi_cc, t, fields) * ib.mask_c
     return Gu, Gv, Gc
-
-
-def _member_lay(model, n_members):
-    """The momentum kernel's closure pack repeated for ``n_members`` members (its
-    layers), built once a model and member count."""
-    cache = model.__dict__.setdefault("_member_lay", {})
-    if n_members not in cache:
-        cache[n_members] = model.mom_lay.repeat(n_members, 1, 1)
-    return cache[n_members]
 
 
 # --------------------------------------------------------------------------------------

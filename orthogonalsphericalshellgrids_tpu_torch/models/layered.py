@@ -28,7 +28,14 @@ Counterpart: ``orthogonalsphericalshellgrids_tpu/models/layered.py``
   lies above the bottom).
 
 Layout: layer axis leading, ``(Nz, Yb, Xb)`` with k = 0 the surface layer; several
-tracers stack tracer-major as ``(n·Nz, Yb, Xb)``. The model is an ``nn.Module``
+tracers stack tracer-major as ``(n·Nz, Yb, Xb)``. An ensemble (``models/ensemble.py``)
+puts a member axis B in front of every field, (B, Nz, Yb, Xb), (B, n·Nz, Yb, Xb) and
+(B, Ye, Xe), with (B,) ``t`` and ``iteration``, and goes through ``layered_step``'s own
+code: each kernel launches once a step for all members (the vertical, corrector and
+layered tracer kernels take the members as their grid's z index, the momentum kernel
+runs the B·Nz layers with its closure pack and closing mask repeating every Nz), the
+fills take the member stacks as planes, the AB2 weights are per member, and the
+layer axis is −3 throughout. The model is an ``nn.Module``
 that holds the port's ``HydrostaticModel`` as ``baro``; its arrays are registered
 buffers and the state is a frozen dataclass of tensors. ``layered_step`` makes no
 host sync. It fills the halos of the incoming state's prognostic fields in place (one
@@ -67,7 +74,7 @@ from ..ops.closures import (_ratio, biharmonic_c, biharmonic_u, biharmonic_v,
 from ..ops.location import CC, CF, FC
 from ..ops.operators import dxc, dyc, ixc, ixf, iyc, iyf
 from ..ops.spmd import GroupFill
-from .hydrostatic import (ForcingFields, HydrostaticModel, _forcing_ext, _inv,
+from .hydrostatic import (ForcingFields, HydrostaticModel, _forcing_ext, _inv, _lead,
                           _resolve_overlap, barotropic_substeps, centered_momentum,
                           crop_ext, embed_ext, from_jax_arrays, make_model,
                           split_tendencies)
@@ -84,7 +91,8 @@ class LayeredState:
     """Prognostics: u/v/c/b are (Nz, Yb, Xb) layer stacks (c is (n·Nz, Yb, Xb) with
     several tracers) with their previous tendencies; η/U/V live on the widened
     free-surface grid as in the single-layer model; ``t`` and ``iteration`` are 0-d
-    tensors."""
+    tensors. An ensemble's state has a leading member axis on every field and (B,)
+    ``t`` and ``iteration``."""
 
     u: Any
     v: Any
@@ -489,18 +497,19 @@ def vertical_velocity(model: LayeredModel, u, v):
     sea floor (w = 0 there); interface k is the top of layer k. Inputs halo-filled."""
     g = model.grid
     hdiv = (dxc(g.dy_fc * model.dzu * u) + dyc(g.dx_cf * model.dzv * v)) * _inv(g.az_cc)
-    below = torch.flip(torch.cumsum(torch.flip(hdiv, (0,)), dim=0), (0,))
-    return torch.cat([-below, torch.zeros_like(hdiv[:1])], dim=0)
+    below = torch.flip(torch.cumsum(torch.flip(hdiv, (-3,)), dim=-3), (-3,))
+    return torch.cat([-below, torch.zeros_like(hdiv[..., :1, :, :])], dim=-3)
 
 
 def _as_tracer4(model: LayeredModel, c):
-    """(n·Nz, Yb, Xb) tracer-major stack -> (n, Nz, Yb, Xb) view."""
-    return c.reshape((len(model.tracer_names), model.nz) + c.shape[-2:])
+    """(..., n·Nz, Yb, Xb) tracer-major stack -> (..., n, Nz, Yb, Xb) view."""
+    return c.reshape(c.shape[:-3] + (len(model.tracer_names), model.nz) + c.shape[-2:])
 
 
 def _as_tracer_stack(model: LayeredModel, c4):
-    """Inverse of ``_as_tracer4``: (Nz, ...) for one tracer, (n·Nz, ...) otherwise."""
-    return c4.reshape((-1,) + c4.shape[-2:])
+    """Inverse of ``_as_tracer4``: (..., Nz, ...) for one tracer, (..., n·Nz, ...)
+    otherwise."""
+    return c4.reshape(c4.shape[:-4] + (-1,) + c4.shape[-2:])
 
 
 def _mask_tracers(model: LayeredModel, c):
@@ -579,7 +588,7 @@ def _implicit_vertical_solve(q, r, dz, dzc, mask):
 def _hydrostatic_pressure(b, dz):
     """Kinematic pressure p_k = -∫_{z_k}^0 b dz' at layer centres (k = 0 surface),
     by one cumulative sum; ``dz`` is the (Nz, 1, 1) thickness."""
-    csum = torch.cumsum(b * dz, dim=0)
+    csum = torch.cumsum(b * dz, dim=-3)
     return -(csum - 0.5 * dz * b)
 
 
@@ -588,11 +597,11 @@ def _linear_eos_buoyancy(model: LayeredModel, c):
     or S contributes zero."""
     c4 = _as_tracer4(model, c)
     names = model.tracer_names
-    b = torch.zeros_like(c4[0])
+    b = torch.zeros_like(c4[..., 0, :, :, :])
     if "T" in names:
-        b = b + model.alpha_T * (c4[names.index("T")] - model.T0)
+        b = b + model.alpha_T * (c4[..., names.index("T"), :, :, :] - model.T0)
     if "S" in names:
-        b = b - model.beta_S * (c4[names.index("S")] - model.S0)
+        b = b - model.beta_S * (c4[..., names.index("S"), :, :, :] - model.S0)
     return model.g_b * b * model.mask_c3
 
 
@@ -610,8 +619,10 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
     holds); then the user forcing. With the centered momentum the vorticity terms
     are plain PyTorch plus dGu, and quadratic drag and ν_h follow in torch before
     ν4_h (``layered.py:663-723``); with another tracer scheme the faces, κ_h and κ4_h
-    are plain PyTorch and dGc is added after them (``layered.py:801-840``). ``b`` is ignored (and Gb is zeros) without a
-    prognostic buoyancy; ``t`` is the model time handed to the forcing functions."""
+    are plain PyTorch and dGc is added after them (``layered.py:801-840``). ``b`` is
+    ignored (and Gb is zeros) without a prognostic buoyancy; ``t`` is the model time
+    handed to the forcing functions. The stacks may carry a leading member axis (an
+    ensemble; then ``t`` is (B, 1, 1, 1))."""
     g, m = model.grid, model.baro
     names = model.tracer_names
     eos = model.buoyancy == "linear_eos"
@@ -624,17 +635,20 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
         it_S=names.index("S") if eos and "S" in names else -1,
         viscous=explicit and model.nu_v > 0.0, diffusive=explicit and model.kappa_v > 0.0)
     fold_mask, mom_kernel = model.fold_mask_out, model.mom_kernel
-    if mom_kernel:
+    if mom_kernel:  # a member's layers follow the previous member's: one launch
+        layers = [a.flatten(0, -3) for a in (u, v, dgu, dgv)]
         Gu, Gv = momentum.momentum(
-            u, v, model.mom_static, has_mask=False, lay=model.mom_lay,
-            has_lap=m.nu_h > 0.0, has_drag=m.drag_type == "quadratic", acc=(dgu, dgv),
-            mask_out=(model.mask_u3, model.mask_v3) if fold_mask else None)
+            *layers[:2], model.mom_static, has_mask=False, lay=model.mom_lay,
+            has_lap=m.nu_h > 0.0, has_drag=m.drag_type == "quadratic", acc=layers[2:],
+            mask_out=(model.mask_u3, model.mask_v3) if fold_mask else None,
+            period=model.nz)
+        Gu, Gv = Gu.reshape(u.shape), Gv.reshape(v.shape)
     else:  # the centered vorticity, then dGu
         Gu, Gv = centered_momentum(m, u, v)
         Gu, Gv = Gu + dgu, Gv + dgv
     if m.wind:  # surface stress accelerates the top layer (Gu is a fresh tensor)
-        Gu[0] += model.wind_u
-        Gv[0] += model.wind_v
+        Gu[..., 0, :, :] += model.wind_u
+        Gv[..., 0, :, :] += model.wind_v
     if m.drag_type == "linear":
         r_dz = torch.full_like(model.dz3, m.drag_coeff) / model.dz3
         Gu = Gu - r_dz * u * model.bot_u
@@ -664,15 +678,16 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
         if fold_acc:  # WENO-5 without κ4_h: dGc rides in the kernel
             return tracer_adv.tracer_adv(q, u, v, model.adv_pack, g_pack, model.dz_t,
                                          acc=dg)
-        q4 = q.reshape((-1, model.nz) + q.shape[-2:])  # (n, Nz, Yb, Xb)
+        q4 = q.reshape(q.shape[:-3] + (-1, model.nz) + q.shape[-2:])  # (..., n, Nz, Yb, Xb)
         if model.adv_kernel:
             G = tracer_adv.tracer_adv(q, u, v, model.adv_pack, g_pack,
                                       model.dz_t).reshape(q4.shape)
-        else:
-            cx = tracer_faces(q4, u, axis=-1, scheme=m.tracer_advection)
-            cy = tracer_faces(q4, v, axis=-2, scheme=m.tracer_advection)
-            fx = u * model.dzu * g.dy_fc * cx
-            fy = v * model.dzv * g.dx_cf * cy
+        else:  # each tracer block over its member's u and v
+            uq, vq = u.unsqueeze(-4), v.unsqueeze(-4)
+            cx = tracer_faces(q4, uq, axis=-1, scheme=m.tracer_advection)
+            cy = tracer_faces(q4, vq, axis=-2, scheme=m.tracer_advection)
+            fx = uq * model.dzu * g.dy_fc * cx
+            fy = vq * model.dzv * g.dx_cf * cy
             G = -(dxc(fx) + dyc(fy)) * inv_vol
             if m.kappa_h > 0.0:
                 G = G + m.kappa_h * laplacian_c(g, q4, model.mask_c3, model.mask_u3,
@@ -682,9 +697,9 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
                                               model.mask_v3)
         return G.reshape(q.shape) + dg
 
-    ncp = c.shape[0]
-    Gc = tracer_tendency(c, dgc[:ncp])
-    Gb = tracer_tendency(b, dgc[ncp:]) if model.has_b else torch.zeros_like(b)
+    ncp = c.shape[-3]
+    Gc = tracer_tendency(c, dgc[..., :ncp, :, :])
+    Gb = tracer_tendency(b, dgc[..., ncp:, :, :]) if model.has_b else torch.zeros_like(b)
 
     if model.forcing:  # pointwise per layer; Gc and Gb are fresh tensors
         fields = ForcingFields(u=u, v=v, c=c, b=b if model.has_b else None)
@@ -698,8 +713,8 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
                 Gb = Gb + fn(g.lam_cc, g.phi_cc, z3, t, fields) * model.mask_c3
             else:
                 k = names.index(name)
-                Gc[k * nz:(k + 1) * nz] += fn(g.lam_cc, g.phi_cc, z3, t,
-                                              fields) * model.mask_c3
+                Gc[..., k * nz:(k + 1) * nz, :, :] += fn(g.lam_cc, g.phi_cc, z3, t,
+                                                         fields) * model.mask_c3
     return Gu, Gv, Gc, Gb
 
 
@@ -733,8 +748,16 @@ def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None,
     reads the unfilled ones; the restore runs even when the step raises. ``state``
     is bitwise unchanged on return. ``spmd`` runs the step on one rank of a
     y-partitioned run or one block of a 2-D mesh, and ``overlap`` splits its
-    tendencies, as in ``models/hydrostatic.py:step``."""
+    tendencies, as in ``models/hydrostatic.py:step``.
+
+    An ensemble's ``state`` (a leading member axis, ``models/ensemble.py``) steps
+    every member at once, each with its own AB2 weights, at one ``dt``; it runs
+    serial only."""
     g, ge, m = model.grid, model.grid_ext, model.baro
+    members = state.t.dim() == 1
+    if members and spmd is not None:
+        raise NotImplementedError("a sharded ensemble is not ported (ROADMAP queue 1: "
+                                  "ensembles of sharded runs)")
     overlap = _resolve_overlap(m, g, spmd, overlap)
     # a number becomes a device scalar by a fill launch; copying it from the host
     # would wait for the stream to drain on every step
@@ -747,19 +770,20 @@ def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None,
             Gu, Gv, Gc, Gb = layered_tendencies_overlapped(model, state, spmd, fill)
         else:
             fill.fill()
+            t = state.t.reshape(-1, 1, 1, 1) if members else state.t
             Gu, Gv, Gc, Gb = layered_tendencies(model, state.u, state.v, state.c,
-                                                state.b, t=state.t)
+                                                state.b, t=t)
 
         first = state.iteration == 0
         w1 = torch.where(first, m.ab2[0], m.ab2[2])
         w2 = torch.where(first, m.ab2[1], m.ab2[3])
-        Gu_s = w1 * Gu - w2 * state.Gu
-        Gv_s = w1 * Gv - w2 * state.Gv
+        Gu_s = _lead(w1, Gu) * Gu - _lead(w2, Gu) * state.Gu
+        Gv_s = _lead(w1, Gv) * Gv - _lead(w2, Gv) * state.Gv
 
         # the thickness-weighted depth integral of the baroclinic forcing drives the
         # subcycle, valid through the widened halo after its fill
-        GU, GV = _forcing_ext(ge, embed_ext(g, ge, torch.sum(Gu_s * model.dzu, dim=0)),
-                              embed_ext(g, ge, torch.sum(Gv_s * model.dzv, dim=0)), spmd)
+        GU, GV = _forcing_ext(ge, embed_ext(g, ge, torch.sum(Gu_s * model.dzu, dim=-3)),
+                              embed_ext(g, ge, torch.sum(Gv_s * model.dzv, dim=-3)), spmd)
         n_sub = m.weights.shape[0]
         eta_a, U_a, V_a = barotropic_substeps(m, state.eta, state.U, state.V, GU, GV, dt,
                                               wrap_x_each_substep=ge.Hx < n_sub + 1)
@@ -786,12 +810,18 @@ def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None,
 
 def _state_fields(model: LayeredModel, state: LayeredState):
     """The fill group of ``state``'s prognostic fields: u, v, c, b (where it is
-    prognostic) on the base grid, η, U, V on the extended one."""
+    prognostic) on the base grid, η, U, V on the extended one; an ensemble's member
+    stacks as planes."""
     g, ge = model.grid, model.grid_ext
     base, ext = (g.Nx, g.Ny, g.Hx, g.Hy), (ge.Nx, ge.Ny, ge.Hx, ge.Hy)
-    fields = [(state.u, FC, -1, *base), (state.v, CF, -1, *base), (state.c, CC, 1, *base)]
+
+    def planes(a):
+        return a.flatten(0, -3)
+
+    fields = [(planes(state.u), FC, -1, *base), (planes(state.v), CF, -1, *base),
+              (planes(state.c), CC, 1, *base)]
     if model.has_b:
-        fields.append((state.b, CC, 1, *base))
+        fields.append((planes(state.b), CC, 1, *base))
     return fields + [(state.eta, CC, 1, *ext), (state.U, FC, -1, *ext),
                      (state.V, CF, -1, *ext)]
 
@@ -833,8 +863,8 @@ def layered_multi_step(model: LayeredModel, state: LayeredState, dt,
 
 def layered_cfl_dt(model: LayeredModel, state: LayeredState, cfl=0.3):
     """Advective-CFL time step over all layers, as a 0-d tensor on the model's
-    device."""
+    device; an ensemble's as a (B,) tensor, one per member."""
     m = model.baro
     speed = torch.abs(state.u) * m.inv_dx_fc + torch.abs(state.v) * m.inv_dy_cf
-    smax = torch.max(model.grid.interior(speed))
+    smax = torch.amax(model.grid.interior(speed), dim=(-3, -2, -1))
     return torch.where(smax > 0, cfl / smax, torch.full_like(smax, float("inf")))

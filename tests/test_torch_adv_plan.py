@@ -13,7 +13,9 @@ follows the kernel's order of operations, so on the cells the kernel keeps it mu
 give the plain version's bits, write every cell exactly once, and give the same bits
 under another tile. The guard itself (``weno5.cuh:div_nz``) is held bitwise against
 plain division, and the replay against the JAX package's Pallas kernel in interpret
-mode at float64.
+mode at float64. The layered mode's member addressing (an ensemble's members on the
+grid's z index, each CTA's stacks offset once, acc at a member stride of its own) is
+replayed on flat buffers against one-member replays.
 """
 
 import os
@@ -388,3 +390,60 @@ def test_tiled_replay_matches_pallas():
                  acc=acc)[0].numpy()
     I = (Ellipsis, slice(4, -4), slice(4, -4))
     assert np.abs(got[I] - want[I]).max() <= 1e-12 * np.abs(want[I]).max()
+
+
+def replay_layered_members(c, u, v, pack, plan, g, dz, acc=None):
+    """The layered mode's member addressing on flat buffers: CTA z = m reads member
+    m's c at m·n_planes·P, its u and v at m·Nz·P and its acc at m·acc.stride(0), and
+    writes its G at m·n_planes·P (csrc/tracer_adv.cu), each member replayed with
+    ``replay``; returns G as a (B, n_planes, Yb, Xb) stack and the writes of every
+    flat cell of G."""
+    B, nz, Yb, Xb = u.shape
+    P, n_planes = Yb * Xb, c.shape[1]
+    fc, fu, fv = c.reshape(-1), u.reshape(-1), v.reshape(-1)
+    if acc is not None:  # acc's whole storage, flat, and member 0's offset in it
+        fa = acc.as_strided((acc.untyped_storage().nbytes() // acc.element_size(),), (1,), 0)
+    G = torch.full((B * n_planes * P,), float("nan"), dtype=c.dtype)
+    writes = torch.zeros(G.shape, dtype=torch.int64)
+    for m in range(B):
+        oc, ov = m * n_planes * P, m * nz * P
+
+        def at(buf, off, planes):
+            return buf[off:off + planes * P].view(planes, Yb, Xb)
+
+        a = None
+        if acc is not None:
+            a = at(fa, acc.storage_offset() + m * acc.stride(0), n_planes)
+        g_m, w = replay(at(fc, oc, n_planes), at(fu, ov, nz), at(fv, ov, nz), pack, plan, g,
+                        dz, acc=a)
+        G[oc:oc + n_planes * P] = g_m.reshape(-1)
+        writes[oc:oc + n_planes * P] += w.reshape(-1)
+    return G.view(c.shape), writes
+
+
+@pytest.mark.parametrize("kappa", [False, True])
+@pytest.mark.parametrize("acc_kind", [None, "view"])
+def test_tiled_replay_layered_members_are_one_member_launches(kappa, acc_kind):
+    """Three layered members of two tracers (the gyre's T and S) in one launch, acc
+    absent or a view of a larger stack (the c block of a dGc that also holds b, a
+    member stride of its own): every cell written once, each member bitwise its
+    one-member launch, and the plain version's member broadcast on the kept cells."""
+    B, n_tr, Yb, Xb = 3, 2, 41, 97
+    sets = [_inputs("layered", n_tr, kappa, Yb, Xb, seed=50 + m) for m in range(B)]
+    (_, _, _, pack, g, dz), _ = sets[0]
+    c, u, v = (torch.stack([s[0][i] for s in sets]) for i in range(3))
+    acc = None
+    if acc_kind == "view":
+        big = torch.stack([torch.cat([s[1], s[1][:3]]) for s in sets])
+        acc = big[:, :c.shape[1]]
+        assert not acc.is_contiguous()
+    plan = tracer_adv.launch_plan(Yb, Xb, torch.float64)
+    G, writes = replay_layered_members(c, u, v, pack, plan, g, dz, acc=acc)
+    assert (writes == 1).all()
+    want = tracer_adv.tracer_adv_plain(c, u, v, pack, g, dz, acc=acc)
+    I = (Ellipsis, slice(R, -R), slice(R, -R))
+    assert torch.equal(G[I], want[I])
+    for m in range(B):
+        one = replay(c[m], u[m], v[m], pack, plan, g, dz,
+                     acc=None if acc is None else acc[m])[0]
+        assert torch.equal(G[m], one), m

@@ -1388,7 +1388,8 @@ def test_cuda_tracer_adv_members_route_and_refusals():
 def test_cuda_momentum_members(dtype, closures):
     """A (B, Yb, Xb) member stack with the masked 10-plane pack through the kernel's
     layer loop: each member bitwise its one-plane launch, with the closure pack
-    repeated per member when it is given."""
+    repeated per member when it is given, and so is the ensemble's launch of one pack
+    with period 1."""
     B = 4
     r = np.random.default_rng(31 + closures)
     u, v, static = _mom_inputs(dtype, seed=31)
@@ -1400,6 +1401,9 @@ def test_cuda_momentum_members(dtype, closures):
     kw = dict(has_lap=closures, has_drag=closures)
     got = momentum.momentum(u, v, static, lay=None if lay is None else lay.repeat(B, 1, 1),
                             **kw)
+    # the ensemble's call: one pack, repeating every layer (period 1)
+    one_pack = momentum.momentum(u, v, static, lay=lay, period=1, **kw)
+    assert torch.equal(got[0], one_pack[0]) and torch.equal(got[1], one_pack[1])
     for b in range(B):
         one = momentum.momentum(u[b].contiguous(), v[b].contiguous(), static, lay=lay, **kw)
         assert torch.equal(got[0][b], one[0]) and torch.equal(got[1][b], one[1]), b
@@ -1454,6 +1458,286 @@ def _scaled(state, s):
     return TH.State(**{f.name: getattr(state, f.name) * s
                        if f.name not in ("t", "iteration") else getattr(state, f.name)
                        for f in dataclasses.fields(TH.State)})
+
+
+# ------------------------------------------------------------------------------------
+# ensembles of the layered model: the member axis of the vertical, corrector, layered
+# momentum and layered tracer kernels
+# ------------------------------------------------------------------------------------
+
+def _member_vertical_args(dtype, mode, B, nz=4, Yb=37, Xb=131, seed=0):
+    """(u, v, c, b) stacks of B members over one count plane, metric pack and
+    coefficient stack, and the call's keywords (ν_v and κ_v on)."""
+    r = np.random.default_rng(seed)
+    n_wet = np.minimum(r.integers(0, nz + 3, (Yb, Xb)), nz).astype(np.int32)
+    _, mu, mv = vertical.wet_pack(torch.as_tensor(n_wet), nz, 3,
+                                   torch.float64).reshape(nz, 3, Yb, Xb).transpose(0, 1)
+    n_c = 2 if mode == "linear_eos" else 1
+    c = r.standard_normal((B, n_c * nz, Yb, Xb))
+    if mode == "linear_eos":
+        c[:, :nz] += 10.0
+        c[:, nz:] = 35.0 + 0.1 * c[:, nz:]
+    dz = [50.0 * 1.05 ** k for k in range(nz)]
+    coef = vertical.coefficients(dz, [0.5 * (dz[k] + dz[k + 1]) for k in range(nz - 1)],
+                                 1e-3, 1e-5)
+    arrays = [r.standard_normal((B, nz, Yb, Xb)) * mu.numpy(),
+              r.standard_normal((B, nz, Yb, Xb)) * mv.numpy(), c,
+              r.standard_normal((B, nz, Yb, Xb)) if mode == "tracer_b" else None,
+              n_wet, 0.5 + r.random((5, Yb, Xb)), coef]
+    args = [None if a is None else torch.as_tensor(
+        a, dtype=torch.int32 if a.dtype == np.int32 else dtype, device="cuda")
+        for a in arrays]
+    kw = dict(mode=mode, eos=(9.81, 1.67e-4, 7.8e-4, 10.0, 35.0),
+              it_T=0 if n_c == 2 else -1, it_S=1 if n_c == 2 else -1, viscous=True,
+              diffusive=True)
+    return args, kw
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["none", "tracer_b", "linear_eos"])
+@pytest.mark.parametrize("B", [1, 3])
+def test_cuda_vertical_members(dtype, mode, B):
+    """B members' vertical terms in one launch (``vertical_members``; one member
+    counts as ``vertical``) within the band of the plain version, each member bitwise
+    its one-member launch, the inputs unchanged."""
+    args, kw = _member_vertical_args(dtype, mode, B, seed=B + len(mode))
+    kept = [a.clone() for a in args if a is not None]
+    kernels.reset_launch_counts()
+    got = vertical.vertical(*args, **kw)
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert counts == {"vertical_members" if B > 1 else "vertical": 1}, counts
+    u, v, c, b, n_wet, g, coef = args
+    want = vertical.vertical_plain(u, v, c, b, vertical.wet_pack(n_wet, u.shape[1], 3, dtype),
+                                   g, coef, **kw)
+    for a, w in zip(got, want):
+        assert _rel_err(a, w, (slice(1, -1), slice(1, -1))) <= BANDS[dtype]
+        assert torch.isfinite(a).all() and _edge_zero(a, vertical.REACH)
+    for m in range(B):
+        one = vertical.vertical(u[m], v[m], c[m], None if b is None else b[m], n_wet, g,
+                                coef, **kw)
+        for a, o in zip(got, one):
+            assert torch.equal(a[m], o), m
+    assert all(torch.equal(a, k) for a, k in zip((a for a in args if a is not None), kept))
+
+
+def _member_corrector_args(dtype, B, with_b, nz=4, n_c=8, Yb=37, Xb=131, seed=0):
+    r = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device="cuda")
+
+    stacks = [t(r.standard_normal((B, nz, Yb, Xb))) for _ in range(6)]
+    tracers = [t(r.standard_normal((B, n_c, Yb, Xb))) for _ in range(3)]
+    masks = [t(r.random((nz, Yb, Xb)) > 0.2) for _ in range(3)]
+    dz3 = t(np.linspace(10.0, 400.0, nz)).view(-1, 1, 1)
+    ext = t(r.standard_normal((2, B, Yb + 10, Xb + 14)))
+    shared = [dz3 * masks[0], dz3 * masks[1], masks[2], t(r.random((Yb, Xb))),
+              t(r.random((Yb, Xb)))]
+    crops = [ext[0, :, 5:5 + Yb, 7:7 + Xb], ext[1, :, 5:5 + Yb, 7:7 + Xb]]
+    b = tuple(t(r.standard_normal((B, nz, Yb, Xb))) for _ in range(3)) if with_b else None
+    return stacks + tracers + shared + crops, b
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("with_b", [False, True])
+@pytest.mark.parametrize("per_member_dt", [False, True])
+def test_cuda_corrector_members(dtype, with_b, per_member_dt):
+    """Three members in one launch (``corrector_members``), each with its own w1, w2
+    (one at its first step) and its own crop of the widened U_a, V_a: within the band
+    of the plain version, each member bitwise its one-member launch."""
+    B = 3
+    args, b = _member_corrector_args(dtype, B, with_b, seed=7 + with_b)
+    w1 = torch.tensor([1.0, 1.6, 1.6], dtype=dtype, device="cuda")
+    w2 = torch.tensor([0.0, 0.6, 0.6], dtype=dtype, device="cuda")
+    dt = torch.tensor([40.0, 40.0, 20.0] if per_member_dt else 40.0, dtype=dtype,
+                      device="cuda")
+    kernels.reset_launch_counts()
+    got = corrector.corrector(*args, w1, w2, dt, b=b)
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert counts == {"corrector_members": 1}, counts
+    want = corrector.corrector_plain(*args, w1, w2, dt, b=b)
+    for a, w in zip(got, want):
+        assert (a is None) == (w is None)
+        if a is not None:
+            assert _rel_err(a, w, (slice(None), slice(None))) <= BANDS[dtype]
+    for m in range(B):
+        member_args = [a[m] if k < 9 or k >= 14 else a for k, a in enumerate(args)]
+        one = corrector.corrector(*member_args, w1[m], w2[m], dt[m] if per_member_dt else dt,
+                                  b=None if b is None else tuple(x[m] for x in b))
+        for a, o in zip(got, one):
+            assert (a is None and o is None) or torch.equal(a[m], o), m
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("closures", [False, True])
+def test_cuda_momentum_period_members(dtype, closures):
+    """Three layered members of 4 layers as 12 layers with period 4 (one closure pack
+    and one closing mask, acc per layer; ``momentum_members``) within the band of the
+    plain version, each member bitwise its one-member launch."""
+    B, nz, Yb, Xb = 3, 4, 37, 131
+    r = np.random.default_rng(41 + closures)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device="cuda")
+
+    u, v = t(r.standard_normal((B * nz, Yb, Xb))), t(r.standard_normal((B * nz, Yb, Xb)))
+    static = 1.0 + r.random((8, Yb, Xb))
+    static[3] = 0.1 * r.standard_normal((Yb, Xb))
+    kw = dict(has_mask=False, mask_out=tuple(t(r.random((nz, Yb, Xb)) > 0.2)
+                                             for _ in range(2)))
+    if closures:
+        lay = 0.5 + r.random((nz, 8, Yb, Xb))
+        lay[:, 6:] *= 0.1
+        kw.update(lay=t(lay.reshape(-1, Yb, Xb)), has_lap=True, has_drag=True)
+    acc = tuple(t(0.5 * r.standard_normal((B * nz, Yb, Xb))) for _ in range(2))
+    kernels.reset_launch_counts()
+    got = momentum.momentum(u, v, t(static), acc=acc, period=nz, **kw)
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert counts == {"momentum_members": 1}, counts
+    R = momentum.REACH
+    want = momentum.momentum_plain(u, v, t(static), acc=acc, period=nz, **kw)
+    for a, w in zip(got, want):
+        assert _rel_err(a, w, (slice(R, -R), slice(R, -R))) <= BANDS[dtype]
+        assert torch.isfinite(a).all() and _edge_zero(a, R)
+    for m in range(B):
+        sl = slice(m * nz, (m + 1) * nz)
+        one = momentum.momentum(u[sl], v[sl], t(static), acc=tuple(a[sl] for a in acc), **kw)
+        for a, o in zip(got, one):
+            assert torch.equal(a[sl], o), m
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_tr", [1, 2])
+@pytest.mark.parametrize("kappa", [False, True])
+@pytest.mark.parametrize("acc_kind", [None, "stack", "view"])
+def test_cuda_tracer_adv_layered_members(dtype, n_tr, kappa, acc_kind):
+    """Three layered members in one launch (``tracer_adv_layered_members``), acc
+    absent, a stack, or a view with its own member stride: within the band of the
+    plain version, finite with the edge 0, each member bitwise its one-member
+    launch."""
+    B, nz, Yb, Xb = 3, 4, 37, 131
+    r = np.random.default_rng(n_tr + 3 * kappa + 7 * len(str(acc_kind)))
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device="cuda")
+
+    mask = r.random((nz, Yb, Xb)) > 0.2
+    u, v = (t(r.standard_normal((B, nz, Yb, Xb)) * mask) for _ in range(2))
+    c = r.standard_normal((B, n_tr * nz, Yb, Xb))
+    c[1:, :, : Yb // 3] = 0.0  # exact zeros, as on land
+    c = t(c)
+    S = 4 if kappa else 1
+    pack = t(((0.5 + r.random((nz, S, Yb, Xb))) * mask[:, None]).reshape(nz * S, Yb, Xb))
+    g2, dz = t(0.5 + r.random((2, Yb, Xb))), t([50.0, 120.0, 300.0, 500.0])
+    acc = None
+    if acc_kind == "stack":
+        acc = t(0.5 * r.standard_normal(tuple(c.shape)))
+    elif acc_kind == "view":
+        acc = t(0.5 * r.standard_normal((B, (n_tr + 1) * nz, Yb, Xb)))[:, :n_tr * nz]
+    kernels.reset_launch_counts()
+    got = tracer_adv.tracer_adv(c, u, v, pack, g2, dz, acc=acc)
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert counts == {"tracer_adv_layered_members": 1}, counts
+    R = tracer_adv.REACH
+    want = tracer_adv.tracer_adv_plain(c, u, v, pack, g2, dz, acc=acc)
+    assert _rel_err(got, want, (slice(R, -R), slice(R, -R))) <= BANDS[dtype]
+    assert torch.isfinite(got).all() and _edge_zero(got, R)
+    for m in range(B):
+        one = tracer_adv.tracer_adv(c[m], u[m], v[m], pack, g2, dz,
+                                    acc=None if acc is None else acc[m])
+        assert torch.equal(got[m], one), m
+
+
+@needs_cuda
+def test_cuda_member_entries_refuse():
+    """The member entries refuse no member (n_members 0: the vertical and layered
+    tracer entries) and a period that does not divide the layers (momentum), writing
+    nothing; one layered member through the 4-D wrappers is the one-stack launch."""
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import call
+
+    args, kw = _member_vertical_args(torch.float32, "tracer_b", 1, seed=5)
+    u, v, c, b, n_wet, g, coef = args
+    kernels.reset_launch_counts()
+    one = vertical.vertical(*args, **kw)
+    assert kernels.launch_counts()["vertical"] == 1
+    for a, o in zip(one, vertical.vertical(u[0], v[0], c[0], b[0], n_wet, g, coef, **kw)):
+        assert torch.equal(a[0], o)
+    nz, Yb, Xb = u.shape[1:]
+    out = [torch.full_like(u, 7.0) for _ in range(2)] + [torch.full((1, 2 * nz, Yb, Xb), 7.0,
+                                                                    device="cuda")]
+    plan = vertical.launch_plan(nz, Yb, Xb, torch.float32)
+    with pytest.raises(RuntimeError):
+        call("osg_vertical", torch.float32, u.device, u.data_ptr(), v.data_ptr(),
+             c.data_ptr(), b.data_ptr(), n_wet.data_ptr(), g.data_ptr(), coef.data_ptr(),
+             *(o.data_ptr() for o in out), nz, 1, 2, Yb, Xb, vertical.MODES["tracer_b"], -1,
+             -1, 1, 1, *plan.tile, plan.chunk, 0, *kw["eos"])
+    u2, v2, static = _mom_inputs(torch.float32)
+    u4 = torch.stack([u2] * 4)
+    G = [torch.full_like(u4, 7.0) for _ in range(2)]
+    with pytest.raises(RuntimeError):
+        call("osg_momentum", torch.float32, u4.device, u4.data_ptr(), u4.data_ptr(),
+             static.data_ptr(), None, None, None, None, None, G[0].data_ptr(),
+             G[1].data_ptr(), 4, *u2.shape, 3, 0, 0, 0,
+             *momentum.launch_plan(*u2.shape, torch.float32).tile)
+    pack, dz = torch.ones((4, *u2.shape), device="cuda"), torch.ones(4, device="cuda")
+    with pytest.raises(RuntimeError):
+        call("osg_tracer_adv_layered", torch.float32, u4.device, u4.data_ptr(),
+             u4.data_ptr(), u4.data_ptr(), pack.data_ptr(), static.data_ptr(), dz.data_ptr(),
+             None, G[0].data_ptr(), 4, 4, *u2.shape, 0, 0, 0,
+             *tracer_adv.launch_plan(*u2.shape, torch.float32).tile)
+    torch.cuda.synchronize()
+    assert all((o == 7.0).all() for o in out + G)
+    with pytest.raises(ValueError, match="period"):
+        momentum.momentum(u4, u4, static[:8].contiguous(), has_mask=False, period=3)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("config", ["gyre", "front"])
+def test_cuda_layered_ensemble_step_bitwise(dtype, config):
+    """Three layered members (at iterations 0, 1 and 0) stepped together on the card:
+    the check gyre (wind, quadratic drag, ν_h, κ_h, T and S) and the front (c and b),
+    each member bitwise its own serial steps, a step launching as many kernels as
+    one serial step, each through its member launch."""
+    from examples.baroclinic_front_torch import build as front
+    from examples.wind_driven_ts_gyre_torch import build_check
+
+    from orthogonalsphericalshellgrids_tpu_torch.models import ensemble
+
+    if config == "gyre":
+        model, base = build_check(dtype=dtype, device="cuda")
+    else:
+        model, base = front(48, 40, 3, dtype=dtype, substeps=12, device="cuda")
+    names = [f.name for f in dataclasses.fields(TL.LayeredState)]
+
+    def scaled(s, f):
+        return TL.LayeredState(**{n: getattr(s, n) * f if n not in ("t", "iteration")
+                                  else getattr(s, n) for n in names})
+
+    serial = [scaled(base, f) for f in (0.5, 1.0, 1.5)]
+    serial[1] = TL.layered_step(model, serial[1], 60.0)
+    batch = ensemble.stack_members(serial)
+    kernels.reset_launch_counts()
+    ensemble.ensemble_step(model, batch, 60.0)
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    kernels.reset_launch_counts()
+    TL.layered_step(model, serial[0], 60.0)
+    serial_counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    n_adv = 1 if config == "gyre" else 2  # the front advects c and b
+    assert counts == {"halo_fill": 2, "halo_restore": 1, "barotropic": 1,
+                      "vertical_members": 1, "momentum_members": 1,
+                      "tracer_adv_layered_members": n_adv, "corrector_members": 1}, counts
+    assert sum(serial_counts.values()) == sum(counts.values()), serial_counts
+    out = ensemble.ensemble_multi_step(model, batch, 60.0, 3)
+    for i, s in enumerate(serial):
+        want = TL.layered_multi_step(model, s, 60.0, 3)
+        got = ensemble.member(out, i)
+        for n in names:
+            assert torch.equal(getattr(got, n), getattr(want, n)), (i, n)
 
 
 # ------------------------------------------------------------------------------------

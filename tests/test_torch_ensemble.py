@@ -11,8 +11,8 @@
 - the member axis of the plain barotropic subcycle and the plain tracer advection
   against B single calls, bitwise, and a replay of the barotropic kernel's member
   addressing (``tests/test_torch_baro_plan.py:replay``) against one-member replays;
-- the refusals: a sharded ensemble, an ensemble of the layered model, a dt per
-  member.
+- the refusals: a sharded ensemble, a dt per member (ensembles of the layered model
+  are ``tests/test_torch_layered_ensemble.py``'s).
 """
 
 import dataclasses
@@ -42,7 +42,6 @@ from orthogonalsphericalshellgrids_tpu.models import step as jax_step  # noqa: E
 from orthogonalsphericalshellgrids_tpu_torch.kernels import barotropic, tracer_adv  # noqa: E402
 from orthogonalsphericalshellgrids_tpu_torch.models import ensemble  # noqa: E402
 from orthogonalsphericalshellgrids_tpu_torch.models import hydrostatic as TH  # noqa: E402
-from orthogonalsphericalshellgrids_tpu_torch.models import layered as TL  # noqa: E402
 from orthogonalsphericalshellgrids_tpu_torch.models import (  # noqa: E402
     SplitExplicitFreeSurface)
 from orthogonalsphericalshellgrids_tpu_torch.models.split_explicit import (  # noqa: E402
@@ -155,18 +154,12 @@ def test_member_round_trip():
 
 
 def test_refusals():
-    """A sharded ensemble and an ensemble of the layered model raise
-    ``NotImplementedError`` naming the ROADMAP; a dt per member is refused."""
+    """A sharded ensemble raises ``NotImplementedError`` naming the ROADMAP; a dt per
+    member is refused."""
     model, base = torch_build(32, 24, dtype=torch.float64, substeps=6, device="cpu")
     batch = ensemble.stack_members([base, base])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TH.step(model, batch, 60.0, spmd=object())
-    lm = TL.make_layered_model(model.grid, free_surface=SplitExplicitFreeSurface(
-        substeps=6), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ensemble.ensemble_step(lm, batch, 60.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ensemble.ensemble_multi_step(lm, batch, 60.0, 2)
     with pytest.raises(ValueError, match="one dt"):
         ensemble.ensemble_step(model, batch, torch.tensor([60.0, 30.0],
                                                           dtype=torch.float64))

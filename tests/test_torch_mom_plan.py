@@ -10,7 +10,9 @@ of one cell, then every cell of the tile, with the closure pack, ``acc`` and
 ``mask_out`` read at the cell and the cells within ``REACH`` of the edge written 0.
 The replay follows the kernel's order of operations, so on the cells the kernel
 keeps it must give the plain version's bits, write every cell exactly once, and give
-the same bits under another tile.
+the same bits under another tile. The period of the closure pack and the closing
+mask (an ensemble's members as layers, each reading one member's pack and mask) is
+replayed against one-member replays.
 """
 
 import os
@@ -71,15 +73,17 @@ def _weno_selected(pos, cm3, cm2, cm1, c0, cp1, cp2):
 
 
 def replay(u, v, static, plan, has_mask=True, lay=None, has_lap=False, has_drag=False,
-           acc=None, mask_out=None):
+           acc=None, mask_out=None, period=None):
     """The tile algorithm of csrc/momentum.cu, one CTA at a time; returns (Gu, Gv)
-    and how many times each cell was written."""
+    and how many times each cell was written. Layer k reads the closure pack's and
+    the closing mask's layer k mod ``period`` (default: the layer count)."""
     one = u.dim() == 2
     u3, v3 = (u[None], v[None]) if one else (u, v)
     nz, Yb, Xb = u3.shape
+    period = nz if period is None else period
     (TY, TX), (WY, WX) = plan.tile, plan.window
     L = 6 * has_lap + 2 * has_drag
-    lay4 = lay.reshape(nz, L, Yb, Xb) if L else None
+    lay4 = lay.reshape(period, L, Yb, Xb) if L else None
     Gu, Gv = torch.full_like(u3, float("nan")), torch.full_like(v3, float("nan"))
     writes = torch.zeros(u3.shape, dtype=torch.int64)
 
@@ -145,7 +149,7 @@ def replay(u, v, static, plan, has_mask=True, lay=None, has_lap=False, has_drag=
                     gu = gu * c(cell(static[8]))
                     gv = gv * c(cell(static[9]))
                 if has_lap:
-                    lu_c, lu_f, lu_s, lv_f, lv_c, lv_s = (cell(p) for p in lay4[k, :6])
+                    lu_c, lu_f, lu_s, lv_f, lv_c, lv_s = (cell(p) for p in lay4[k % period, :6])
                     gxu0 = (t(su, 0, 1) - t(su)) * c(lu_c)
                     gxu1 = (t(su) - t(su, 0, -1)) * c(lu_c, 0, -1)
                     gyu0 = (t(su) - t(su, -1)) * c(lu_f)
@@ -157,7 +161,7 @@ def replay(u, v, static, plan, has_mask=True, lay=None, has_lap=False, has_drag=
                     gyv1 = (t(sv) - t(sv, -1)) * c(lv_c, -1)
                     gv = gv + ((gxv1 - gxv0) + (gyv0 - gyv1)) * c(lv_s)
                 if has_drag:
-                    dr_u, dr_v = (cell(p) for p in lay4[k, -2:])
+                    dr_u, dr_v = (cell(p) for p in lay4[k % period, -2:])
                     vu = 0.5 * (0.5 * (t(sv) + t(sv, 1)) + 0.5 * (t(sv, 0, -1) + t(sv, 1, -1)))
                     sp_u = torch.sqrt(t(su) * t(su) + vu * vu)
                     uv = 0.5 * (0.5 * (t(su) + t(su, 0, 1)) + 0.5 * (t(su, -1) + t(su, -1, 1)))
@@ -168,8 +172,8 @@ def replay(u, v, static, plan, has_mask=True, lay=None, has_lap=False, has_drag=
                     gu = gu + c(cell(acc[0][k] if not one else acc[0]))
                     gv = gv + c(cell(acc[1][k] if not one else acc[1]))
                 if mask_out is not None:
-                    gu = gu * c(cell(mask_out[0][k] if not one else mask_out[0]))
-                    gv = gv * c(cell(mask_out[1][k] if not one else mask_out[1]))
+                    gu = gu * c(cell(mask_out[0][k % period] if not one else mask_out[0]))
+                    gv = gv * c(cell(mask_out[1][k % period] if not one else mask_out[1]))
                 # the tile clipped at the array's edge; REACH cells written 0
                 ny, nx = min(TY, Yb - y0), min(TX, Xb - x0)
                 jj = y0 + torch.arange(ny)
@@ -237,3 +241,29 @@ def test_tiled_replay_independent_of_the_tile():
     b = replay(u, v, static, momentum._plan(29, 53, (4, 16), 8), **kw)
     for x, y in zip(a[:2], b[:2]):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("mode", ["operands", "closures"])
+@pytest.mark.parametrize("nz", [1, 3])
+def test_tiled_replay_period_is_one_member_replays(mode, nz):
+    """Three members' layers in one launch, the closure pack and the closing mask of
+    one member repeating every ``nz`` layers (nz = 1: period 1, as single-layer members):
+    every cell written once, each member's layers bitwise its one-member replay, and
+    the plain version's bits with the same period."""
+    B, Yb, Xb = 3, 37, 45
+    u, v, static, kw = _inputs(B * nz, Yb, Xb, mode, seed=40 + nz)
+    kw["mask_out"] = tuple(m[:nz].contiguous() for m in kw["mask_out"])
+    if mode == "closures":
+        kw["lay"] = kw["lay"][:8 * nz].contiguous()
+    plan = momentum.launch_plan(Yb, Xb, torch.float64)
+    Gu, Gv, writes = replay(u, v, static, plan, period=nz, **kw)
+    assert (writes == 1).all()
+    want = momentum.momentum_plain(u, v, static, period=nz, **kw)
+    I = (Ellipsis, slice(R, -R), slice(R, -R))
+    for got, w in zip((Gu, Gv), want):
+        assert torch.equal(got[I], w[I])
+    for m in range(B):
+        lay_m = slice(m * nz, (m + 1) * nz)
+        one_kw = dict(kw, acc=tuple(a[lay_m] for a in kw["acc"]))
+        one = replay(u[lay_m], v[lay_m], static, plan, **one_kw)
+        assert torch.equal(Gu[lay_m], one[0]) and torch.equal(Gv[lay_m], one[1])

@@ -15,7 +15,9 @@ edge written 0. The replay follows the kernel's order of operations, so on the c
 the kernel keeps it must give the bits of ``vertical_plain`` on the mask pack of the
 same counts, write every cell once, and give the same bits under another chunk and
 tile. The counts are pinned against the JAX model's ``vert_pack`` and the count
-route against the JAX package's Pallas kernel in interpret mode, at float64.
+route against the JAX package's Pallas kernel in interpret mode, at float64. The
+kernel's member addressing (an ensemble's members on the grid's z index, each CTA's
+stacks offset once) is replayed on flat buffers against one-member replays.
 """
 
 import os
@@ -346,3 +348,61 @@ def test_count_route_matches_pallas(mode):
     for a, w in zip(got, want):
         w = np.asarray(w)
         assert np.abs(a.numpy()[I] - w[I]).max() <= 1e-12 * np.abs(w[I]).max()
+
+
+# ------------------------------------------------------------------------------------
+# the member axis
+# ------------------------------------------------------------------------------------
+
+def replay_members(u, v, c, b, n_wet, g, coef, plan, **kw):
+    """The kernel's member addressing on flat buffers: CTA z = m reads member m's u,
+    v, b at m·Nz·P, its c at m·n_c·Nz·P and writes its dGu, dGv at m·Nz·P and its dGc
+    at m·n_tr·Nz·P (csrc/vertical.cu), each member replayed with ``replay``; returns
+    (dGu, dGv, dGc) as (B, ...) stacks and the writes of every flat output cell."""
+    B, nz, Yb, Xb = u.shape
+    P = Yb * Xb
+    n_c = c.shape[1] // nz
+    n_tr = n_c + (b is not None)
+    flat = [None if a is None else a.reshape(-1) for a in (u, v, c, b)]
+    out = [torch.full((B * n * nz * P,), float("nan"), dtype=u.dtype) for n in (1, 1, n_tr)]
+    writes = [torch.zeros(o.shape, dtype=torch.int64) for o in out]
+    for m in range(B):
+        ov, oc, og = m * nz * P, m * n_c * nz * P, m * n_tr * nz * P
+
+        def at(buf, off, planes):
+            return buf[off:off + planes * P].view(planes, Yb, Xb)
+
+        *got, w = replay(at(flat[0], ov, nz), at(flat[1], ov, nz), at(flat[2], oc, n_c * nz),
+                         None if b is None else at(flat[3], ov, nz), n_wet, g, coef, plan,
+                         **kw)
+        for k, (o, wr, a, off) in enumerate(zip(out, writes, got, (ov, ov, og))):
+            n = a.numel()
+            o[off:off + n] = a.reshape(-1)
+            wr[off:off + n] += (w[k] if k < 2 else w[2:]).reshape(-1)
+    shapes = [u.shape, v.shape, (B, n_tr * nz, Yb, Xb)]
+    return [o.view(s) for o, s in zip(out, shapes)], writes
+
+
+@pytest.mark.parametrize("mode", ["none", "tracer_b", "linear_eos"])
+def test_member_replay_is_one_member_replays(mode):
+    """Three members (their own u, v, c, b; shared counts, metric planes and
+    coefficients), with ν_v and κ_v: the member addressing writes every output cell
+    once, each member is bitwise its one-member replay, and the members match the
+    plain version's member broadcast on the kept cells."""
+    B, nz, Yb, Xb = 3, 4, 19, 70
+    sets = [_inputs(mode, nz, Yb, Xb, seed=30 + m, mixing=True) for m in range(B)]
+    (_, _, _, _, n_wet, g, coef), kw = sets[0]
+    stack = [None if sets[0][0][i] is None else torch.stack([s[0][i] for s in sets])
+             for i in range(4)]
+    plan = vertical.launch_plan(nz, Yb, Xb, torch.float64)
+    got, writes = replay_members(*stack, n_wet, g, coef, plan, **kw)
+    assert all((w == 1).all() for w in writes)
+    s_pack = vertical.wet_pack(n_wet, nz, 3, torch.float64)
+    want = vertical.vertical_plain(*stack, s_pack, g, coef, **kw)
+    I = (Ellipsis, slice(R, -R), slice(R, -R))
+    for m in range(B):
+        one = replay(*(None if a is None else a[m] for a in stack), n_wet, g, coef, plan,
+                     **kw)
+        for a, o, w in zip(got, one[:3], want):
+            assert torch.equal(a[m], o)
+            assert torch.equal(a[m][I], w[m][I])
