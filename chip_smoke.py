@@ -135,6 +135,31 @@ Phase 17 ensembles of the layered model (run after phase 13, while phase 7's gyr
          serial step; (c) the f64 front oracle through member 0 of a 2-member
          ensemble (member 1 the state times 0.9, one step ahead), phase 6's
          tolerances.
+Phase 18 ensembles of sharded runs (run after phase 17, while phase 7's gyre lives):
+         (a) the member launches at a rank's and a strip's shapes (SHARD_PLANES: a
+         y-shard of 170 rows, a 2 x 2 block, the split's 15-row and 15-column strips;
+         SHARD_EXT: their extended planes), B = 4: the barotropic member axis, the
+         jet's tracer_adv_members and momentum over the members (period 1), the
+         gyre's vertical_members, momentum_members (period 10),
+         tracer_adv_layered_members and, on a rank's plane, corrector_members, at
+         float32 and float64: within the bands of their plain versions, each member
+         bitwise its one-member launch at the same shape; timed at float32 with the
+         host ahead beside 4 one-member launches, with the data-sheet, measured byte
+         and WENO or substep bounds; (b) phase 3's jet as 4 members (phase 15b's
+         scales) in 4 y-shards through LocalExchange, the split on, 20 steps at dt =
+         60 s after 3 warm-up: every member bitwise its run in the serial ensemble
+         from the same state, each shard launching phase 12b's kernels with the
+         member launches in place, no host synchronization; (c) the same on 2 x 2
+         blocks; (d) phase 7's gyre as 4 members, 3 steps at dt = 40 s after 3
+         warm-up in 4 y-shards and on 2 x 2, bitwise the serial ensemble, and
+         unsplit on 4 y-shards, bitwise the split; ms/step, device busy and idle
+         share of (b)-(d) beside one member on the same ranks (phases 12-13) and
+         the serial ensemble; (e) a
+         2-member jet ensemble through a 1-rank NCCL ProcessGroupExchange, bitwise the
+         serial ensemble, no host synchronization; (f) the float64 check gyre of phase
+         8 with a forcing of T that reads t, 2 members one step apart, in 2 y-shards
+         with the split, 3 steps through the kernels against the plain sharded
+         ensemble on the CPU, rtol 1e-11.
 
 Phase 2 holds the halo fills first: the group fill with save, the group fill without
 save and the group restore against their plain versions, bitwise at float32 and
@@ -286,6 +311,23 @@ ENSEMBLE_SCALES = (0.5, 0.75, 1.0, 1.25)
 # two group fills
 LAYERED_ENSEMBLE = ("halo_restore", "barotropic", "vertical_members", "momentum_members",
                     "tracer_adv_layered_members", "corrector_members")
+# ensembles of sharded runs (phase 18): the kernels each y-shard of the jet's and of
+# the gyre's 4-member ensemble launches, the tendency kernels the split runs on the
+# bulk and each strip, and the planes of a rank and of the split's strips at 1/4
+# degree (halo 5; 3 Hy rows or 3 Hx columns) with the ranks' extended planes (halo
+# 22) and their Nx
+SHARDED_ENSEMBLE = ("halo_pack", "halo_fill_shard", "halo_wrap", "halo_restore",
+                    "barotropic", "momentum", "tracer_adv_members")
+SHARDED_LAYERED_ENSEMBLE = ("halo_pack", "halo_fill_shard", "halo_wrap", "halo_restore",
+                            "barotropic", "vertical_members", "momentum_members",
+                            "tracer_adv_layered_members", "corrector_members")
+SPLIT_ENSEMBLE = ("momentum", "tracer_adv_members")
+SPLIT_LAYERED_ENSEMBLE = ("vertical_members", "momentum_members",
+                          "tracer_adv_layered_members")
+SHARD_PLANES = {"y-shard": (180, 1450), "y-shard row strip": (15, 1450),
+                "2 x 2 block": (350, 730), "block row strip": (15, 730),
+                "block column strip": (350, 15)}
+SHARD_EXT = {"y-shard": (214, 1484, 1440), "2 x 2 block": (384, 764, 720)}
 # the single-layer options that run outside the kernels (phase 14c), and the kernel
 # each leaves in the step
 OPTIONS = {"weno7": dict(tracer_advection="weno7"),
@@ -2211,7 +2253,7 @@ def phase13_runs(card, bickley, gyre, shard_ms):
     LocalExchange: bitwise equal to serial (and (c) to (b)), each block's launches
     counted, no host synchronization; (e) overlap=True against overlap=False on 4
     y-shards and on 2 x 2, both models, bitwise. Returns the (b) run's launch
-    counts."""
+    counts and {run: ms/step} of (b)-(d)."""
     import torch
 
     from orthogonalsphericalshellgrids_tpu_torch import kernels, parallel
@@ -2309,7 +2351,7 @@ def phase13_runs(card, bickley, gyre, shard_ms):
             f"{ops:.0f} device ops, {busy:.4f} ms device busy a step, idle share "
             f"{idle:.3f} (serial {s_ops:.0f} ops, {s_busy:.4f} ms, {s_idle:.3f}); "
             f"launches {counts} [{card}]")
-        out[tag] = (got, counts)
+        out[tag] = (got, counts, ms)
     # (e) the split against the unsplit step
     for path, model, state0, layered, n_steps, dt in (("Bickley", bmodel, bstate, False, 5,
                                                        60.0),
@@ -2337,7 +2379,7 @@ def phase13_runs(card, bickley, gyre, shard_ms):
         "ProcessGroupExchange's NCCL sends, and the overlap the split is for, need two; "
         "the 2-D exchange between processes runs on the CPU through gloo in "
         "tests/test_torch_distributed2d.py)")
-    return out["b"][1]
+    return out["b"][1], {tag: run_[2] for tag, run_ in out.items()}
 
 def model_variant(model, **options):
     """Phase 3's model with other ``OPTIONS`` metadata (the schemes change no array),
@@ -3095,7 +3137,7 @@ def phase17b_layered_ensemble(card, model, state0, gyre_ms, n_steps=10, warm=3, 
     steps after 3 warm-up through ensemble_multi_step: one serial layered step's
     launches a step, each through its member launch; every member bitwise its serial
     run in every field; ms/step as run and with the host ahead, device busy and idle
-    share, beside the serial step. Returns the launch counts."""
+    share, beside the serial step. Returns the launch counts and ms/step."""
     import dataclasses
 
     import torch
@@ -3149,7 +3191,7 @@ def phase17b_layered_ensemble(card, model, state0, gyre_ms, n_steps=10, warm=3, 
         f"{gyre_ms:.4f} ms/step, {B} x that {B * gyre_ms:.4f}; launches "
         f"{ {k: v for k, v in counts.items() if v} }; every member bitwise its serial run "
         f"in every field [{card}]")
-    return counts
+    return counts, ms
 
 
 def phase17c_front_oracle_member(card):
@@ -3201,6 +3243,497 @@ def phase17c_front_oracle_member(card):
         f"[{card}]")
 
 
+
+# --------------------------------------------------------------------------------------
+# Phase 18: ensembles of sharded runs
+# --------------------------------------------------------------------------------------
+
+def sharded(model, state, mesh_kind, layered, overlap=None):
+    """(step function, the ranks' states, gather) of ``state`` (one state or an
+    ensemble's batch) on ``mesh_kind`` ranks through LocalExchange: a number of
+    y-shards or an (n_x, n_y) mesh of blocks (gather fold)."""
+    from orthogonalsphericalshellgrids_tpu_torch import parallel as P
+
+    if isinstance(mesh_kind, int):
+        mesh, extra, arg = P.make_mesh(mesh_kind), (), mesh_kind
+        distribute, step_fn, gather = (
+            (P.distribute_layered, P.sharded_layered_step_fn, P.gather_layered_state)
+            if layered else (P.distribute, P.sharded_step_fn, P.gather_state))
+    else:
+        mesh = P.make_mesh2d(*mesh_kind)
+        extra, arg = (model.grid.Nx,), mesh
+        distribute, step_fn, gather = (
+            (P.distribute_layered2d, P.sharded_layered_step_fn2d, P.gather_layered_state2d)
+            if layered else (P.distribute2d, P.sharded_step_fn2d, P.gather_state2d))
+    dm, ds = distribute(model, state, mesh)
+    fn = step_fn(mesh, dm, *extra, overlap=overlap)
+    return fn, ds, lambda s: gather(s, model, arg)
+
+
+def members_equal(model, got, want, what, names):
+    """Each member of the gathered batch ``got`` bitwise the serial ensemble's
+    ``want`` on the interiors of ``names`` (the gathered halos are 0), and in t and
+    iteration."""
+    import torch
+
+    for name in names:
+        grid = model.grid_ext if name in ("eta", "U", "V") else model.grid
+        check(torch.equal(grid.interior(getattr(got, name)),
+                          grid.interior(getattr(want, name))),
+              f"{what}: every member's {name} bitwise the serial ensemble's")
+    check(torch.equal(got.t, want.t) and torch.equal(got.iteration, want.iteration),
+          f"{what}: t and iteration")
+
+
+def rank_launches(kind, layered, n_steps, split=True):
+    """The launches of one rank of a sharded ensemble in ``n_steps`` steps: a y-shard
+    (``kind`` 1) or a block of a 2-D mesh (2), the split's tendency kernels on the
+    bulk and on two strips a direction, the member launches in place of the
+    one-member ones."""
+    tend = SPLIT_LAYERED_ENSEMBLE if layered else SPLIT_ENSEMBLE
+    once = ("barotropic", "corrector_members") if layered else ("barotropic",)
+    passes = 1 + 2 * kind if split else 1
+    want = {k: n_steps * passes for k in tend}
+    want.update({k: n_steps for k in once}, halo_restore=n_steps)
+    if kind == 1:
+        want.update(halo_pack=2 * n_steps, halo_fill_shard=2 * n_steps,
+                    halo_wrap=n_steps if split else 0)
+    else:
+        want.update(halo_pack_block=4 * n_steps, halo_fill_block=4 * n_steps)
+    return {k: n for k, n in want.items() if n}
+
+
+def member_cases(rnd, dt, B, Yb, Xb, nz, bulk):
+    """The member launches of the sharded ensembles on a (Yb, Xb) plane of a rank or
+    of a split's strip, B members: the jet's (``tracer_adv_members``; ``momentum``
+    over the B members as layers, period 1, the masked pack) and the gyre's
+    (``vertical_members``, ``momentum_members`` over B·Nz layers with period Nz,
+    ``tracer_adv_layered_members`` with dGc a view) at phase 17a's operands, and on a
+    rank's plane (``bulk``) the corrector over the members. Each case: the member
+    launch, member m's one-member launch and the slice of the outputs it gives, the
+    plain version, the valid cells, WENO reconstructions, bytes and operations."""
+    import numpy as np
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import (corrector, momentum,
+                                                                 tracer_adv, vertical)
+
+    dev = "cuda"
+    eos = (9.80665, 1.67e-4, 7.8e-4, 0.0, 35.0)
+    R_adv = (slice(tracer_adv.REACH, Yb - tracer_adv.REACH),
+             slice(tracer_adv.REACH, Xb - tracer_adv.REACH))
+    R_mom = (slice(momentum.REACH, Yb - momentum.REACH),
+             slice(momentum.REACH, Xb - momentum.REACH))
+    cases = {}
+    # the jet: B members of one tracer, the 5-plane pack; momentum masked, period 1
+    uj, vj, cj = rnd((B, Yb, Xb)), rnd((B, Yb, Xb)), rnd((B, Yb, Xb))
+    cj[1:, : Yb // 3] = 0.0  # exact zeros, as on land
+    pack5 = rnd((5, Yb, Xb), lo=1.0)
+    st10 = rnd((10, Yb, Xb), lo=1.0)
+    st10[3] = 0.1 * rnd((Yb, Xb))
+    st10[8:] = (st10[8:] > 1.15).to(dt)
+    cases["tracer_adv_members"] = dict(
+        run=lambda: tracer_adv.tracer_adv(cj, uj, vj, pack5),
+        one=lambda m: tracer_adv.tracer_adv(cj[m], uj[m], vj[m], pack5), part=lambda m: m,
+        plain=lambda: tracer_adv.tracer_adv_plain(cj, uj, vj, pack5), I=R_adv,
+        weno=2 * cj.numel(), bytes=nbytes(cj, uj, vj, pack5, cj),
+        flops=FLOPS["tracer_adv_members"] * cj.numel())
+    cases["momentum"] = dict(
+        run=lambda: momentum.momentum(uj, vj, st10, period=1),
+        one=lambda m: momentum.momentum(uj[m], vj[m], st10), part=lambda m: m,
+        plain=lambda: momentum.momentum_plain(uj, vj, st10, period=1), I=R_mom,
+        weno=2 * uj.numel(), bytes=nbytes(uj, vj, st10) + 2 * nbytes(uj),
+        flops=FLOPS["momentum"] * uj.numel())
+    # the gyre: B members of (nz, Yb, Xb), T and S, the linear EOS, the closure planes
+    n_wet = torch.as_tensor(np.minimum(np.random.default_rng(Yb * Xb).integers(
+        0, nz + 3, (Yb, Xb)), nz), dtype=torch.int32, device=dev)
+    mc, mu, mv = (m.contiguous() for m in vertical.wet_pack(n_wet, nz, 3, dt).reshape(
+        nz, 3, Yb, Xb).transpose(0, 1))
+    u, v = rnd((B, nz, Yb, Xb)) * mu, rnd((B, nz, Yb, Xb)) * mv
+    c = rnd((B, 2 * nz, Yb, Xb))
+    c[:, :nz] += 10.0
+    c[:, nz:] = 35.0 + 0.1 * c[:, nz:]
+    dzs = [10.0 * 1.7 ** k for k in range(nz)]
+    item = u.element_size()
+    vkw = dict(mode="linear_eos", eos=eos, it_T=0, it_S=1, viscous=True, diffusive=True)
+    g5 = rnd((5, Yb, Xb), lo=0.5)
+    coef = torch.as_tensor(vertical.coefficients(
+        dzs, [0.5 * (dzs[k] + dzs[k + 1]) for k in range(nz - 1)], 1e-3, 1e-5),
+        dtype=dt, device=dev)
+    s_pack = vertical.wet_pack(n_wet, nz, 3, dt)
+    cases["vertical_members"] = dict(
+        run=lambda: vertical.vertical(u, v, c, None, n_wet, g5, coef, **vkw),
+        one=lambda m: vertical.vertical(u[m], v[m], c[m], None, n_wet, g5, coef, **vkw),
+        part=lambda m: m,
+        plain=lambda: vertical.vertical_plain(u, v, c, None, s_pack, g5, coef, **vkw),
+        I=(slice(1, Yb - 1), slice(1, Xb - 1)), weno=0,
+        bytes=nbytes(u, v, c, n_wet, g5, coef) + nbytes(u, v, c),
+        flops=FLOPS["vertical"] * (u.numel() + c.numel()))
+    ul, vl = u.reshape(B * nz, Yb, Xb), v.reshape(B * nz, Yb, Xb)
+    st8 = rnd((8, Yb, Xb), lo=1.0)
+    st8[3] = 0.1 * rnd((Yb, Xb))
+    lay = rnd((nz, 8, Yb, Xb), lo=0.5)
+    lay[:, 6:] *= 0.1
+    lay = lay.reshape(8 * nz, Yb, Xb)
+    mkw = dict(has_mask=False, lay=lay, has_lap=True, has_drag=True,
+               acc=(rnd((B * nz, Yb, Xb), 0.5), rnd((B * nz, Yb, Xb), 0.5)),
+               mask_out=(mu, mv))
+
+    def mom_one(m):
+        layers = slice(m * nz, (m + 1) * nz)
+        return momentum.momentum(ul[layers], vl[layers], st8, **dict(
+            mkw, acc=tuple(a[layers] for a in mkw["acc"])))
+
+    cases["momentum_members"] = dict(
+        run=lambda: momentum.momentum(ul, vl, st8, period=nz, **mkw), one=mom_one,
+        part=lambda m: slice(m * nz, (m + 1) * nz),
+        plain=lambda: momentum.momentum_plain(ul, vl, st8, period=nz, **mkw), I=R_mom,
+        weno=2 * ul.numel(),
+        bytes=nbytes(ul, vl, st8, lay, *mkw["acc"], *mkw["mask_out"]) + 2 * nbytes(ul),
+        flops=FLOPS["momentum_members"] * ul.numel())
+    pack = (mu[:, None] * rnd((nz, 4, Yb, Xb), lo=0.5)).reshape(4 * nz, Yb, Xb)
+    g2 = rnd((2, Yb, Xb), lo=0.5)
+    dz = torch.as_tensor(dzs, dtype=dt, device=dev)
+    acc = rnd((B, 2 * nz + 2, Yb, Xb), 0.5)[:, :2 * nz]
+    cases["tracer_adv_layered_members"] = dict(
+        run=lambda: tracer_adv.tracer_adv(c, u, v, pack, g2, dz, acc=acc),
+        one=lambda m: tracer_adv.tracer_adv(c[m], u[m], v[m], pack, g2, dz, acc=acc[m]),
+        part=lambda m: m,
+        plain=lambda: tracer_adv.tracer_adv_plain(c, u, v, pack, g2, dz, acc=acc),
+        I=R_adv, weno=2 * c.numel(),
+        bytes=nbytes(c, u, v, pack, g2, dz) + c.numel() * item + nbytes(c),
+        flops=FLOPS["tracer_adv_layered_members"] * c.numel())
+    if bulk:
+        # the corrector: each member's weights (member 0 at its first step) and its
+        # crop of the rank's widened U_a, V_a (halo 22)
+        stacks = [rnd((B, nz, Yb, Xb)) for _ in range(6)]
+        tracers = [rnd((B, 2 * nz, Yb, Xb)) for _ in range(3)]
+        dz3 = dz.view(-1, 1, 1)
+        dy = dx = 22 - 5
+        ext = rnd((2, B, Yb + 2 * dy, Xb + 2 * dx))
+        w1 = torch.tensor([1.0] + [1.6] * (B - 1), dtype=dt, device=dev)
+        w2 = torch.tensor([0.0] + [0.6] * (B - 1), dtype=dt, device=dev)
+        step_dt = torch.tensor(40.0, dtype=dt, device=dev)
+        shared = (dz3 * mu, dz3 * mv, mc, rnd((Yb, Xb), lo=0.0), rnd((Yb, Xb), lo=0.0))
+        crops = (ext[0, :, dy:dy + Yb, dx:dx + Xb], ext[1, :, dy:dy + Yb, dx:dx + Xb])
+        cases["corrector_members"] = dict(
+            run=lambda: corrector.corrector(*stacks, *tracers, *shared, *crops, w1, w2,
+                                            step_dt),
+            one=lambda m: corrector.corrector(*(a[m] for a in stacks + tracers), *shared,
+                                              crops[0][m], crops[1][m], w1[m], w2[m],
+                                              step_dt),
+            part=lambda m: m,
+            plain=lambda: corrector.corrector_plain(*stacks, *tracers, *shared, *crops, w1,
+                                                    w2, step_dt),
+            I=(slice(None), slice(None)), weno=0,
+            bytes=nbytes(*stacks, *tracers, *shared, w1, w2, step_dt)
+            + 2 * B * Yb * Xb * item + nbytes(u, v, c),
+            flops=FLOPS["corrector"] * (2 * u.numel() + c.numel()))
+    return cases
+
+
+def baro_member_case(rnd, dt, B, Ye, Xe, Nx):
+    """The barotropic kernel's member axis on a rank's extended (Ye, Xe) plane (halo
+    22, 21 SM05 weights, the wrap off as the sharded steps run it), as a case of
+    ``member_cases``."""
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch.kernels import barotropic
+    from orthogonalsphericalshellgrids_tpu_torch.models.split_explicit import (
+        averaging_weights)
+
+    static = rnd((9, Ye, Xe), lo=0.5)
+    static[7:] = (static[7:] > 0.6).to(dt)
+    dyn = [rnd((B, Ye, Xe), 0.01) for _ in range(3)] + [rnd((B, Ye, Xe), 1e-3)
+                                                        for _ in range(2)]
+    tail = (torch.tensor(0.01, dtype=dt, device="cuda"),
+            torch.as_tensor(averaging_weights(30)[1], dtype=dt, device="cuda"))
+    n_sub = tail[1].numel()
+    return dict(
+        run=lambda: barotropic.barotropic_substeps(static, *dyn, *tail, Nx, 22, False),
+        one=lambda m: barotropic.barotropic_substeps(static, *(d[m] for d in dyn), *tail,
+                                                     Nx, 22, False),
+        part=lambda m: m,
+        plain=lambda: barotropic.barotropic_substeps_plain(static, *dyn, *tail, Nx, 22,
+                                                           False),
+        I=(slice(22, Ye - 22), slice(22, Xe - 22)), weno=0,
+        bytes=nbytes(static, *dyn) + 3 * nbytes(dyn[0]),
+        flops=FLOPS["barotropic"] * n_sub * dyn[0].numel(), pts=n_sub * dyn[0].numel())
+
+
+def phase18a_sharded_members(card, ceil, B=4):
+    """The member launches of phase 18's sharded ensembles at a rank's and a strip's
+    shapes (``SHARD_PLANES``, ``SHARD_EXT``), B members: within the bands of their
+    plain versions at float32 and float64, each member bitwise its one-member launch
+    at the same shape; timed at float32 with the host ahead beside B one-member
+    launches and the plain version, with the data-sheet bound, the byte bound at
+    phase 9's measured stream rate and the WENO-5 (or substep) bound."""
+    import numpy as np
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch import kernels
+
+    nz = 10
+
+    def outputs(r):
+        return [a for a in (r if isinstance(r, tuple) else (r,)) if a is not None]
+
+    def hold(kname, case, where, shape, name):
+        kernels.reset_launch_counts()
+        got = outputs(case["run"]())
+        counts = {k: n for k, n in kernels.launch_counts().items() if n}
+        check(counts == {kname: 1}, f"phase 18a: {kname} on {where} one launch: {counts}")
+        want = outputs(case["plain"]())
+        errs = [rel_err(g, w, case["I"]) for g, w in zip(got, want)]
+        ea, er = max(e[0] for e in errs), max(e[1] for e in errs)
+        check(er <= BANDS[name] and all(bool(torch.isfinite(g).all()) for g in got),
+              f"phase 18a: {kname} on {where} {name}: rel err {er:.3e}, finite")
+        del want
+        for m in range(B):
+            for g, o in zip(got, outputs(case["one"](m))):
+                check(torch.equal(g[case["part"](m)], o), f"phase 18a: {kname} on "
+                      f"{where} {name}: member {m} bitwise its one-member launch")
+        msg = (f"phase 18a: {kname} over B = {B} members on the {where} {shape}, {name}: "
+               f"max abs err {ea:.3e}, max rel err {er:.3e} (band {BANDS[name]:g}), "
+               f"finite, each member bitwise its one-member launch")
+        if name == "float32":
+            t_k = time_ms(case["run"], n=10, ahead=True)
+            t_1 = time_ms(lambda: [case["one"](m) for m in range(B)], n=10, ahead=True)
+            t_p = time_ms(case["plain"], n=2, reps=3, warm=1)
+            b_ = bound(case["bytes"], case["flops"])
+            t_meas = case["bytes"] / (ceil["stream_gbps"] * 1e9) * 1e3
+            if "pts" in case:  # the substep ceiling: point-substeps
+                t_w = case["pts"] / ceil["baro_pts_per_s"] * 1e3
+                ceiling = f"substep bound {t_w:.4f} ms"
+            else:
+                t_w = case["weno"] / ceil["weno_recon_per_s"] * 1e3 if case["weno"] else None
+                ceiling = "no WENO" if t_w is None else f"WENO bound {t_w:.4f} ms"
+            msg += (f"; host ahead {t_k:.4f} ms, {B} one-member launches {t_1:.4f} ms, "
+                    f"plain {t_p:.4f} ms; data-sheet bound {b_[0]:.4f} ms by {b_[1]} "
+                    f"({b_[2]} bytes), measured byte bound {t_meas:.4f} ms "
+                    f"({ceil['stream_gbps']:.1f} GB/s), {ceiling}")
+        log(msg + f" [{card}]")
+        del got
+
+    for name in ("float32", "float64"):
+        dt = getattr(torch, name)
+        rng = np.random.default_rng(1818)
+
+        def rnd(shape, scale=1.0, lo=None):
+            a = rng.random(shape) + lo if lo is not None else scale * rng.standard_normal(shape)
+            return torch.as_tensor(a, dtype=dt, device="cuda")
+
+        for where, (Yb, Xb) in SHARD_PLANES.items():
+            cases = member_cases(rnd, dt, B, Yb, Xb, nz, bulk="strip" not in where)
+            for kname, case in cases.items():
+                hold(kname, case, where, (Yb, Xb), name)
+            del cases
+        for where, (Ye, Xe, Nx) in SHARD_EXT.items():
+            hold("barotropic", baro_member_case(rnd, dt, B, Ye, Xe, Nx), where, (Ye, Xe),
+                 name)
+        torch.cuda.empty_cache()
+
+
+def phase18_sharded_ensembles(card, bickley, gyre, ref_ms, n_steps=20, warm=3):
+    """(b) phase 3's jet as 4 members (phase 15b's scales) in 4 y-shards and (c) on 2
+    x 2 blocks (gather) through LocalExchange, the split on, 20 steps at dt = 60 s
+    after 3 warm-up: each member bitwise its run in the serial ensemble from the same
+    state, each rank's launches those of phase 12b's shard or 13b's block with the
+    member launches in place, no host synchronization; (d) phase 7's gyre as 4
+    members, 3 steps at dt = 40 s after 3 warm-up in 4 y-shards and on 2 x 2 the
+    same way, and unsplit on 4 y-shards, bitwise the split (a sharded batch's first
+    steps run slower; phases 12c and 13d time 3 steps without warm-up); ms/step,
+    device busy and idle share beside ``ref_ms`` (one member on the same ranks,
+    phases 12b-c and 13b, 13d; the gyre's serial ensemble, phase 17b) and the
+    serial ensemble step timed here; (e) a
+    2-member jet ensemble through a 1-rank NCCL ProcessGroupExchange, bitwise the
+    serial ensemble, no host synchronization. Returns the launch counts of the jet
+    and of the gyre in 4 y-shards."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from orthogonalsphericalshellgrids_tpu_torch import kernels, parallel
+    from orthogonalsphericalshellgrids_tpu_torch.models import ensemble, step
+
+    B = len(ENSEMBLE_SCALES)
+    names = ("u", "v", "c", "eta", "U", "V", "Gu", "Gv", "Gc")
+    counts_of = {}
+    for path, (model, state0), layered, dt, steps, pre, scale in (
+            ("jet", bickley, False, 60.0, n_steps, warm, scaled_state),
+            ("gyre", gyre, True, 40.0, 3, warm, scaled_layered)):
+        batch0 = ensemble.stack_members([scale(state0, s) for s in ENSEMBLE_SCALES])
+        want = ensemble.ensemble_multi_step(model, batch0, dt, pre + steps)
+        ens_ms = time_ms(lambda: ensemble.ensemble_step(model, batch0, dt), n=5)
+        split = None
+        for mesh_kind, overlap in ((4, None), ((2, 2), None)) + (
+                ((4, False),) if layered else ()):
+            kind = 1 if isinstance(mesh_kind, int) else 2
+            where = (f"{mesh_kind} y-shards" if kind == 1 else
+                     f"{mesh_kind[0]} x {mesh_kind[1]} blocks")
+            tag = "d" if layered else "b" if kind == 1 else "c"
+            what = (f"phase 18{tag}: the {path} as {B} members on {where}"
+                    f"{', unsplit' if overlap is False else ''}")
+            fn, ds, gather = sharded(model, batch0, mesh_kind, layered, overlap)
+            fn(ds, dt)  # loads the exchange's path; ds is left as it was
+            for _ in range(pre):  # the first steps run slower
+                ds = fn(ds, dt)
+            torch.cuda.synchronize()
+            fn.launches = [dict.fromkeys(kernels.LAUNCHES, 0) for _ in fn.launches]
+            kernels.reset_launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(steps):
+                ds = fn(ds, dt)
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end) / steps
+            counts = kernels.launch_counts()
+            got = gather(ds)
+            members_equal(model, got, want, what, names)
+            if overlap is False:
+                members_equal(model, got, split, f"{what} against the split", names)
+            elif kind == 1:
+                split = got
+            expected = rank_launches(kind, layered, steps, split=overlap is not False)
+            for i, own in enumerate(fn.launches):
+                check({k: n for k, n in own.items() if n} == expected,
+                      f"{what}: rank {i} launched {own}, expected {expected}")
+            with host_syncs() as n_syncs:
+                fn(ds, dt)
+                syncs = n_syncs()
+            check(syncs == 0, f"{what}: {syncs} host synchronizations")
+            _, ops, busy, idle = device_busy(lambda x: fn(x, dt), ds, 5)
+            fn.close()
+            one_ms, one_phase = ref_ms[(path, kind)]
+            ens_ref = ref_ms.get((path, "ensemble"))
+            log(f"{what} through LocalExchange, {steps} steps at dt = {dt:g} s"
+                f"{f' after {pre} warm-up' if pre else ''}: every member bitwise its run "
+                f"in the serial ensemble from the same state (the interiors of "
+                f"{', '.join(names)}; t, iteration)"
+                f"{' and the split' if overlap is False else ''}; {ms:.4f} ms/step as run, "
+                f"{B * 1e3 / ms:.1f} member-steps/s; one member on {where} {one_ms:.4f} "
+                f"ms/step (phase {one_phase}), {1e3 / one_ms:.1f} member-steps/s; the "
+                f"serial ensemble {ens_ms:.4f} ms/step in this phase"
+                f"{f' (phase 17b {ens_ref:.4f})' if ens_ref else ''}; each rank launched "
+                f"{expected} in {steps} steps; host synchronizations 0; profiler, 5 "
+                f"steps: {ops:.0f} device ops, {busy:.4f} ms device busy a step, idle "
+                f"share {idle:.3f}; launches {({k: n for k, n in counts.items() if n})} "
+                f"[{card}]")
+            if kind == 1 and overlap is None:
+                counts_of[path] = counts
+            del ds, got
+        del batch0, want, split
+        torch.cuda.empty_cache()
+
+    # (e) one rank of an NCCL group stepping a 2-member jet ensemble: with one rank the
+    # step takes the serial route (ops/spmd._serial), so no NCCL operation is made
+    model, state0 = bickley
+    pair = ensemble.stack_members([state0, step(model, scaled_state(state0, 0.5), 60.0)])
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "store"),
+                                rank=0, world_size=1)
+        try:
+            mesh = parallel.ProcessGroupExchange()
+            dist_model, dist_state = parallel.distribute(model, pair, mesh)
+            fn = parallel.sharded_step_fn(mesh, dist_model)
+            s = fn(dist_state, 60.0)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            with host_syncs() as n_syncs:
+                for _ in range(3):
+                    s = fn(s, 60.0)
+                syncs = n_syncs()
+            counts = kernels.launch_counts()
+        finally:
+            dist.destroy_process_group()
+    want = ensemble.ensemble_multi_step(model, pair, 60.0, 4)
+    check(all(torch.equal(getattr(s[0], name), getattr(want, name))
+              for name in names + ("t", "iteration")),
+          "phase 18e: 1-rank NCCL ensemble bitwise equal to the serial ensemble")
+    check(syncs == 0, f"phase 18e: 1-rank NCCL ensemble: {syncs} host synchronizations")
+    check(counts["halo_fill"] == 6 and counts["halo_restore"] == 3 and
+          counts["tracer_adv_members"] == 3 and counts["barotropic"] == 3 and
+          counts["halo_pack"] == 0, f"phase 18e: 1-rank NCCL ensemble launched {counts}")
+    log(f"phase 18e: a 2-member jet ensemble (the base state and the state x 0.5 one step "
+        f"ahead) through the sharded step of a 1-rank NCCL process group "
+        f"(ProcessGroupExchange), 4 steps: with one rank the serial route, no NCCL "
+        f"operation; bitwise equal to the serial ensemble with its launches (2 fills, 1 "
+        f"restore, 1 tracer_adv_members a step, no pack), host synchronizations 0 "
+        f"[{card}]")
+    return counts_of["jet"], counts_of["gyre"]
+
+
+def forcing_T(lam, phi, z, t, fields):
+    """A forcing of T that reads the model time (phase 18f)."""
+    import torch
+
+    return 1e-7 * torch.sin(2e-4 * t) * torch.cos(torch.deg2rad(phi))
+
+
+def phase18f_forcing_members(card, n_steps=3, n=2):
+    """Phase 8's 48 x 32 x 3 float64 check gyre with a forcing of T that reads t, as 2
+    members (the second the state x 0.9 one step ahead) in ``n`` y-shards with the
+    split, ``n_steps`` steps through the kernels, against the port's plain sharded
+    ensemble on the CPU, rtol 1e-11."""
+    import dataclasses
+
+    import torch
+
+    from examples.wind_driven_ts_gyre_torch import (CHECK_INIT, CHECK_OPTIONS,
+                                                    build_check, check_bottom)
+    from orthogonalsphericalshellgrids_tpu_torch import kernels
+    from orthogonalsphericalshellgrids_tpu_torch.models import (
+        SplitExplicitFreeSurface, ensemble, layered_initial_state, layered_step,
+        make_layered_model)
+
+    def batch_on(dev):
+        grid = build_check(device=dev)[0].grid
+        model = make_layered_model(grid, free_surface=SplitExplicitFreeSurface(substeps=6),
+                                   bottom_height=check_bottom, device=dev,
+                                   forcing={"T": forcing_T}, **CHECK_OPTIONS)
+        s = layered_initial_state(model, **CHECK_INIT)
+        return model, s
+
+    cpu_m, cpu_s = batch_on("cpu")
+    pair = [cpu_s, layered_step(cpu_m, scaled_layered(cpu_s, 0.9), 60.0)]
+    cpu_b = ensemble.stack_members(pair)
+    gpu_m, _ = batch_on("cuda")
+    gpu_b = type(cpu_b)(**{f.name: getattr(cpu_b, f.name).to("cuda")
+                           for f in dataclasses.fields(cpu_b)})
+    outs = {}
+    for dev, model, batch in (("cuda", gpu_m, gpu_b), ("cpu", cpu_m, cpu_b)):
+        fn, ds, gather = sharded(model, batch, n, True)
+        kernels.reset_launch_counts()
+        for _ in range(n_steps):
+            ds = fn(ds, 60.0)
+        counts = kernels.launch_counts()
+        fn.close()
+        outs[dev] = gather(ds)
+        if dev == "cuda":
+            check(all(counts[k] == 3 * n * n_steps for k in SPLIT_LAYERED_ENSEMBLE) and
+                  counts["corrector_members"] == n * n_steps,
+                  f"phase 18f: the member launches ran on every shard: {counts}")
+        else:
+            check(sum(counts.values()) == 0, f"phase 18f: the CPU run launched {counts}")
+    I3 = (slice(None), slice(None)) + cpu_m.grid.interior2d
+    worst = []
+    for name in ("u", "v", "c", "eta", "Gc"):
+        sl = (slice(None),) + cpu_m.grid_ext.interior2d if name == "eta" else I3
+        w = getattr(outs["cpu"], name)[sl]
+        rel = float((getattr(outs["cuda"], name).cpu()[sl] - w).abs().max() / w.abs().max())
+        worst.append(f"{name} {rel:.3e}")
+        check(rel <= 1e-11, f"phase 18f: {name} rel {rel:.3e}")
+    check(torch.equal(outs["cuda"].t.cpu(), outs["cpu"].t), "phase 18f: t")
+    log(f"phase 18f: 48 x 32 x 3 float64 check gyre with a forcing of T that reads t, 2 "
+        f"members (iterations 0 and 1) in {n} y-shards with the split, {n_steps} steps "
+        f"through the member launches against the plain sharded ensemble on the CPU: max "
+        f"rel diff {', '.join(worst)} (rtol 1e-11) [{card}]")
+
+
 def main():
     import torch
 
@@ -3240,14 +3773,24 @@ def main():
     shard_counts, shard_ms = phase12_sharded(
         card, (bickley_model, bickley_state0, bickley_ms), (gyre_model, gyre_state0, gyre_ms))
     kres.update(phase13a_block_fills(card))
-    block_counts = phase13_runs(card, (bickley_model, bickley_state0, bickley_ms),
-                                (gyre_model, gyre_state0, gyre_ms), shard_ms)
+    block_counts, block_ms = phase13_runs(card, (bickley_model, bickley_state0, bickley_ms),
+                                          (gyre_model, gyre_state0, gyre_ms), shard_ms)
     # phase 17 while phase 7's gyre lives: the layered ensemble's member launches, the
     # gyre as 4 members, the front oracle through an ensemble member
     kres.update(phase17a_layered_members(card, ceil))
-    layered_ensemble_counts = phase17b_layered_ensemble(card, gyre_model, gyre_state0,
-                                                        gyre_ms)
+    layered_ensemble_counts, gyre_ensemble_ms = phase17b_layered_ensemble(
+        card, gyre_model, gyre_state0, gyre_ms)
     phase17c_front_oracle_member(card)
+    # phase 18 while phase 7's gyre lives: the member launches at a rank's and a
+    # strip's shapes, the jet and the gyre as 4 members on 4 y-shards and 2 x 2 blocks,
+    # a 1-rank NCCL ensemble, the f64 check gyre's forcing through the split
+    phase18a_sharded_members(card, ceil)
+    sharded_ensemble_counts, sharded_gyre_ensemble_counts = phase18_sharded_ensembles(
+        card, (bickley_model, bickley_state0), (gyre_model, gyre_state0),
+        {("jet", 1): (shard_ms["Bickley"], "12b"), ("jet", 2): (block_ms["b"], "13b"),
+         ("gyre", 1): (shard_ms["gyre"], "12c"), ("gyre", 2): (block_ms["d"], "13d"),
+         ("gyre", "ensemble"): gyre_ensemble_ms})
+    phase18f_forcing_members(card)
     del gyre_model, gyre_state0
     kres.update(phase14a_planes(card))
     planes_counts = phase14_options(card, bickley_model, bickley_state0, bickley_ms)
@@ -3260,9 +3803,14 @@ def main():
     # the last path that runs it (the gyre's for every kernel of the gyre; the
     # sharded Bickley jet's for the pack, the wrap and the shard fill; the 2 x 2
     # Bickley jet's for the block pack and the block fill; the two-tracer jet's for
-    # the P-plane column mode; the ensembles' for the member modes)
+    # the P-plane column mode; the ensembles' for the member modes; phase 18's sharded
+    # ensembles are held to launching theirs and come first, so no row reports them)
     launches = {}
-    for path, names, cnt in (("2-D Bickley", BLOCKS, block_counts),
+    for path, names, cnt in (("sharded jet ensemble", SHARDED_ENSEMBLE,
+                              sharded_ensemble_counts),
+                             ("sharded gyre ensemble", SHARDED_LAYERED_ENSEMBLE,
+                              sharded_gyre_ensemble_counts),
+                             ("2-D Bickley", BLOCKS, block_counts),
                              ("sharded Bickley", SHARDED, shard_counts),
                              ("two-tracer Bickley", PLANES, planes_counts),
                              ("Bickley ensemble", ENSEMBLE, ensemble_counts),

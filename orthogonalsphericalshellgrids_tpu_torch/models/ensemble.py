@@ -25,6 +25,15 @@ whatever the other members do.
 
 Each member's step is its serial step's arithmetic, so on the card and on the CPU a
 member of an ensemble run is bitwise its own serial run.
+
+A batch also runs sharded, the counterpart of ``jax.vmap(sharded_step_fn(mesh,
+dist_model))``: ``parallel``'s ``distribute`` / ``distribute_layered`` (and their 2-D
+forms) cut it into its ranks' batches as they cut one state, ``sharded_step_fn`` /
+``sharded_layered_step_fn`` step them (each rank's ``step`` or ``layered_step`` takes
+the member axis, the overlap split included), ``gather_state`` returns the batch and
+``member`` reads a member from it. The fills, packs and exchanges carry the members
+as planes, so a step exchanges as often as one member's would; each member is bitwise
+its own sharded run.
 """
 
 from __future__ import annotations
@@ -92,7 +101,8 @@ def _stepper(model, batch, dt):
 def ensemble_step(model, batch, dt):
     """One time step of every member (``models/hydrostatic.py:step`` on a
     ``HydrostaticModel``'s batch, ``models/layered.py:layered_step`` on a
-    ``LayeredModel``'s; both refuse a sharded ensemble)."""
+    ``LayeredModel``'s), serial; a sharded batch steps through ``parallel``'s
+    sharded step functions."""
     return _stepper(model, batch, dt)(model, batch, dt)
 
 

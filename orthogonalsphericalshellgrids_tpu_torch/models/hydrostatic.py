@@ -666,15 +666,14 @@ def split_tendencies(model, groups, spmd, tend_from_groups, t, fill):
     return G
 
 
-def tendencies_overlapped(model: HydrostaticModel, state: State, spmd, fill):
+def tendencies_overlapped(model: HydrostaticModel, state: State, spmd, fill, t):
     """The single-layer tendencies (Gu, Gv, Gc) of a sharded step, split
     (``split_tendencies``); ``fill`` is the step's ``ops/spmd.GroupFill`` of the
-    state's group."""
+    state's group, ``t`` the time the forcing reads (``step``'s)."""
     def tend(m, views, t):
         return tendencies(m, *views, t=t)
 
-    return split_tendencies(model, [state.u, state.v, state.c], spmd, tend, state.t,
-                            fill)
+    return split_tendencies(model, [state.u, state.v, state.c], spmd, tend, t, fill)
 
 
 def _fill(grid, A, loc, sign):
@@ -721,13 +720,11 @@ def step(model: HydrostaticModel, state: State, dt, spmd=None, overlap=None) -> 
     True where the split is not exact raises.
 
     An ensemble's ``state`` (a leading member axis, ``models/ensemble.py``) steps
-    every member at once, each with its own AB2 weights, at one ``dt``; it runs
-    serial only."""
+    every member at once, each with its own AB2 weights, at one ``dt``, serial or on
+    a rank (``distribute``'s shards of a member batch); the forcing reads each
+    member's time as (B, 1, 1) on both routes of the tendencies."""
     g, ge, ib = model.grid, model.grid_ext, model.ib
-    members = state.t.dim() == 1
-    if members and spmd is not None:
-        raise NotImplementedError("a sharded ensemble is not ported (ROADMAP queue 1: "
-                                  "ensembles of sharded runs)")
+    t = state.t.reshape(-1, 1, 1) if state.t.dim() == 1 else state.t
     overlap = _resolve_overlap(model, g, spmd, overlap)
     # a number becomes a device scalar by a fill launch; copying it from the host
     # (torch.as_tensor) would wait for the stream to drain on every step
@@ -745,10 +742,9 @@ def step(model: HydrostaticModel, state: State, dt, spmd=None, overlap=None) -> 
         w2 = torch.where(first, model.ab2[1], model.ab2[3])
 
         if overlap:
-            Gu, Gv, Gc = tendencies_overlapped(model, state, spmd, fill)
+            Gu, Gv, Gc = tendencies_overlapped(model, state, spmd, fill, t)
         else:
             fill.fill()
-            t = state.t.reshape(-1, 1, 1) if members else state.t
             Gu, Gv, Gc = tendencies(model, state.u, state.v, state.c, t=t)
         Gu_s = _lead(w1, Gu) * Gu - _lead(w2, Gu) * state.Gu
         Gv_s = _lead(w1, Gv) * Gv - _lead(w2, Gv) * state.Gv

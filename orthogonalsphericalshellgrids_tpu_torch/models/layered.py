@@ -718,10 +718,12 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
     return Gu, Gv, Gc, Gb
 
 
-def layered_tendencies_overlapped(model: LayeredModel, state: LayeredState, spmd, fill):
+def layered_tendencies_overlapped(model: LayeredModel, state: LayeredState, spmd, fill,
+                                  t):
     """The layered tendencies (Gu, Gv, Gc, Gb) of a sharded step, split
     (``models/hydrostatic.py:split_tendencies``, ``layered.py:912-943`` of the JAX
-    package): without a prognostic b its zeros stay out of the strips."""
+    package), with ``t`` the time the forcing reads (``layered_step``'s): without a
+    prognostic b its zeros stay out of the strips."""
     groups = [state.u, state.v, state.c] + ([state.b] if model.has_b else [])
 
     def tend(m, views, t):
@@ -729,7 +731,7 @@ def layered_tendencies_overlapped(model: LayeredModel, state: LayeredState, spmd
         G = layered_tendencies(m, views[0], views[1], views[2], b, t=t)
         return G if model.has_b else G[:3]
 
-    G = split_tendencies(model, groups, spmd, tend, state.t, fill)
+    G = split_tendencies(model, groups, spmd, tend, t, fill)
     return tuple(G) if model.has_b else (*G, torch.zeros_like(state.b))
 
 
@@ -751,13 +753,11 @@ def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None,
     tendencies, as in ``models/hydrostatic.py:step``.
 
     An ensemble's ``state`` (a leading member axis, ``models/ensemble.py``) steps
-    every member at once, each with its own AB2 weights, at one ``dt``; it runs
-    serial only."""
+    every member at once, each with its own AB2 weights, at one ``dt``, serial or on
+    a rank (``distribute_layered``'s shards of a member batch); the forcing reads
+    each member's time as (B, 1, 1, 1) on both routes of the tendencies."""
     g, ge, m = model.grid, model.grid_ext, model.baro
-    members = state.t.dim() == 1
-    if members and spmd is not None:
-        raise NotImplementedError("a sharded ensemble is not ported (ROADMAP queue 1: "
-                                  "ensembles of sharded runs)")
+    t = state.t.reshape(-1, 1, 1, 1) if state.t.dim() == 1 else state.t
     overlap = _resolve_overlap(m, g, spmd, overlap)
     # a number becomes a device scalar by a fill launch; copying it from the host
     # would wait for the stream to drain on every step
@@ -767,10 +767,9 @@ def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None,
     fill = GroupFill(_state_fields(model, state), spmd, wrap=overlap)
     try:
         if overlap:
-            Gu, Gv, Gc, Gb = layered_tendencies_overlapped(model, state, spmd, fill)
+            Gu, Gv, Gc, Gb = layered_tendencies_overlapped(model, state, spmd, fill, t)
         else:
             fill.fill()
-            t = state.t.reshape(-1, 1, 1, 1) if members else state.t
             Gu, Gv, Gc, Gb = layered_tendencies(model, state.u, state.v, state.c,
                                                 state.b, t=t)
 

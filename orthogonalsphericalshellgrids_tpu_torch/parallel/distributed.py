@@ -27,7 +27,11 @@ others (``:171``). Here:
   ``batch_isend_irecv`` to the y neighbours (on NCCL its wait is meant to be a
   stream wait; no exchange between NCCL ranks has run, see the class);
 - ``spawn`` starts the processes of a group with a ``file://`` rendezvous in a
-  temporary directory.
+  temporary directory;
+- an ensemble (``models/ensemble.py:stack_members``) is distributed, stepped and
+  gathered as one state, the counterpart of ``jax.vmap`` of the sharded step: its
+  member axis leads every field of every rank, ``t`` and ``iteration`` are (B,) on
+  each, and the fills, packs and exchanges carry the members as planes.
 
 Both exchanges also carry the 2-D (x, y) mesh of ``parallel/distributed2d.py``
 (``shape`` = (n_y, n_x), ranks iy·n_x + ix): ``rows2d`` exchanges a block's rows

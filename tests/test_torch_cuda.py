@@ -1741,6 +1741,124 @@ def test_cuda_layered_ensemble_step_bitwise(dtype, config):
 
 
 # ------------------------------------------------------------------------------------
+# ensembles of sharded runs: the member launches at a rank's and a strip's shapes, the
+# sharded ensemble steps
+# ------------------------------------------------------------------------------------
+
+def _outputs(r):
+    return [a for a in (r if isinstance(r, tuple) else (r,)) if a is not None]
+
+
+def _hold_member_case(kname, case, B, dtype):
+    """One launch counted as ``kname``, within the band of the plain version, finite,
+    each member bitwise its one-member launch at the same shape."""
+    kernels.reset_launch_counts()
+    got = _outputs(case["run"]())
+    assert {k: n for k, n in kernels.launch_counts().items() if n} == {kname: 1}
+    for g, w in zip(got, _outputs(case["plain"]())):
+        assert _rel_err(g, w, case["I"]) <= BANDS[dtype], kname
+        assert torch.isfinite(g).all(), kname
+    for m in range(B):
+        for g, o in zip(got, _outputs(case["one"](m))):
+            assert torch.equal(g[case["part"](m)], o), (kname, m)
+
+
+def _rnd(dtype, seed):
+    r = np.random.default_rng(seed)
+
+    def rnd(shape, scale=1.0, lo=None):
+        a = r.random(shape) + lo if lo is not None else scale * r.standard_normal(shape)
+        return torch.as_tensor(a, dtype=dtype, device="cuda")
+
+    return rnd
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("plane", [(40, 146), (15, 146), (60, 15), (12, 90)])
+def test_cuda_member_launches_at_shard_and_strip_shapes(dtype, plane):
+    """The member launches of a sharded ensemble (``chip_smoke.member_cases``: the
+    jet's ``tracer_adv_members`` and ``momentum`` over the members, the gyre's
+    ``vertical_members``, ``momentum_members``, ``tracer_adv_layered_members`` and, on
+    a rank's plane, ``corrector_members``) on a rank's plane and on the split's
+    strips of 3·H rows or columns: 15 rows are fewer than one tracer tile, and 15
+    columns narrower than one tile of every kernel."""
+    from chip_smoke import member_cases
+
+    B, Yb, Xb = 3, *plane
+    cases = member_cases(_rnd(dtype, Yb * Xb), dtype, B, Yb, Xb, 4, bulk=min(plane) > 15)
+    for kname, case in cases.items():
+        _hold_member_case(kname, case, B, dtype)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_barotropic_members_on_a_rank(dtype):
+    """The barotropic member axis on a rank's extended plane (halo 22, the wrap off,
+    ``Nx`` the rank's columns; ``chip_smoke.baro_member_case``)."""
+    from chip_smoke import baro_member_case
+
+    _hold_member_case("barotropic", baro_member_case(_rnd(dtype, 22), dtype, 3, 66, 90, 46),
+                      3, dtype)
+
+
+def _forcing_c(lam, phi, t, fields):
+    return 1e-7 * torch.sin(2e-4 * t) * torch.cos(torch.deg2rad(phi))
+
+
+@needs_cuda
+@pytest.mark.parametrize("mesh_kind", [4, (2, 2)], ids=["y4", "2x2"])
+@pytest.mark.parametrize("which", ["bickley", "bickley_forcing", "gyre"])
+def test_cuda_sharded_ensemble_step_bitwise(which, mesh_kind):
+    """Three members (the second one step ahead) of a float64 model on 4 y-shards and
+    on 2 x 2 blocks through LocalExchange on the card, the split on, 3 steps: every
+    field of every member bitwise its own sharded run; each rank launches the member
+    kernels as often as one member's rank launches the one-member kernels
+    (``chip_smoke.rank_launches``), and the steps make no host synchronization. The
+    forcing reads each member's time."""
+    from chip_smoke import rank_launches, scaled_layered, scaled_state, sharded
+    from orthogonalsphericalshellgrids_tpu_torch.models import ensemble
+    from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import host_syncs
+
+    layered = which == "gyre"
+    if layered:
+        from examples.wind_driven_ts_gyre_torch import build_check
+
+        model, base = build_check(device="cuda")
+        step, scale = TL.layered_step, scaled_layered
+    else:
+        from examples.bickley_jet_torch import build
+
+        kw = dict(forcing={"c": _forcing_c}) if which == "bickley_forcing" else {}
+        model, base = build(48, 40, dtype=torch.float64, substeps=12, device="cuda", **kw)
+        step, scale = TH.step, scaled_state
+    serial = [scale(base, s) for s in (0.5, 1.0, 1.5)]
+    serial[1] = step(model, serial[1], 60.0)
+    fn, ds, gather = sharded(model, ensemble.stack_members(serial), mesh_kind, layered)
+    fn(ds, 60.0)  # loads the kernels
+    fn.launches = [dict.fromkeys(kernels.LAUNCHES, 0) for _ in fn.launches]
+    with host_syncs() as n_syncs:
+        for _ in range(3):
+            ds = fn(ds, 60.0)
+        syncs = n_syncs()
+    fn.close()
+    assert syncs == 0
+    kind = 1 if isinstance(mesh_kind, int) else 2
+    for own in fn.launches:
+        assert {k: n for k, n in own.items() if n} == rank_launches(kind, layered, 3), own
+    got = gather(ds)
+    for i, s in enumerate(serial):
+        fn1, d1, gather1 = sharded(model, s, mesh_kind, layered)
+        for _ in range(3):
+            d1 = fn1(d1, 60.0)
+        fn1.close()
+        want = gather1(d1)
+        for f in dataclasses.fields(want):
+            assert torch.equal(getattr(ensemble.member(got, i), f.name),
+                               getattr(want, f.name)), (i, f.name)
+
+
+# ------------------------------------------------------------------------------------
 # the behaviour pins of tests/test_torch_behaviour.py, through the kernels
 # ------------------------------------------------------------------------------------
 

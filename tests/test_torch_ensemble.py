@@ -11,8 +11,9 @@
 - the member axis of the plain barotropic subcycle and the plain tracer advection
   against B single calls, bitwise, and a replay of the barotropic kernel's member
   addressing (``tests/test_torch_baro_plan.py:replay``) against one-member replays;
-- the refusals: a sharded ensemble, a dt per member (ensembles of the layered model
-  are ``tests/test_torch_layered_ensemble.py``'s).
+- the refusal of a dt per member (ensembles of the layered model are
+  ``tests/test_torch_layered_ensemble.py``'s, sharded ensembles
+  ``tests/test_torch_sharded_ensemble.py``'s).
 """
 
 import dataclasses
@@ -154,12 +155,10 @@ def test_member_round_trip():
 
 
 def test_refusals():
-    """A sharded ensemble raises ``NotImplementedError`` naming the ROADMAP; a dt per
-    member is refused."""
+    """A dt per member is refused (sharded ensembles are
+    ``tests/test_torch_sharded_ensemble.py``'s)."""
     model, base = torch_build(32, 24, dtype=torch.float64, substeps=6, device="cpu")
     batch = ensemble.stack_members([base, base])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TH.step(model, batch, 60.0, spmd=object())
     with pytest.raises(ValueError, match="one dt"):
         ensemble.ensemble_step(model, batch, torch.tensor([60.0, 30.0],
                                                           dtype=torch.float64))

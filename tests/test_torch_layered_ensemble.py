@@ -18,8 +18,7 @@
   weights), ``momentum`` with a period (layered and single-layer members) and the
   layered ``tracer_adv`` over members (``acc`` a view, as the c block of a dGc stack
   that also holds b).
-- The refusals: a sharded layered ensemble, a dt per member, a state of the other
-  kind.
+- The refusals: a dt per member, a state of the other kind.
 """
 
 import dataclasses
@@ -187,12 +186,10 @@ def test_layered_member_round_trip():
 
 
 def test_layered_refusals():
-    """A sharded layered ensemble raises ``NotImplementedError`` naming the ROADMAP;
-    a dt per member and a single-layer batch are refused."""
+    """A dt per member and a single-layer batch are refused (sharded layered
+    ensembles are ``tests/test_torch_sharded_ensemble.py``'s)."""
     model, base = _torch_model(CONFIGS["linear_eos"])
     batch = ensemble.stack_members([base, base])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.layered_step(model, batch, 60.0, spmd=object())
     with pytest.raises(ValueError, match="one dt"):
         ensemble.ensemble_step(model, batch, torch.tensor([60.0, 30.0],
                                                           dtype=torch.float64))
