@@ -160,6 +160,19 @@ Phase 18 ensembles of sharded runs (run after phase 17, while phase 7's gyre liv
          8 with a forcing of T that reads t, 2 members one step apart, in 2 y-shards
          with the split, 3 steps through the kernels against the plain sharded
          ensemble on the CPU, rtol 1e-11.
+Phase 19 checkpoint directories (utils/checkpoint.py through
+         torch.distributed.checkpoint; run after phase 18, while phase 7's gyre
+         lives): (a) phase 7's gyre through Simulation to iteration 60 with an npz
+         and a directory Checkpointer every 30, then a pickup from the directory at
+         30: every field bitwise the uninterrupted run, phase 10's launches, no host
+         synchronization at an iteration without a callback; ms a checkpoint on the
+         simulation thread and MB on disk of both routes; (b) phase 18's 4-member
+         gyre in 4 y-shards and on 2 x 2 blocks: one directory saved after a step,
+         3 more steps, loaded into zeroed rank states (each rank's tensors filled on
+         the card from its own keys), 3 more steps, bitwise the uninterrupted run;
+         save and load ms; (c) phase 18e's 2-member jet in a 1-rank NCCL group
+         (ProcessGroupExchange) saved and loaded through the process-group route,
+         bitwise.
 
 Phase 2 holds the halo fills first: the group fill with save, the group fill without
 save and the group restore against their plain versions, bitwise at float32 and
@@ -1479,6 +1492,21 @@ def phase9_probes(card, kres):
     return rows, counts, ceil
 
 
+class Timed:
+    """A Simulation callback that times ``fn`` on the host, the card drained first."""
+
+    def __init__(self, fn):
+        self.fn, self.ms = fn, []
+
+    def __call__(self, sim):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.fn(sim)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+
+
 def phase10_simulation(card, model, state0, n_iter=60, n_time=100, warm=3):
     """The 1/4-degree x 10 gyre through ``Simulation``: no host synchronization at an
     iteration where no callback fires (torch's sync debug mode); its cost over
@@ -1586,18 +1614,6 @@ def phase10_simulation(card, model, state0, n_iter=60, n_time=100, warm=3):
         f"against best; the target of at most 3 % "
         f"{'held' if over['sim'] <= 0.03 else 'missed'}); last progress line: "
         f"{progress[-1]} [{card}]")
-
-    class Timed:
-        """A callback that times ``fn`` on the host, the card drained first."""
-
-        def __init__(self, fn):
-            self.fn, self.ms = fn, []
-
-        def __call__(self, sim):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            self.fn(sim)
-            self.ms.append((time.perf_counter() - t0) * 1e3)
 
     surface = {"T_surface": lambda s: s.state.c[0], "S_surface": lambda s: s.state.c[nz],
                "u_surface": lambda s: s.state.u[0]}
@@ -3734,6 +3750,241 @@ def phase18f_forcing_members(card, n_steps=3, n=2):
         f"rel diff {', '.join(worst)} (rtol 1e-11) [{card}]")
 
 
+# --------------------------------------------------------------------------------------
+# Phase 19: checkpoint directories
+# --------------------------------------------------------------------------------------
+
+def dir_mb(path):
+    """MB on disk of the files under ``path`` (a file or a directory)."""
+    if os.path.isfile(path):
+        return os.path.getsize(path) / 2**20
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files) / 2**20
+
+
+def zeroed(state):
+    """A state of ``state``'s class with every field zeros like its own."""
+    import dataclasses
+
+    import torch
+
+    return type(state)(**{f.name: torch.zeros_like(getattr(state, f.name))
+                          for f in dataclasses.fields(state)})
+
+
+def states_equal(a, b, what):
+    """Every field of ``a`` bitwise ``b``'s, on the same device, in the same dtype."""
+    import dataclasses
+
+    import torch
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        check(x.device == y.device and x.dtype == y.dtype,
+              f"{what}: {f.name} on {x.device} in {x.dtype}, expected {y.device}, {y.dtype}")
+        check(torch.equal(x, y), f"{what}: {f.name} not bitwise equal")
+
+
+class LoadSpy:
+    """Records the {key: tensor} and the ``no_dist`` of every DCP load while
+    installed, to show which tensors each key filled and over which route."""
+
+    def __enter__(self):
+        import torch.distributed.checkpoint as dcp
+
+        self.calls, self.no_dist, self._dcp, self._load = [], [], dcp, dcp.load
+        dcp.load = self
+        return self
+
+    def __call__(self, state_dict, **kwargs):
+        self.calls.append(dict(state_dict))
+        self.no_dist.append(kwargs.get("no_dist", False))
+        return self._load(state_dict, **kwargs)
+
+    def __exit__(self, *exc):
+        self._dcp.load = self._load
+
+
+def own_keys(keys, back, dist_model, what):
+    """Each rank's returned tensors are the very tensors DCP filled from its own keys
+    ``rank<k>/<field>``: no rank's state was assembled from another's or from a
+    global copy."""
+    import dataclasses
+
+    for state, model in zip(back, dist_model):
+        for f in dataclasses.fields(state):
+            if f.name in ("t", "iteration"):
+                continue
+            key = f"rank{model.shard[0]}/{f.name}"
+            x = getattr(state, f.name)
+            check(key in keys and keys[key].data_ptr() == x.data_ptr() and x.is_cuda,
+                  f"{what}: rank {model.shard[0]}'s {f.name} is not the card tensor "
+                  f"DCP filled from {key}")
+
+
+def phase19a_simulation(card, model, state0, n_iter=60, every=30, dt=40.0):
+    """Phase 7's gyre through Simulation to ``n_iter`` with an npz and a directory
+    Checkpointer every ``every`` iterations (each timed on the simulation thread),
+    then resumed from the directory at ``every``: bitwise the uninterrupted run, its
+    launches phase 10's, no host synchronization at an iteration without a
+    callback."""
+    import tempfile
+
+    from orthogonalsphericalshellgrids_tpu_torch import kernels
+    from orthogonalsphericalshellgrids_tpu_torch.utils import (
+        Checkpointer, IterationInterval, Simulation)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = Checkpointer(os.path.join(tmp, "gyre"))
+        t0 = time.perf_counter()
+        directory = Checkpointer(os.path.join(tmp, "gyre"), npz=False)
+        setup_ms = (time.perf_counter() - t0) * 1e3
+        timed = {"npz": Timed(npz), "directory": Timed(directory)}
+        sim = Simulation(model, state0, dt=dt, stop_iteration=n_iter)
+        for fn in timed.values():
+            sim.add_callback(fn, IterationInterval(every))
+        marks = []
+        kernels.reset_launch_counts()
+        with host_syncs() as n_syncs:
+            sim.add_callback(lambda s: marks.append((s.iteration, n_syncs())),
+                             IterationInterval(1))
+            once = sim.run()
+        counts = kernels.launch_counts()
+        syncs = {it: n - prev for (_, prev), (it, n) in zip(marks, marks[1:])}
+        quiet = [it for it in syncs if it % every]
+        check(len(quiet) == sum(1 for it in range(2, n_iter + 1) if it % every) and
+              all(syncs[it] == 0 for it in quiet),
+              f"phase 19a: Simulation waited for the card at an iteration without a "
+              f"checkpoint: { {it: n for it, n in syncs.items() if n and it in quiet} }")
+        expected = {k: 0 for k in counts}
+        expected.update(halo_fill=2 * n_iter, halo_restore=n_iter, vertical=n_iter,
+                        momentum_closures=n_iter, tracer_adv_kappa=n_iter,
+                        corrector=n_iter, barotropic=n_iter)
+        check(counts == expected, f"phase 19a: launch counts {counts} != {expected}")
+        check(Checkpointer.latest(directory.prefix) in
+              (npz.path_for(n_iter), directory.path_for(n_iter)), "phase 19a: latest")
+        mb = {"npz": dir_mb(npz.path_for(every)),
+              "directory": dir_mb(directory.path_for(every))}
+        resumed = Simulation(model, state0, dt=dt, stop_iteration=n_iter)
+        end = resumed.run(pickup=directory.path_for(every))
+        check(resumed.iteration == n_iter, f"phase 19a: resumed to {resumed.iteration}")
+        states_equal(end, once, f"phase 19a: pickup at iteration {every}")
+    log(f"phase 19a: the gyre through Simulation to iteration {n_iter} at dt = {dt:g} s "
+        f"with an npz and a directory Checkpointer every {every}; resumed from the "
+        f"directory at {every}, every field bitwise the uninterrupted run; launches "
+        f"phase 10's; host synchronizations 0 at each of the {len(quiet)} iterations "
+        f"without a checkpoint; ms a checkpoint on the simulation thread: npz "
+        f"{', '.join(f'{t:.1f}' for t in timed['npz'].ms)} for {mb['npz']:.1f} MB, "
+        f"directory (DCP) {', '.join(f'{t:.1f}' for t in timed['directory'].ms)} for "
+        f"{mb['directory']:.1f} MB (its Checkpointer made in {setup_ms:.1f} ms, "
+        f"torch.distributed.checkpoint imported) [{card}]")
+
+
+def phase19b_sharded(card, model, state0, steps=3, dt=40.0):
+    """Phase 18's 4-member gyre in 4 y-shards and on 2 x 2 blocks: one directory
+    saved after one step, ``steps`` more steps, loaded into zeroed rank states,
+    ``steps`` more steps, bitwise the uninterrupted run."""
+    import tempfile
+
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch.models import ensemble
+    from orthogonalsphericalshellgrids_tpu_torch.utils import (
+        load_sharded_checkpoint, save_sharded_checkpoint)
+
+    batch0 = ensemble.stack_members([scaled_layered(state0, s) for s in ENSEMBLE_SCALES])
+    for mesh_kind in (4, (2, 2)):
+        where = (f"{mesh_kind} y-shards" if isinstance(mesh_kind, int) else
+                 f"{mesh_kind[0]} x {mesh_kind[1]} blocks")
+        what = f"phase 19b: the gyre as {len(ENSEMBLE_SCALES)} members on {where}"
+        fn, ds, _ = sharded(model, batch0, mesh_kind, True)
+        dm = fn.models
+        ds = fn(ds, dt)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "ck")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_sharded_checkpoint(path, ds, dm)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            mb = dir_mb(path)
+            want = ds
+            for _ in range(steps):
+                want = fn(want, dt)
+            like = [zeroed(s) for s in ds]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with LoadSpy() as spy:
+                back = load_sharded_checkpoint(path, like, dm)
+            torch.cuda.synchronize()
+            load_ms = (time.perf_counter() - t0) * 1e3
+        own_keys(spy.calls[-1], back, dm, what)
+        check(spy.no_dist[-1] is True, f"{what}: the load was not one DCP call here")
+        for k, (a, b) in enumerate(zip(back, ds)):
+            states_equal(a, b, f"{what}: rank {k} read back")
+        for _ in range(steps):
+            back = fn(back, dt)
+        for k, (a, b) in enumerate(zip(back, want)):
+            states_equal(a, b, f"{what}: rank {k} resumed")
+        fn.close()
+        log(f"{what} through LocalExchange: one checkpoint directory of {mb:.1f} MB "
+            f"saved in {save_ms:.1f} ms and loaded into zeroed rank states in "
+            f"{load_ms:.1f} ms (each rank's tensors filled on the card from its own "
+            f"keys); {steps} steps on from it bitwise the uninterrupted run in every "
+            f"field of every rank [{card}]")
+        del fn, ds, want, like, back
+        torch.cuda.empty_cache()
+
+
+def phase19c_group(card, model, state0, backend="nccl"):
+    """Phase 18e's 2-member jet in a 1-rank ``backend`` group through
+    ProcessGroupExchange: a directory saved and loaded through the process-group
+    route, bitwise, and a step on from it bitwise."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from orthogonalsphericalshellgrids_tpu_torch import parallel
+    from orthogonalsphericalshellgrids_tpu_torch.models import ensemble, step
+    from orthogonalsphericalshellgrids_tpu_torch.utils import (
+        load_sharded_checkpoint, save_sharded_checkpoint)
+
+    pair = ensemble.stack_members([state0, step(model, scaled_state(state0, 0.5), 60.0)])
+    what = f"phase 19c: a 2-member jet in a 1-rank {backend} group"
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group(backend, init_method="file://" + os.path.join(tmp, "store"),
+                                rank=0, world_size=1)
+        try:
+            mesh = parallel.ProcessGroupExchange()
+            dm, ds = parallel.distribute(model, pair, mesh)
+            fn = parallel.sharded_step_fn(mesh, dm)
+            s = fn(ds, 60.0)
+            path = os.path.join(tmp, "ck")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_sharded_checkpoint(path, s, dm)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            files = sorted(os.listdir(path))
+            like = [zeroed(s[0])]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with LoadSpy() as spy:
+                back = load_sharded_checkpoint(path, like, dm)
+            torch.cuda.synchronize()
+            load_ms = (time.perf_counter() - t0) * 1e3
+            own_keys(spy.calls[-1], back, dm, what)
+            check(spy.no_dist[-1] is False, f"{what}: the load did not go over the group")
+            states_equal(back[0], s[0], f"{what}: read back")
+            states_equal(fn(back, 60.0)[0], fn(s, 60.0)[0], f"{what}: a step on")
+        finally:
+            dist.destroy_process_group()
+    check(files == [".metadata", "__0_0.distcp"], f"{what}: files {files}")
+    log(f"{what} (ProcessGroupExchange): a checkpoint directory saved in {save_ms:.1f} "
+        f"ms and loaded in {load_ms:.1f} ms through DCP over the group, bitwise, and a "
+        f"step on from it bitwise [{card}]")
+
+
 def main():
     import torch
 
@@ -3791,6 +4042,11 @@ def main():
          ("gyre", 1): (shard_ms["gyre"], "12c"), ("gyre", 2): (block_ms["d"], "13d"),
          ("gyre", "ensemble"): gyre_ensemble_ms})
     phase18f_forcing_members(card)
+    # phase 19 while phase 7's gyre lives: checkpoint directories through Simulation,
+    # of the sharded 4-member gyre and through a 1-rank NCCL group
+    phase19a_simulation(card, gyre_model, gyre_state0)
+    phase19b_sharded(card, gyre_model, gyre_state0)
+    phase19c_group(card, bickley_model, bickley_state0)
     del gyre_model, gyre_state0
     kres.update(phase14a_planes(card))
     planes_counts = phase14_options(card, bickley_model, bickley_state0, bickley_ms)

@@ -11,7 +11,8 @@ others (``:171``). Here:
 - each shard is a model of its own: rows ``[k·ny, k·ny + ny + 2·Hy)`` of every base-
   or extended-halo tensor of the serial model (``parallel/layouts.py``), with the
   local ``Ny = ny``, built by the models' constructors, which rebuild the kernels'
-  packs from the sliced planes; ``shard = (rank, n_shards)`` marks it;
+  packs from the sliced planes; ``shard = (rank, n_shards)`` and ``mesh_shape =
+  (n_y, n_x)`` mark it;
 - the step on a shard is the serial step with its two fills exchanged
   (``ops/spmd.py``), so it runs the port's kernels on the rank's block, and its
   tendencies split by default where that is exact (``overlap``: the bulk pass on
@@ -495,7 +496,7 @@ def _blocks(model, state, mesh, shard_model, ny, nx, n_x):
     for k in mesh.ranks:
         block = _Block(k // n_x, k % n_x, ny, nx, hy, hx)
         m = shard_model(model, block)
-        m.shard = (k, n)
+        m.shard, m.mesh_shape = (k, n), (n // n_x, n_x)
         if n > 1 and hydrostatic.overlap_supported(baro, m.grid):
             hydrostatic.strip_views(m, two_d=nx is not None)
         models.append(m)

@@ -16,7 +16,9 @@ model is built as a serial one is.
 
 from __future__ import annotations
 
-__all__ = ["BASE", "EXT", "REP", "leaf_layout", "check_module"]
+import dataclasses
+
+__all__ = ["BASE", "EXT", "REP", "leaf_layout", "classify_tree", "check_module"]
 
 BASE, EXT, REP = "base", "ext", "rep"
 
@@ -72,6 +74,15 @@ def leaf_layout(name: str) -> str:
     except KeyError:
         raise KeyError(f"no distributed layout registered for {name!r}; add it to "
                        "parallel/layouts.py") from None
+
+
+def classify_tree(state):
+    """The layout tags of a ``State`` or ``LayeredState``: an instance of the same
+    class with each field's tag (``base``, ``ext``, ``rep``) in place of its tensor,
+    None where the field is None (the JAX package's tree of tags,
+    ``tree_map_with_path`` of ``leaf_layout``)."""
+    return type(state)(**{f.name: None if getattr(state, f.name) is None
+                          else leaf_layout(f.name) for f in dataclasses.fields(state)})
 
 
 def check_module(module) -> dict:

@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import glob
 import math
+import os
 import re
 import time
 from typing import Any, Callable
@@ -122,15 +123,21 @@ class NaNChecker:
 
 class Checkpointer:
     """Periodic checkpoint callback (the Oceananigans ``Checkpointer``): writes
-    ``{prefix}_iteration{N}.npz``. ``Checkpointer.latest(prefix)`` finds the newest
-    for ``Simulation.run(pickup=...)``. A checkpoint holds the state, not
-    ``sim.dt``."""
+    ``{prefix}_iteration{N}.npz``, or with ``npz=False`` the checkpoint directory
+    ``{prefix}_iteration{N}`` (``utils/checkpoint.py``: torch.distributed.checkpoint).
+    ``Checkpointer.latest(prefix)`` finds the newest complete one for
+    ``Simulation.run(pickup=...)``. A checkpoint holds the state, not ``sim.dt``."""
 
-    def __init__(self, prefix: str):
+    def __init__(self, prefix: str, npz: bool = True):
         self.prefix = str(prefix)
+        self.npz = bool(npz)
+        if not self.npz:
+            # torch.distributed.checkpoint takes seconds to import: at set-up, not in
+            # the first checkpoint on the simulation thread
+            import torch.distributed.checkpoint  # noqa: F401
 
     def path_for(self, iteration: int) -> str:
-        return f"{self.prefix}_iteration{iteration}.npz"
+        return f"{self.prefix}_iteration{iteration}" + (".npz" if self.npz else "")
 
     def __call__(self, sim: "Simulation"):
         from .checkpoint import save_checkpoint
@@ -139,13 +146,16 @@ class Checkpointer:
 
     @staticmethod
     def latest(prefix: str):
-        """Newest checkpoint path for ``prefix`` (by iteration number), or None."""
+        """Newest complete checkpoint for ``prefix`` (by iteration number): an npz
+        file, or a directory that holds DCP's ``.metadata``; None if there is none."""
         best, best_it = None, -1
         # glob metacharacters in the prefix are escaped; the iteration number is
         # anchored to the END of the name, so "_iteration<N>" elsewhere in the path
-        # is ignored
+        # and the ".tmp" of a write in progress are ignored
         for p in glob.glob(glob.escape(prefix) + "_iteration*"):
             m = re.search(r"_iteration(\d+)(?:\.npz)?$", p)
+            if os.path.isdir(p) and not os.path.isfile(os.path.join(p, ".metadata")):
+                continue  # a directory whose write did not finish
             if m and int(m.group(1)) > best_it:
                 best, best_it = p, int(m.group(1))
         return best
@@ -209,9 +219,10 @@ class Simulation:
         """The reference's ``run!`` loop (examples/bickley_jet.jl:89); returns the
         final state.
 
-        ``pickup``: a checkpoint path, or True for the newest one written by an
-        attached ``Checkpointer``; the state is restored before stepping (the
-        Oceananigans ``run!(sim, pickup=true)``)."""
+        ``pickup``: a checkpoint path (an npz file or a checkpoint directory), or
+        True for the newest complete one written by an attached ``Checkpointer``;
+        the state is restored before stepping (the Oceananigans ``run!(sim,
+        pickup=true)``)."""
         if pickup:
             from .checkpoint import load_checkpoint
 

@@ -1859,6 +1859,64 @@ def test_cuda_sharded_ensemble_step_bitwise(which, mesh_kind):
 
 
 # ------------------------------------------------------------------------------------
+# checkpoint directories (torch.distributed.checkpoint) of states on the card
+# ------------------------------------------------------------------------------------
+
+def _assert_back_on_card(back, want):
+    for f in dataclasses.fields(want):
+        x, y = getattr(back, f.name), getattr(want, f.name)
+        assert x.is_cuda and x.dtype == y.dtype, (f.name, x.device, x.dtype)
+        assert torch.equal(x, y), f.name
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_directory_checkpoint_serial_ensemble(tmp_path, dtype):
+    """A 3-member ensemble of the 48 x 32 x 3 check gyre, one step on, written to a
+    checkpoint directory and read into zeroed card tensors: every field bitwise, on
+    the card, in its dtype."""
+    from chip_smoke import scaled_layered, zeroed
+    from examples.wind_driven_ts_gyre_torch import build_check
+    from orthogonalsphericalshellgrids_tpu_torch.models import ensemble
+    from orthogonalsphericalshellgrids_tpu_torch.utils import (
+        load_checkpoint, save_checkpoint)
+
+    model, base = build_check(dtype=dtype, device="cuda")
+    batch = TL.layered_step(model, ensemble.stack_members(
+        [scaled_layered(base, s) for s in (0.5, 1.0, 1.5)]), 60.0)
+    path = str(tmp_path / "ck")
+    save_checkpoint(path, batch)
+    _assert_back_on_card(load_checkpoint(path, zeroed(batch)), batch)
+
+
+@needs_cuda
+@pytest.mark.parametrize("mesh_kind", [4, (2, 2)], ids=["y4", "2x2"])
+def test_cuda_directory_checkpoint_sharded_ensemble(tmp_path, mesh_kind):
+    """Three members of the 48 x 40 float64 jet on 4 y-shards and on 2 x 2 blocks
+    through LocalExchange on the card: one checkpoint directory read into zeroed rank
+    states, every field of every rank bitwise, on the card, in its dtype, and a step
+    on from it bitwise."""
+    from chip_smoke import scaled_state, sharded, zeroed
+    from examples.bickley_jet_torch import build
+    from orthogonalsphericalshellgrids_tpu_torch.models import ensemble
+    from orthogonalsphericalshellgrids_tpu_torch.utils import (
+        load_sharded_checkpoint, save_sharded_checkpoint)
+
+    model, base = build(48, 40, dtype=torch.float64, substeps=12, device="cuda")
+    batch = ensemble.stack_members([scaled_state(base, s) for s in (0.5, 1.0, 1.5)])
+    fn, ds, _ = sharded(model, batch, mesh_kind, False)
+    ds = fn(ds, 60.0)
+    path = str(tmp_path / "ck")
+    save_sharded_checkpoint(path, ds, fn.models)
+    back = load_sharded_checkpoint(path, [zeroed(s) for s in ds], fn.models)
+    for a, b in zip(back, ds):
+        _assert_back_on_card(a, b)
+    for a, b in zip(fn(back, 60.0), fn(ds, 60.0)):
+        _assert_back_on_card(a, b)
+    fn.close()
+
+
+# ------------------------------------------------------------------------------------
 # the behaviour pins of tests/test_torch_behaviour.py, through the kernels
 # ------------------------------------------------------------------------------------
 

@@ -164,10 +164,21 @@ def test_checkpoint_crosses_packages(tmp_path, kind, writer):
 
 
 def test_checkpoint_needs_npz(tmp_path):
+    """The suffix picks the route: only a path ending in ``.npz`` is an npz file (the
+    format both packages read); any other path is a checkpoint directory
+    (``torch.distributed.checkpoint``, ``tests/test_torch_checkpoint_dir.py``), which
+    is no npz archive."""
     _, state = make()
-    for fn in (lambda p: save_checkpoint(p, state), lambda p: load_checkpoint(p, state)):
-        with pytest.raises(ValueError, match="npz"):
-            fn(str(tmp_path / "orbax_dir"))
+    for name in ("a.npz", "orbax_dir"):
+        save_checkpoint(str(tmp_path / name), state)
+        back = load_checkpoint(str(tmp_path / name), state)
+        for f in dataclasses.fields(state):
+            assert torch.equal(getattr(back, f.name), getattr(state, f.name)), f.name
+    with np.load(str(tmp_path / "a.npz")) as data:
+        assert len(data.files) == len(dataclasses.fields(state))
+    assert ".metadata" in os.listdir(tmp_path / "orbax_dir")
+    with pytest.raises(IsADirectoryError):
+        np.load(str(tmp_path / "orbax_dir"))
 
 
 # --- diagnostics -------------------------------------------------------------------
