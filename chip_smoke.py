@@ -174,6 +174,15 @@ Phase 19 checkpoint directories (utils/checkpoint.py through
          (ProcessGroupExchange) saved and loaded through the process-group route,
          bitwise.
 
+Phase 20 the benchmark entry points (run after phase 19, while phase 7's gyre lives):
+         one block of bench_torch.py and of bench_layered_torch.py, each 10 of its
+         path's steps in launches; bench_torch.main on phase 3's jet with
+         bench_layered_torch.run on phase 7's gyre: both lines finite, every launch
+         of the run a block's, cuda-nccl-smoke ok; bench_scaling_torch through
+         LocalExchange at N = 1, 2, 4 (1440 x 170 a shard, 30 substeps, dt = 60 s)
+         and over NCCL on the cards present, every run's shards bitwise the serial
+         run. The bench lines go on earlier lines of the output.
+
 Phase 2 holds the halo fills first: the group fill with save, the group fill without
 save and the group restore against their plain versions, bitwise at float32 and
 float64, on the Bickley group (u, v, c on (690, 1450); eta, U, V views of one
@@ -2049,11 +2058,12 @@ def phase12_sharded(card, bickley, gyre, n=4):
         f"route and makes no NCCL operation; bitwise equal to the serial step, the serial "
         f"launches ({counts['halo_fill'] // 3} fills and {counts['halo_restore'] // 3} "
         f"restore a step, no pack), host synchronizations 0 [{card}]")
-    log("phase 12: not measured: any multi-GPU number (one card); not run: "
-        "ProcessGroupExchange's NCCL send and receive, so its stream wait and the absence "
-        "of host synchronization there are unverified (NCCL refuses two ranks on one GPU; "
-        "the exchange between ranks runs here through LocalExchange and on the CPU "
-        "through gloo in tests/test_torch_distributed.py)")
+    log("phase 12: not run on one card: ProcessGroupExchange's NCCL send and receive "
+        "(NCCL refuses two ranks on one GPU; the exchange between ranks runs here through "
+        "LocalExchange, with a card a rank in bench_scaling_torch.py --exchange nccl, "
+        "phase 20 on the cards present, and on the CPU through gloo in "
+        "tests/test_torch_distributed.py); not measured: the absence of host "
+        "synchronization in an NCCL exchange")
     return results["Bickley"], shard_ms
 
 
@@ -3985,6 +3995,85 @@ def phase19c_group(card, model, state0, backend="nccl"):
         f"step on from it bitwise [{card}]")
 
 
+def phase20_benches(card, bickley, gyre):
+    """The port's benchmark entry points on the card: one block of each bench against
+    10 of its path's steps in launches; ``bench_torch.main`` on phase 3's jet with
+    ``bench_layered_torch.run`` on phase 7's gyre (their lines, the NCCL collective
+    smoke, every launch of the run a block's); ``bench_scaling_torch`` through
+    LocalExchange at N = 1, 2, 4 (1440 x 170 a shard) and over NCCL on the cards
+    present, each run's shards bitwise serial inside the bench. ``bickley`` and
+    ``gyre`` are (model, state, launch counts, steps counted, ms/step) of phases 3 and
+    7. Catches nothing."""
+    import math
+
+    import torch
+
+    import bench_layered_torch
+    import bench_scaling_torch
+    import bench_torch
+    from orthogonalsphericalshellgrids_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    blocks = {}
+    for what, mod, (model, state0, counts, n, _) in (("jet", bench_torch, bickley),
+                                                     ("gyre", bench_layered_torch, gyre)):
+        check(all(v % n == 0 for v in counts.values()), f"{what} counts {counts} / {n}")
+        want = {k: v // n * mod.BLOCK for k, v in counts.items()}
+        kernels.reset_launch_counts()
+        mod.block(model, state0)
+        torch.cuda.synchronize()
+        got = kernels.launch_counts()
+        check(got == want, f"phase 20: one {what} bench block launched {got} != {want}")
+        blocks[what] = want
+
+    kernels.reset_launch_counts()
+    head, lay, smoke = bench_torch.main(model_state=bickley[:2],
+                                        layered=dict(model_state=gyre[:2]))
+    counts = kernels.launch_counts()
+    check(isinstance(lay, dict), f"phase 20: the layered bench {lay}")
+    log(f"phase 20: bench_layered_torch line {json.dumps(lay)}")
+    check(smoke == "ok", f"phase 20: cuda-nccl-smoke {smoke}")
+    for line in (head, lay):
+        check(math.isfinite(line["value"]) and line["value"] > 0 and
+              line["unit"] == "grid-points/s/chip", f"phase 20: bench line {line}")
+    want = {k: head["blocks"] * blocks["jet"][k] + lay["blocks"] * blocks["gyre"][k]
+            for k in counts}
+    check(counts["stream_probe"] > 0 and all(counts[k] == want[k] for k in counts
+                                             if k != "stream_probe"),
+          f"phase 20: the benches launched {counts}, {head['blocks']} jet and "
+          f"{lay['blocks']} gyre blocks of {blocks}")
+    t_bench = time.perf_counter() - t0
+
+    lines = {}
+    for exchange, sizes in (("local", ["--sizes", "1,2,4"]), ("nccl", [])):
+        lines[exchange] = bench_scaling_torch.main(
+            ["--exchange", exchange, "--nx", "1440", "--ny-per-dev", "170",
+             "--substeps", "30", "--dt", "60"] + sizes)
+        through = [x["devices"] for x in lines[exchange]
+                   if x["metric"] == "weak-scaling grid-points/s"]
+        eff = [x["devices"] for x in lines[exchange]
+               if x["metric"] == "weak-scaling efficiency"]
+        want_n = [1, 2, 4] if exchange == "local" else \
+            [n for n in (1, 2, 4, 8) if n <= torch.cuda.device_count()]
+        check(through == want_n and eff == want_n[1:] and
+              all(math.isfinite(x["value"]) and x["value"] > 0 for x in lines[exchange]),
+              f"phase 20: bench_scaling_torch --exchange {exchange}: {lines[exchange]}")
+    local = ", ".join(f"N = {x['devices']} {x['ms_per_step']:.4f}" for x in lines["local"]
+                      if x["metric"] == "weak-scaling grid-points/s")
+    nccl = ", ".join(str(x["devices"]) for x in lines["nccl"]
+                     if x["metric"] == "weak-scaling grid-points/s")
+    log(f"phase 20: the benches launched {head['blocks']} jet and {lay['blocks']} gyre "
+        f"blocks, each 10 steps' launches; headline {head['ms_per_step']:.4f} ms/step as "
+        f"run ({head['value'] / 1e9:.4f} G grid-points/s), "
+        f"{head['ms_per_step_host_ahead']:.4f} host ahead, phase 3 {bickley[4]:.4f} in "
+        f"this call; gyre {lay['ms_per_step']:.4f} as run, "
+        f"{lay['ms_per_step_host_ahead']:.4f} host ahead, phase 7 {gyre[4]:.4f}; weak "
+        f"scaling through LocalExchange, ms/step: {local}, every run's shards bitwise "
+        f"serial; NCCL on {torch.cuda.device_count()} card(s) at N = {nccl}; "
+        f"cuda-nccl-smoke ok; benches {t_bench:.1f} s, the phase "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+
 def main():
     import torch
 
@@ -4047,6 +4136,9 @@ def main():
     phase19a_simulation(card, gyre_model, gyre_state0)
     phase19b_sharded(card, gyre_model, gyre_state0)
     phase19c_group(card, bickley_model, bickley_state0)
+    # phase 20 while phase 7's gyre lives: the benchmark entry points
+    phase20_benches(card, (bickley_model, bickley_state0, counts, 20, bickley_ms),
+                    (gyre_model, gyre_state0, gyre_counts, 10, gyre_ms))
     del gyre_model, gyre_state0
     kres.update(phase14a_planes(card))
     planes_counts = phase14_options(card, bickley_model, bickley_state0, bickley_ms)

@@ -25,8 +25,8 @@ others (``:171``). Here:
   refuses two ranks on one GPU, or on the CPU), one thread at a time, a rank
   reading its neighbours' send buffers in place; ``ProcessGroupExchange`` runs one shard in each process of a
   ``torch.distributed`` group (NCCL on GPUs, gloo on the CPU) with
-  ``batch_isend_irecv`` to the y neighbours (on NCCL its wait is meant to be a
-  stream wait; no exchange between NCCL ranks has run, see the class);
+  ``batch_isend_irecv`` to the y neighbours (on NCCL its wait is documented as a
+  stream wait, see the class);
 - ``spawn`` starts the processes of a group with a ``file://`` rendezvous in a
   temporary directory;
 - an ensemble (``models/ensemble.py:stack_members``) is distributed, stepped and
@@ -223,11 +223,12 @@ class ProcessGroupExchange:
     """The exchange of one rank of the default ``torch.distributed`` process group
     (one shard a process): ``batch_isend_irecv`` of the two parts of the send buffer
     to the ranks above and below, and of the received rows into a fresh buffer. On
-    NCCL ``wait`` is documented to make the current stream wait for the transfer,
-    not the host; that is untested: with one rank the step takes the serial route
-    and this call is never made, and NCCL refuses two ranks on one card, so its
-    stream wait and the allocator's safety across NCCL's stream have run only on
-    gloo. A failed rank's peers see the backend's timeout."""
+    NCCL ``wait`` is documented to make the current stream wait for the transfer, not
+    the host (that the host does not wait is not measured). With one rank the step
+    takes the serial route and this call is never made; NCCL refuses two ranks on one
+    card, so the exchange between ranks runs with a card a rank
+    (``bench_scaling_torch.py --exchange nccl``: 2 and 4 H100s, every shard bitwise
+    the serial run). A failed rank's peers see the backend's timeout."""
 
     def __init__(self, shape=None):
         if not dist.is_initialized():

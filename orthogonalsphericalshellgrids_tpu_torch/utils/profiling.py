@@ -1,6 +1,7 @@
 """Profiling and timing: a ``torch.profiler`` trace, CUDA-event step timing, the
 timer and the card line that every measurement script uses (``time_ms``,
-``smi_line``), and the card's measured ceilings (HBM stream rate, FMA rate).
+``smi_line``; ``cpu_line`` for a measurement on the host), and the card's measured
+ceilings (HBM stream rate, FMA rate).
 
 Counterpart: ``orthogonalsphericalshellgrids_tpu/utils/profiling.py`` (``trace``,
 ``device_sync``, ``time_steps``, ``stream_probe_gbps``) plus ``fma_ceiling`` of
@@ -19,6 +20,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import platform
 import subprocess
 import time
 import warnings
@@ -28,7 +30,7 @@ import torch
 from ..kernels import probes
 
 __all__ = ["trace", "device_sync", "time_steps", "stream_probe_gbps", "fma_ceiling",
-           "time_ms", "smi_line", "host_syncs"]
+           "time_ms", "smi_line", "cpu_line", "host_syncs"]
 
 
 @contextlib.contextmanager
@@ -167,6 +169,17 @@ def smi_line():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def cpu_line():
+    """The host CPU's model name (``/proc/cpuinfo``, the platform's name where there
+    is none) and torch's thread count, for a measurement made on the CPU."""
+    name = platform.processor() or platform.machine()
+    with contextlib.suppress(OSError):
+        with open("/proc/cpuinfo") as f:
+            name = next((line.split(":", 1)[1].strip() for line in f
+                         if line.startswith("model name")), name)
+    return f"cpu: {name}, {torch.get_num_threads()} threads"
 
 
 def time_steps(step_fn, model, state, dt, n=50, warmup=3):
