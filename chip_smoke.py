@@ -182,6 +182,22 @@ Phase 20 the benchmark entry points (run after phase 19, while phase 7's gyre li
          LocalExchange at N = 1, 2, 4 (1440 x 170 a shard, 30 substeps, dt = 60 s)
          and over NCCL on the cards present, every run's shards bitwise the serial
          run. The bench lines go on earlier lines of the output.
+Phase 21 the compiled blocks (utils/graph.py; run after phase 20, while phase 7's gyre
+         lives): phase 3's jet, phase 7's gyre and both as 4 members (phase 15b's
+         scales), 20 steps through the captured CUDA graphs of the step (multi_step,
+         layered_multi_step, ensemble_multi_step) against the eager loop of step or
+         layered_step from the same state: bitwise in every field, a block's launches
+         those of 20 eager steps and 20 times the captured step's record, no host
+         synchronization in a replay; ms/step as run and host ahead on both routes
+         (blocks of 10), their idle shares (1 - host ahead / as run), the capture's
+         seconds and the pool's MB.
+
+multi_step, layered_multi_step, ensemble_multi_step and Simulation replay the model's
+captured CUDA graphs of its step on the card (utils/graph.py), so phases 3, 5, 7, 8,
+10, 11, 14-17, 19, 20 and 21 run that route. A model's first block captures its step
+after one eager warm-up step, whose launches count, so a phase that counts a new
+model's launches runs a block first; the phases' warm-up blocks do that. The sharded
+phases call step and layered_step, which stay eager.
 
 Phase 2 holds the halo fills first: the group fill with save, the group fill without
 save and the group restore against their plain versions, bitwise at float32 and
@@ -230,6 +246,7 @@ script exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -1351,6 +1368,7 @@ def phase8_gyre_parity(card, n_steps=3):
 
     cpu_m, cpu_s = build_check(device="cpu")
     gpu_m, gpu_s = build_check(device="cuda")
+    layered_multi_step(gpu_m, gpu_s, 60.0, n_steps)  # captures the block
     kernels.reset_launch_counts()
     gpu_out = layered_multi_step(gpu_m, gpu_s, 60.0, n_steps)
     counts = kernels.launch_counts()
@@ -1679,11 +1697,13 @@ def phase11_bickley_50_days(card, days=50.0):
 
     from examples.bickley_jet_torch import build, diagnostics, make_simulation
     from orthogonalsphericalshellgrids_tpu_torch import kernels
+    from orthogonalsphericalshellgrids_tpu_torch.models import multi_step
     from orthogonalsphericalshellgrids_tpu_torch.models.diagnostics import (
         surface_volume, tracer_content)
     from orthogonalsphericalshellgrids_tpu_torch.utils import FieldTimeSeries
 
     model, state = build(180, 90, dtype=torch.float64, substeps=30, device="cuda")
+    multi_step(model, state, 60.0, 1)  # captures the one-step block the run replays
     c0 = float(tracer_content(model, state))
     progress = []
     with tempfile.TemporaryDirectory() as tmp:
@@ -4074,6 +4094,105 @@ def phase20_benches(card, bickley, gyre):
         f"{time.perf_counter() - t0:.1f} s [{card}]")
 
 
+def phase21_graphs(card, bickley, gyre, n_steps=20, n_time=10, dt=40.0):
+    """The compiled blocks (utils/graph.py): the 1/4-degree jet, the gyre and their
+    4-member ensembles (ENSEMBLE_SCALES), each ``n_steps`` steps through the block's
+    captured CUDA graph (multi_step, layered_multi_step, ensemble_multi_step) against
+    the eager loop of step / layered_step from the same state in this call
+    (``graph_path``). ``bickley`` and ``gyre`` are (model, initial state) of phases 3
+    and 7."""
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch.models import (ensemble, layered_multi_step,
+                                                                layered_step, multi_step,
+                                                                step)
+
+    (bmodel, bstate0), (gmodel, gstate0) = bickley, gyre
+    graph_path(card, "jet", multi_step, step, bmodel, bstate0, 60.0, n_steps, n_time)
+    graph_path(card, "gyre", layered_multi_step, layered_step, gmodel, gstate0, dt, n_steps,
+               n_time)
+    graph_path(card, "jet x 4", ensemble.ensemble_multi_step, step, bmodel,
+               ensemble.stack_members([scaled_state(bstate0, f) for f in ENSEMBLE_SCALES]),
+               60.0, n_steps, n_time)
+    graph_path(card, "gyre x 4", ensemble.ensemble_multi_step, layered_step, gmodel,
+               ensemble.stack_members([scaled_layered(gstate0, f) for f in ENSEMBLE_SCALES]),
+               dt, n_steps, n_time)
+    gib = 2**30
+    log(f"phase 21: the card's memory after the phase: "
+        f"{torch.cuda.memory_allocated() / gib:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / gib:.2f} GiB reserved, peak "
+        f"{torch.cuda.max_memory_reserved() / gib:.2f} GiB reserved [{card}]")
+
+
+def graph_path(card, what, block, step_fn, model, state0, dt, n_steps, n_time):
+    """One path of phase 21: ``block(model, state0, dt, n_steps)`` (the graph's
+    replay) bitwise the eager loop of ``step_fn`` in every field; a replay launches
+    what ``n_steps`` eager steps launch, ``n_steps`` times the captured step's record,
+    and makes no host synchronization; ms/step as run and with the host held ahead on both routes,
+    timed on blocks of ``n_time`` steps (one block a window: with the card held, a
+    longer window fills its launch queue and the host waits), each route's idle share
+    (1 - host ahead / as run), the pair's capture seconds and its pool's MB."""
+    import dataclasses
+
+    import torch
+
+    from orthogonalsphericalshellgrids_tpu_torch import kernels
+    from orthogonalsphericalshellgrids_tpu_torch.utils import graph
+
+    def eager(n=n_steps):
+        state = state0
+        for _ in range(n):
+            state = step_fn(model, state, dt)
+        return state
+
+    def replay(n=n_steps):
+        return block(model, state0, dt, n)
+
+    kernels.reset_launch_counts()
+    want = eager()
+    eager_counts = kernels.launch_counts()
+    replay()  # captures the block, unless an earlier phase did
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with host_syncs() as n_syncs:
+        got = replay()
+        waits = n_syncs()
+    counts = kernels.launch_counts()
+    torch.cuda.synchronize()
+    for f in dataclasses.fields(want):
+        check(torch.equal(getattr(got, f.name), getattr(want, f.name)),
+              f"phase 21 {what}: {f.name} of the graph's {n_steps} steps bitwise the "
+              f"eager loop")
+    block_ = graph.blocks(model)[graph.layout(step_fn, state0)]
+    recorded = {k: n_steps * v for k, v in block_.launches.items()}
+    check(counts == eager_counts == recorded,
+          f"phase 21 {what}: a replay launched {counts}, {n_steps} times the captured "
+          f"step's record {recorded}, {n_steps} eager steps {eager_counts}")
+    check(waits == 0, f"phase 21 {what}: a replay waited for the card {waits} times")
+    del got, want
+    ms = {(route, ahead): time_ms(lambda: fn(n_time), n=1, reps=5, warm=1,
+                                  ahead=ahead) / n_time
+          for route, fn in (("graph", replay), ("eager", eager)) for ahead in (False, True)}
+    idle = {route: max(0.0, 1.0 - ms[route, True] / ms[route, False])
+            for route in ("graph", "eager")}
+    log(f"phase 21 {what}: {n_steps} steps through the CUDA graphs bitwise the "
+        f"eager loop in every field; ms/step graph {ms['graph', False]:.4f} as run, "
+        f"{ms['graph', True]:.4f} host ahead (idle share {idle['graph']:.3f}); eager "
+        f"{ms['eager', False]:.4f} as run, {ms['eager', True]:.4f} host ahead (idle share "
+        f"{idle['eager']:.3f}; blocks of {n_time}); the pair's capture (with its warm-up "
+        f"step) {block_.capture_seconds:.3f} s, its pool {block_.pool_bytes / 2**20:.1f} "
+        f"MB beside the two buffers' {2 * state_mb(state0):.1f} MB; a block launches "
+        f"{ {k: v for k, v in counts.items() if v} } = {n_steps} captured steps' = "
+        f"{n_steps} eager steps'; 0 host synchronizations in a replay [{card}]")
+
+
+def state_mb(state):
+    """The MB of a state's tensors."""
+    import dataclasses
+
+    return sum(getattr(state, f.name).nbytes for f in dataclasses.fields(state)) / 2**20
+
+
 def main():
     import torch
 
@@ -4139,6 +4258,8 @@ def main():
     # phase 20 while phase 7's gyre lives: the benchmark entry points
     phase20_benches(card, (bickley_model, bickley_state0, counts, 20, bickley_ms),
                     (gyre_model, gyre_state0, gyre_counts, 10, gyre_ms))
+    # phase 21 while phase 7's gyre lives: the compiled blocks against the eager loop
+    phase21_graphs(card, (bickley_model, bickley_state0), (gyre_model, gyre_state0))
     del gyre_model, gyre_state0
     kres.update(phase14a_planes(card))
     planes_counts = phase14_options(card, bickley_model, bickley_state0, bickley_ms)
@@ -4182,5 +4303,62 @@ def main():
     return 0
 
 
+def descendants():
+    """(pid, command) of every process below this one, read from /proc."""
+    parent = {}
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    # the command may hold spaces and parentheses: the fields follow
+                    # the last ')'
+                    parent[int(d)] = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, IndexError, ValueError):
+                pass
+    found, todo = [], [os.getpid()]
+    while todo:
+        kids = [c for c, pp in parent.items() if pp == todo[-1]]
+        todo.pop()
+        found += kids
+        todo += kids
+    out = []
+    for pid in found:
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                out.append((pid, f.read().replace(b"\0", b" ").decode(errors="replace")))
+        except OSError:
+            pass
+    return out
+
+
+def stop_processes():
+    """Stops every process the run started and left behind, so none outlives the
+    script: multiprocessing's resource tracker, which ``parallel.spawn``'s queue
+    starts and which otherwise ends only after this process has ended and its pipe
+    closed, then any other descendant, killed (named on stderr) and reaped."""
+    import multiprocessing
+    import signal
+    from multiprocessing import resource_tracker
+
+    tracker = resource_tracker._resource_tracker
+    if getattr(tracker, "_pid", None) is not None:
+        tracker._stop()  # closes the tracker's pipe and waits for it to exit
+    for p in multiprocessing.active_children():
+        p.kill()
+        p.join()
+    left = descendants()
+    for pid, cmd in left:
+        print(f"chip_smoke: stopping a process left running: {pid} {cmd}", file=sys.stderr)
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGKILL)
+    for pid, _ in left:
+        with contextlib.suppress(ChildProcessError):
+            os.waitpid(pid, 0)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_processes()
+    sys.exit(rc)

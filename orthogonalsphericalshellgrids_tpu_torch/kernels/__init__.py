@@ -4,7 +4,9 @@ Each wrapper takes the plain version for a tensor on the CPU and launches its ke
 for a tensor on a CUDA device; there is no other route. ``LAUNCHES`` counts kernel
 launches per wrapper (a C entry call counts once), so a run can show that it went
 through the kernels; ``counting`` also counts the launches of one thread (one shard
-of a y-partitioned run stepped in its own thread).
+of a y-partitioned run stepped in its own thread). A CUDA graph's capture launches
+nothing: ``recording`` keeps the launches its wrappers enqueue apart, and
+``add_launches`` counts them again at each replay (``utils/graph.py``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import torch
 
 from ._build import library
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "launch_counts", "count", "counting"]
+__all__ = ["LAUNCHES", "reset_launch_counts", "launch_counts", "count", "counting",
+           "recording", "add_launches"]
 
 LAUNCHES = {"halo_fill": 0, "halo_restore": 0, "halo_fill_copy": 0, "halo_pack": 0,
             "halo_fill_shard": 0, "halo_wrap": 0, "halo_fill_block": 0,
@@ -47,12 +50,29 @@ def launch_counts():
 def count(name):
     """Count one launch of kernel ``name``: in ``LAUNCHES`` (under a lock, since the
     shards of one process launch from several threads) and in the counts of the
-    calling thread's ``counting`` block, if any."""
+    calling thread's ``counting`` block, if any; inside a ``recording`` block only in
+    its record."""
+    record = getattr(_thread, "record", None)
+    if record is not None:
+        record[name] += 1
+        return
     with _lock:
         LAUNCHES[name] += 1
     own = getattr(_thread, "counts", None)
     if own is not None:
         own[name] += 1
+
+
+def add_launches(counts):
+    """Count the launches of ``counts`` (kernel name -> launches) as ``count`` does:
+    a replay of a captured graph launches what its capture recorded."""
+    with _lock:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
+    own = getattr(_thread, "counts", None)
+    if own is not None:
+        for name, n in counts.items():
+            own[name] += n
 
 
 @contextlib.contextmanager
@@ -65,6 +85,19 @@ def counting(counts):
         yield counts
     finally:
         _thread.counts = outer
+
+
+@contextlib.contextmanager
+def recording(record):
+    """Inside the block, the calling thread's launches go to ``record`` (a dict with
+    the keys of ``LAUNCHES``) and nowhere else: a graph capture enqueues them into
+    the graph without launching them."""
+    outer = getattr(_thread, "record", None)
+    _thread.record = record
+    try:
+        yield record
+    finally:
+        _thread.record = outer
 
 
 def on_cuda(*tensors):
@@ -94,6 +127,28 @@ def check_operands(name, tensors, dtype, shapes):
         if key in shapes and tuple(t.shape) != tuple(shapes[key]):
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected "
                              f"{tuple(shapes[key])}")
+
+
+def output(name, like, out, shape=None):
+    """The buffer a launch writes: a new tensor shaped like ``like`` (or ``shape``),
+    or ``out``, checked to be contiguous and of that shape, dtype and device (a
+    caller that places the result, ``utils/graph.py``'s blocks)."""
+    shape = tuple(like.shape) if shape is None else tuple(shape)
+    if out is None:
+        return torch.empty_like(like) if shape == tuple(like.shape) else \
+            torch.empty(shape, dtype=like.dtype, device=like.device)
+    if (tuple(out.shape) != shape or out.dtype != like.dtype or out.device != like.device
+            or not out.is_contiguous()):
+        raise ValueError(f"{name}: out must be a contiguous {like.dtype} tensor of shape "
+                         f"{shape} on {like.device}, got {out.dtype} {tuple(out.shape)} "
+                         f"on {out.device}")
+    return out
+
+
+def placed(name, result, out):
+    """``result`` (a plain version's) written into ``out``, checked as ``output``
+    checks it, when one is given."""
+    return result if out is None else output(name, result, out).copy_(result)
 
 
 def data_ptr(t):

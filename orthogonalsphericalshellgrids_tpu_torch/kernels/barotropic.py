@@ -24,7 +24,7 @@ import torch
 
 from ..ops import zipper
 from ..ops.operators import dxc, dxf, dyc, dyf
-from . import call, check_operands, count, on_cuda
+from . import call, check_operands, count, on_cuda, output, placed
 
 __all__ = ["barotropic_substeps", "barotropic_substeps_plain", "launch_plan",
            "STATIC_PLANES"]
@@ -106,13 +106,15 @@ def barotropic_substeps_plain(static, eta, U, V, GU, GV, dtau, weights, Nx, Hx,
 
 
 def barotropic_substeps(static, eta, U, V, GU, GV, dtau, weights, Nx, Hx,
-                        wrap_x_each_substep=True):
+                        wrap_x_each_substep=True, out=None):
     """The barotropic subcycle of one (Ye, Xe) state or a (B, Ye, Xe) stack of
     members; inputs are not modified. On a CUDA device one C entry call runs the
     ``len(weights)`` substeps as the launches of ``launch_plan`` on the current
     stream, every member in each launch. Validity shrinks by one cell per substep
     from the array edge, as in the JAX package: beyond it the kernel's cells hold
-    finite values of no meaning and the plain version's wrapped garbage."""
+    finite values of no meaning and the plain version's wrapped garbage. Returns the
+    averages (η, U, V); ``out``, a (3,) + η.shape buffer, receives them in place of a
+    new one (they are its views)."""
     if eta.dim() not in (2, 3) or eta.numel() == 0:
         raise ValueError(f"barotropic_substeps takes a (Ye, Xe) plane or a (B, Ye, Xe) "
                          f"member stack, got shape {tuple(eta.shape)}")
@@ -128,8 +130,12 @@ def barotropic_substeps(static, eta, U, V, GU, GV, dtau, weights, Nx, Hx,
     if n_sub < 1:
         raise ValueError("barotropic_substeps needs at least one weight")
     if not on_cuda(static, eta, U, V, GU, GV, dtau, weights):
-        return barotropic_substeps_plain(static, eta, U, V, GU, GV, dtau, weights, Nx,
-                                         Hx, wrap_x_each_substep)
+        avg = barotropic_substeps_plain(static, eta, U, V, GU, GV, dtau, weights, Nx, Hx,
+                                        wrap_x_each_substep)
+        if out is None:
+            return avg
+        placed("barotropic_substeps", torch.stack(avg), out)
+        return out[0], out[1], out[2]
     if wrap_x_each_substep and not (1 <= Hx <= Nx and Xe == Nx + 2 * Hx):
         raise ValueError(f"the x-wrap needs Xe = Nx + 2 Hx with 1 <= Hx <= Nx, got "
                          f"Xe={Xe}, Nx={Nx}, Hx={Hx}")
@@ -138,7 +144,7 @@ def barotropic_substeps(static, eta, U, V, GU, GV, dtau, weights, Nx, Hx,
     # each work set and the averages are (3, B, Ye, Xe): component-major, so that
     # each average is one contiguous member stack
     work = torch.empty((3 * n_work,) + eta.shape, dtype=dt, device=eta.device)
-    acc = torch.empty((3,) + eta.shape, dtype=dt, device=eta.device)
+    acc = output("barotropic_substeps", eta, out, (3,) + eta.shape)
     call("osg_barotropic", dt, eta.device, static.data_ptr(), eta.data_ptr(),
          U.data_ptr(), V.data_ptr(), GU.data_ptr(), GV.data_ptr(), work.data_ptr(),
          acc.data_ptr(), dtau.data_ptr(), weights.data_ptr(), int(n_sub), n_members, Ye,

@@ -34,7 +34,7 @@ import ctypes
 
 import torch
 
-from . import call, check_operands, count, on_cuda
+from . import call, check_operands, count, on_cuda, output, placed
 
 __all__ = ["corrector", "corrector_plain", "predictor_plain", "depth_mean_plain",
            "tracer_update_plain"]
@@ -85,11 +85,12 @@ def corrector_plain(u0, Gu, Gu_old, v0, Gv, Gv_old, c0, Gc, Gc_old, dzu, dzv, ma
 
 
 def corrector(u0, Gu, Gu_old, v0, Gv, Gv_old, c0, Gc, Gc_old, dzu, dzv, mask_c,
-              inv_h_u, inv_h_v, U_a, V_a, w1, w2, dt, b=None):
+              inv_h_u, inv_h_v, U_a, V_a, w1, w2, dt, b=None, out=None):
     """The fused update (module docstring) of one stack or of B members: the kernel on
     a CUDA device, the plain version on the CPU. Returns (u, v, c, b), b None when
     not given. The launch counts as ``corrector``, or ``corrector_members`` for
-    B > 1."""
+    B > 1. ``out`` = (u, v, c, b) buffers (b None without ``b``) receives the result
+    in place of new tensors."""
     if u0.dim() not in (3, 4):
         raise ValueError(f"corrector takes (Nz, Yb, Xb) stacks or the (B, Nz, Yb, Xb) "
                          f"stacks of B members, got {tuple(u0.shape)}")
@@ -122,12 +123,15 @@ def corrector(u0, Gu, Gu_old, v0, Gv, Gv_old, c0, Gc, Gc_old, dzu, dzv, mask_c,
                              f"strides {a.stride()}")
     if U_a.stride() != V_a.stride():
         raise ValueError("corrector: U_a and V_a must share their strides")
+    outs = (None,) * 4 if out is None else tuple(out)
     if not on_cuda(*tensors.values(), U_a, V_a):
-        return corrector_plain(u0, Gu, Gu_old, v0, Gv, Gv_old, c0, Gc, Gc_old, dzu, dzv,
-                               mask_c, inv_h_u, inv_h_v, U_a, V_a, w1, w2, dt, b)
+        result = corrector_plain(u0, Gu, Gu_old, v0, Gv, Gv_old, c0, Gc, Gc_old, dzu,
+                                 dzv, mask_c, inv_h_u, inv_h_v, U_a, V_a, w1, w2, dt, b)
+        return tuple(r if r is None else placed("corrector", r, o)
+                     for r, o in zip(result, outs))
     n_members = lead[0] if lead else 1
-    u, v, c = torch.empty_like(u0), torch.empty_like(v0), torch.empty_like(c0)
-    b_new = None if b is None else torch.empty_like(b[0])
+    u, v, c = (output("corrector", a, o) for a, o in zip((u0, v0, c0), outs))
+    b_new = None if b is None else output("corrector", b[0], outs[3])
     bs = (None, None, None) if b is None else b
     ptrs = [u0, Gu, Gu_old, v0, Gv, Gv_old, c0, Gc, Gc_old, *bs, dzu, dzv, mask_c,
             inv_h_u, inv_h_v, U_a, V_a, w1, w2, dt, u, v, c, b_new]

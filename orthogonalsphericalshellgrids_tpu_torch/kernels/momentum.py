@@ -36,7 +36,7 @@ import torch
 
 from ..ops.advection import weno5_upwind_centers_from_faces
 from ..ops.operators import dxf, dyf, ixc, ixf, iyc, iyf, shift_m, shift_p
-from . import call, check_operands, count, data_ptr, on_cuda
+from . import call, check_operands, count, data_ptr, on_cuda, output, placed
 
 __all__ = ["momentum", "momentum_plain", "launch_plan", "STATIC_PLANES",
            "LAYERED_PLANES", "LAP_PLANES", "DRAG_PLANES", "REACH"]
@@ -167,7 +167,7 @@ def _pair(name, pair):
 
 
 def momentum(u, v, static, has_mask=True, lay=None, has_lap=False, has_drag=False,
-             acc=None, mask_out=None, period=None):
+             acc=None, mask_out=None, period=None, out=None):
     """(Gu, Gv) of halo-filled (Yb, Xb) velocities or (Nz, Yb, Xb) stacks: masked,
     with the 10-plane ``static``, when ``has_mask``; unmasked, with the 8-plane
     ``static``, when not; plus the fused ν_h Laplacians and quadratic drag of the
@@ -177,7 +177,8 @@ def momentum(u, v, static, has_mask=True, lay=None, has_lap=False, has_drag=Fals
     array edge are meaningful (the kernel writes 0 there). The launch counts as
     ``momentum_members`` for the layers of several layered members (no ``has_mask``,
     a period below the layer count), else as ``momentum_closures`` with a closure
-    pack, else as ``momentum`` with the masks and as ``momentum_layered`` without."""
+    pack, else as ``momentum`` with the masks and as ``momentum_layered`` without.
+    ``out``, a pair shaped like (u, v), receives (Gu, Gv) in place of new tensors."""
     if u.dim() not in (2, 3):
         raise ValueError(f"momentum takes a (Yb, Xb) plane or an (Nz, Yb, Xb) stack, "
                          f"got shape {tuple(u.shape)}")
@@ -203,12 +204,14 @@ def momentum(u, v, static, has_mask=True, lay=None, has_lap=False, has_drag=Fals
             tensors[f"{key}_{comp}"] = t
             shapes[f"{key}_{comp}"] = shape
     check_operands("momentum", tensors, u.dtype, shapes)
+    out_u, out_v = _pair("out", out) or (None, None)
     if not on_cuda(*tensors.values()):
-        return momentum_plain(u, v, static, has_mask, lay, has_lap, has_drag, acc,
-                              mask_out, period)
+        Gu, Gv = momentum_plain(u, v, static, has_mask, lay, has_lap, has_drag, acc,
+                                mask_out, period)
+        return placed("momentum", Gu, out_u), placed("momentum", Gv, out_v)
     plan = launch_plan(Yb, Xb, u.dtype)
-    Gu = torch.empty_like(u)
-    Gv = torch.empty_like(v)
+    Gu = output("momentum", u, out_u)
+    Gv = output("momentum", v, out_v)
     a_u, a_v = acc_uv or (None, None)
     m_u, m_v = out_uv or (None, None)
     call("osg_momentum", u.dtype, u.device, u.data_ptr(), v.data_ptr(),

@@ -48,7 +48,7 @@ import torch
 
 from ..ops.advection import weno5_upwind_faces_from_centers
 from ..ops.operators import dxc, dxf, dyc, dyf
-from . import call, check_operands, count, data_ptr, on_cuda
+from . import call, check_operands, count, data_ptr, on_cuda, output, placed
 
 __all__ = ["tracer_adv", "tracer_adv_plain", "launch_plan", "MODES", "STATIC_PLANES",
            "KAPPA_PLANES", "G_PLANES", "REACH"]
@@ -164,7 +164,7 @@ def _with_acc(tensors, acc):
     return tensors if acc is None else dict(tensors, acc=acc)
 
 
-def tracer_adv(c, u, v, static, g_pack=None, dz=None, acc=None):
+def tracer_adv(c, u, v, static, g_pack=None, dz=None, acc=None, out=None):
     """The tracer tendency of halo-filled fields, in column mode or, with ``g_pack``
     and ``dz``, in layered mode (module docstring), with κ_h when the pack carries
     its planes, plus ``acc`` (shaped like ``c``) when given; only cells at least
@@ -173,7 +173,8 @@ def tracer_adv(c, u, v, static, g_pack=None, dz=None, acc=None):
     as ``tracer_adv_planes`` for a column stack of P > 1 planes, else as
     ``tracer_adv_layered_members`` for B > 1 layered members, else as
     ``tracer_adv_kappa`` with κ_h, else as ``tracer_adv`` or ``tracer_adv_layered``.
-    One member (B = 1) is the launch of its planes over its (u, v) pair."""
+    One member (B = 1) is the launch of its planes over its (u, v) pair. ``out``,
+    shaped like ``c``, receives the tendency in place of a new tensor."""
     if (g_pack is None) != (dz is None):
         raise ValueError("tracer_adv: layered mode takes both g_pack and dz")
     Yb, Xb = c.shape[-2:]
@@ -183,7 +184,7 @@ def tracer_adv(c, u, v, static, g_pack=None, dz=None, acc=None):
             raise ValueError(f"tracer_adv: the column pack holds 5 planes, or 8 with "
                              f"κ_h, got shape {tuple(static.shape)}")
         if u.dim() == 3:
-            return _members(c, u, v, static, acc, n_st)
+            return _members(c, u, v, static, acc, n_st, out)
         if c.dim() not in (2, 3) or c.numel() == 0:
             raise ValueError(f"tracer_adv: column mode takes a (Yb, Xb) plane or a "
                              f"(P, Yb, Xb) stack of P >= 1, got {tuple(c.shape)}")
@@ -191,10 +192,11 @@ def tracer_adv(c, u, v, static, g_pack=None, dz=None, acc=None):
         check_operands("tracer_adv", tensors, c.dtype,
                        dict(u=(Yb, Xb), v=(Yb, Xb), static=(n_st, Yb, Xb), acc=c.shape))
         if not on_cuda(*tensors.values()):
-            return tracer_adv_plain(c, u, v, static, acc=acc)
+            return placed("tracer_adv", tracer_adv_plain(c, u, v, static, acc=acc),
+                          out)
         n_planes = c.shape[0] if c.dim() == 3 else 1
         plan = launch_plan(Yb, Xb, c.dtype)
-        G = torch.empty_like(c)
+        G = output("tracer_adv", c, out)
         call("osg_tracer_adv", c.dtype, c.device, c.data_ptr(), u.data_ptr(),
              v.data_ptr(), static.data_ptr(), data_ptr(acc), G.data_ptr(), n_planes,
              Yb, Xb, int(n_st == 8), *plan.tile)
@@ -202,7 +204,7 @@ def tracer_adv(c, u, v, static, g_pack=None, dz=None, acc=None):
               "tracer_adv_kappa" if n_st == 8 else "tracer_adv")
         return G
     if u.dim() == 4:
-        return _layered_members(c, u, v, static, g_pack, dz, acc)
+        return _layered_members(c, u, v, static, g_pack, dz, acc, out)
     if u.dim() != 3 or c.dim() != 3:
         raise ValueError("tracer_adv: layered mode takes (P, Yb, Xb) tracers over "
                          "(Nz, Yb, Xb) velocities")
@@ -215,10 +217,11 @@ def tracer_adv(c, u, v, static, g_pack=None, dz=None, acc=None):
                    dict(u=(nz, Yb, Xb), v=(nz, Yb, Xb), static=(n_st, Yb, Xb),
                         g_pack=(len(G_PLANES), Yb, Xb), dz=(nz,), acc=c.shape))
     if not on_cuda(*tensors.values()):
-        return tracer_adv_plain(c, u, v, static, g_pack, dz, acc)
+        return placed("tracer_adv", tracer_adv_plain(c, u, v, static, g_pack, dz, acc),
+                      out)
     has_diff = n_st == 4 * nz
     plan = launch_plan(Yb, Xb, c.dtype)
-    G = torch.empty_like(c)
+    G = output("tracer_adv", c, out)
     call("osg_tracer_adv_layered", c.dtype, c.device, c.data_ptr(), u.data_ptr(),
          v.data_ptr(), static.data_ptr(), g_pack.data_ptr(), dz.data_ptr(), data_ptr(acc),
          G.data_ptr(), c.shape[0], nz, Yb, Xb, int(has_diff), 1, 0, *plan.tile)
@@ -236,7 +239,7 @@ def _layered_pack(static, nz):
     return n_st
 
 
-def _layered_members(c, u, v, static, g_pack, dz, acc):
+def _layered_members(c, u, v, static, g_pack, dz, acc, out):
     """Layered mode over the (B, Nz, Yb, Xb) velocities of B members: ``c`` is (B,
     n_tr·Nz, Yb, Xb), each member's planes over its own u and v, and ``acc``, shaped
     like ``c``, may be a view with any member stride (one launch with the members as
@@ -257,13 +260,15 @@ def _layered_members(c, u, v, static, g_pack, dz, acc):
                              f"{tuple(acc.shape)} {acc.dtype} strides {acc.stride()}")
         tensors["acc"] = acc
     if not on_cuda(*tensors.values()):
-        return tracer_adv_plain(c, u, v, static, g_pack, dz, acc)
+        return placed("tracer_adv", tracer_adv_plain(c, u, v, static, g_pack, dz, acc),
+                      out)
     if B == 1:
         G = tracer_adv(c[0], u[0], v[0], static, g_pack, dz,
-                       acc=None if acc is None else acc[0])
-        return G[None]
+                       acc=None if acc is None else acc[0],
+                       out=None if out is None else output("tracer_adv", c, out)[0])
+        return G[None] if out is None else out
     plan = launch_plan(Yb, Xb, c.dtype)
-    G = torch.empty_like(c)
+    G = output("tracer_adv", c, out)
     call("osg_tracer_adv_layered", c.dtype, c.device, c.data_ptr(), u.data_ptr(),
          v.data_ptr(), static.data_ptr(), g_pack.data_ptr(), dz.data_ptr(), data_ptr(acc),
          G.data_ptr(), c.shape[1], nz, Yb, Xb, int(n_st == 4 * nz), B,
@@ -272,7 +277,7 @@ def _layered_members(c, u, v, static, g_pack, dz, acc):
     return G
 
 
-def _members(c, u, v, static, acc, n_st):
+def _members(c, u, v, static, acc, n_st, out):
     """Column mode over the (B, Yb, Xb) velocities of B members: ``c`` is (B, Yb, Xb)
     (one tracer) or (B, n, Yb, Xb), member-major, each member's planes over its own u
     and v (one launch of ``Mode::Members``; B = 1 is the column or P-plane launch)."""
@@ -284,13 +289,14 @@ def _members(c, u, v, static, acc, n_st):
     check_operands("tracer_adv", tensors, c.dtype,
                    dict(v=u.shape, static=(n_st, Yb, Xb), acc=c.shape))
     if not on_cuda(*tensors.values()):
-        return tracer_adv_plain(c, u, v, static, acc=acc)
+        return placed("tracer_adv", tracer_adv_plain(c, u, v, static, acc=acc), out)
     if B == 1:
-        G = tracer_adv(c[0], u[0], v[0], static, acc=None if acc is None else acc[0])
-        return G[None]
+        G = tracer_adv(c[0], u[0], v[0], static, acc=None if acc is None else acc[0],
+                       out=None if out is None else output("tracer_adv", c, out)[0])
+        return G[None] if out is None else out
     n_planes = c.numel() // (Yb * Xb)
     plan = launch_plan(Yb, Xb, c.dtype)
-    G = torch.empty_like(c)
+    G = output("tracer_adv", c, out)
     call("osg_tracer_adv_members", c.dtype, c.device, c.data_ptr(), u.data_ptr(),
          v.data_ptr(), static.data_ptr(), data_ptr(acc), G.data_ptr(), n_planes, B, Yb,
          Xb, int(n_st == 8), *plan.tile)

@@ -107,8 +107,10 @@ def ensemble_step(model, batch, dt):
 
 
 def ensemble_multi_step(model, batch, dt, n_steps: int):
-    """``n_steps`` time steps of every member at a fixed ``dt``."""
-    fn = _stepper(model, batch, dt)
-    for _ in range(n_steps):
-        batch = fn(model, batch, dt)
-    return batch
+    """``n_steps`` time steps of every member at a fixed ``dt``: the eager loop on the
+    CPU, replays of the model's captured CUDA graphs of the step on a card
+    (``utils/graph.py``; the member count is part of the graphs' layout), bitwise equal
+    to the loop."""
+    from ..utils import graph
+
+    return graph.run(_stepper(model, batch, dt), model, batch, dt, n_steps)

@@ -472,7 +472,7 @@ def centered_momentum(model: HydrostaticModel, u, v):
     return Gu, Gv
 
 
-def tendencies(model: HydrostaticModel, u, v, c, t=0.0):
+def tendencies(model: HydrostaticModel, u, v, c, t=0.0, out=None):
     """G_u, G_v (vector-invariant, no surface-pressure term) and G_c (flux form, one
     plane or the stack of ``c``) of halo-filled fields, with the closures, wind, drag
     and forcing in the order of the JAX package's kernel path
@@ -482,20 +482,23 @@ def tendencies(model: HydrostaticModel, u, v, c, t=0.0):
     other tracer schemes and the closures those kernels do not carry, wind, linear
     drag, the biharmonic terms and the forcing (a tracer's into its own plane) follow
     in torch. ``t`` is the model time handed to the forcing functions. u, v and c
-    may carry a leading member axis (an ensemble; then ``t`` is (B, 1, 1))."""
+    may carry a leading member axis (an ensemble; then ``t`` is (B, 1, 1)). ``out``
+    = (Gu, Gv, Gc) buffers receives the tendencies: the kernels write them there,
+    and a tendency that a torch term replaced is copied in."""
     g, ib = model.grid, model.ib
+    outs = (None,) * 3 if out is None else tuple(out)
     mom_kernel = model.momentum_advection == "weno_vector_invariant"
     adv_kernel = model.tracer_advection == "weno5"
     if mom_kernel:  # members are the kernel's layers, sharing one closure pack
         Gu, Gv = momentum.momentum(u, v, model.mom_pack, lay=model.mom_lay,
                                    has_lap=model.nu_h > 0.0,
                                    has_drag=model.drag_type == "quadratic",
-                                   period=1)
+                                   period=1, out=None if out is None else outs[:2])
     else:
         Gu, Gv = centered_momentum(model, u, v)
         Gu, Gv = Gu * ib.mask_u, Gv * ib.mask_v
     if adv_kernel:
-        Gc = tracer_adv.tracer_adv(c, u, v, model.adv_pack)
+        Gc = tracer_adv.tracer_adv(c, u, v, model.adv_pack, out=outs[2])
     else:
         # the velocities at the tracer planes: a member's planes over its own pair
         uc, vc = (a.reshape(a.shape[:-2] + (1,) * (c.dim() - a.dim()) + a.shape[-2:])
@@ -539,7 +542,40 @@ def tendencies(model: HydrostaticModel, u, v, c, t=0.0):
             else:  # Gc is a fresh tensor
                 Gc[..., model.tracer_names.index(name), :, :] += fn(
                     g.lam_cc, g.phi_cc, t, fields) * ib.mask_c
-    return Gu, Gv, Gc
+    return _place(outs, (Gu, Gv, Gc))
+
+
+def _place(outs, results):
+    """Each of ``results`` in its buffer of ``outs`` (a None buffer keeps the result
+    as it is): a result that lies there already is kept, another is copied in."""
+    return tuple(r if o is None or (o.data_ptr() == r.data_ptr() and o.shape == r.shape
+                                    and o.stride() == r.stride()) else o.copy_(r)
+                 for o, r in zip(outs, results))
+
+
+def _into(out, state):
+    """``state`` with every field in its buffer of the state ``out`` (``_place``), or
+    ``state`` itself when ``out`` is None: a step that writes into given buffers, as
+    ``utils/graph.py``'s blocks chain two of them, returns ``out``."""
+    if out is None:
+        return state
+    names = [f.name for f in dataclasses.fields(state)]
+    _place([getattr(out, n) for n in names], [getattr(state, n) for n in names])
+    return out
+
+
+def _averages(out):
+    """The (3,) + η.shape buffer whose consecutive views ``out``'s η, U and V are (the
+    barotropic averages' layout), or None."""
+    base = None if out is None else out.eta._base
+    if base is None or tuple(base.shape) != (3,) + tuple(out.eta.shape) or \
+            not base.is_contiguous():
+        return None
+    views = (out.eta, out.U, out.V)
+    if all(a._base is base and a.data_ptr() == base[i].data_ptr() and a.is_contiguous()
+           for i, a in enumerate(views)):
+        return base
+    return None
 
 
 # --------------------------------------------------------------------------------------
@@ -690,18 +726,20 @@ def _forcing_ext(grid_ext: TripolarGrid, GU, GV, spmd=None):
 
 
 def barotropic_substeps(model: HydrostaticModel, eta, U, V, GU, GV, dt,
-                        wrap_x_each_substep=True):
+                        wrap_x_each_substep=True, out=None):
     """SM05-averaged forward-backward substepping of (η, U, V) on the extended-halo
     grid, with no exchange inside the loop (validity shrinks one cell per substep
-    into the widened halo). ``dt`` is a 0-d tensor."""
+    into the widened halo). ``dt`` is a 0-d tensor; ``out`` a (3,) + η.shape buffer
+    for the averages, or None."""
     ge = model.grid_ext
     dtau = model.fractional_dt * dt
     return barotropic.barotropic_substeps(model.baro_pack, eta, U, V, GU, GV, dtau,
                                           model.weights, ge.Nx, ge.Hx,
-                                          wrap_x_each_substep)
+                                          wrap_x_each_substep, out=out)
 
 
-def step(model: HydrostaticModel, state: State, dt, spmd=None, overlap=None) -> State:
+def step(model: HydrostaticModel, state: State, dt, spmd=None, overlap=None,
+         out=None) -> State:
     """One time step (the reference call stack, SURVEY.md §3.4): halo fills, WENO
     tendencies, quasi-AB2 extrapolation, the exchange-free barotropic subcycle, the
     single-layer corrector (u = U/H) and the tracer update.
@@ -722,7 +760,13 @@ def step(model: HydrostaticModel, state: State, dt, spmd=None, overlap=None) -> 
     An ensemble's ``state`` (a leading member axis, ``models/ensemble.py``) steps
     every member at once, each with its own AB2 weights, at one ``dt``, serial or on
     a rank (``distribute``'s shards of a member batch); the forcing reads each
-    member's time as (B, 1, 1) on both routes of the tendencies."""
+    member's time as (B, 1, 1) on both routes of the tendencies.
+
+    ``out``, a state of buffers shaped like ``state`` (η, U and V the views of one
+    (3,) + η.shape buffer), receives the new state and is returned: the kernels and
+    the last torch operation of each field write it there, bitwise the state a step
+    without ``out`` returns, and a field that some option computes otherwise is
+    copied in (``_into``). It must share no storage with ``state``."""
     g, ge, ib = model.grid, model.grid_ext, model.ib
     t = state.t.reshape(-1, 1, 1) if state.t.dim() == 1 else state.t
     overlap = _resolve_overlap(model, g, spmd, overlap)
@@ -745,7 +789,8 @@ def step(model: HydrostaticModel, state: State, dt, spmd=None, overlap=None) -> 
             Gu, Gv, Gc = tendencies_overlapped(model, state, spmd, fill, t)
         else:
             fill.fill()
-            Gu, Gv, Gc = tendencies(model, state.u, state.v, state.c, t=t)
+            Gu, Gv, Gc = tendencies(model, state.u, state.v, state.c, t=t,
+                                    out=None if out is None else (out.Gu, out.Gv, out.Gc))
         Gu_s = _lead(w1, Gu) * Gu - _lead(w2, Gu) * state.Gu
         Gv_s = _lead(w1, Gv) * Gv - _lead(w2, Gv) * state.Gv
         Gc_s = _lead(w1, Gc) * Gc - _lead(w2, Gc) * state.Gc
@@ -757,16 +802,19 @@ def step(model: HydrostaticModel, state: State, dt, spmd=None, overlap=None) -> 
         # with the x-halo widened to >= n_sub + 1 the loop needs no per-substep x-wrap
         n_sub = model.weights.shape[0]
         eta_a, U_a, V_a = barotropic_substeps(model, state.eta, state.U, state.V, GU, GV,
-                                              dt, wrap_x_each_substep=ge.Hx < n_sub + 1)
+                                              dt, wrap_x_each_substep=ge.Hx < n_sub + 1,
+                                              out=_averages(out))
     finally:
         fill.restore()
-    c_new = (state.c + dt * Gc_s) * ib.mask_c
+    o = (None,) * 5 if out is None else (out.u, out.v, out.c, out.t, out.iteration)
+    c_new = torch.mul(state.c + dt * Gc_s, ib.mask_c, out=o[2])
 
     # single-layer corrector: the velocity is the barotropic velocity
-    u_new = crop_ext(g, ge, U_a) * model.inv_h_u * ib.mask_u
-    v_new = crop_ext(g, ge, V_a) * model.inv_h_v * ib.mask_v
-    return State(u=u_new, v=v_new, eta=eta_a, U=U_a, V=V_a, c=c_new, Gu=Gu, Gv=Gv,
-                 Gc=Gc, t=state.t + dt, iteration=state.iteration + 1)
+    u_new = torch.mul(crop_ext(g, ge, U_a) * model.inv_h_u, ib.mask_u, out=o[0])
+    v_new = torch.mul(crop_ext(g, ge, V_a) * model.inv_h_v, ib.mask_v, out=o[1])
+    return _into(out, State(u=u_new, v=v_new, eta=eta_a, U=U_a, V=V_a, c=c_new, Gu=Gu,
+                           Gv=Gv, Gc=Gc, t=torch.add(state.t, dt, out=o[3]),
+                           iteration=torch.add(state.iteration, 1, out=o[4])))
 
 
 def _lead(w, A):
@@ -785,7 +833,10 @@ def compute_cfl_dt(model: HydrostaticModel, state: State, cfl=0.3):
 
 
 def multi_step(model: HydrostaticModel, state: State, dt, n_steps: int) -> State:
-    """``n_steps`` time steps at a fixed ``dt``."""
-    for _ in range(n_steps):
-        state = step(model, state, dt)
-    return state
+    """``n_steps`` time steps at a fixed ``dt`` (a number or a 0-d tensor): the eager
+    loop of ``step`` on the CPU, replays of the model's captured CUDA graphs of the
+    step on a card (``utils/graph.py``, the counterpart of the JAX package's jitted
+    ``lax.scan``), bitwise equal to the loop."""
+    from ..utils import graph
+
+    return graph.run(step, model, state, dt, n_steps)

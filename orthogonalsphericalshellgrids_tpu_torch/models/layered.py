@@ -74,8 +74,9 @@ from ..ops.closures import (_ratio, biharmonic_c, biharmonic_u, biharmonic_v,
 from ..ops.location import CC, CF, FC
 from ..ops.operators import dxc, dyc, ixc, ixf, iyc, iyf
 from ..ops.spmd import GroupFill
-from .hydrostatic import (ForcingFields, HydrostaticModel, _forcing_ext, _inv, _lead,
-                          _resolve_overlap, barotropic_substeps, centered_momentum,
+from .hydrostatic import (ForcingFields, HydrostaticModel, _averages, _forcing_ext,
+                          _into, _inv, _lead, _place, _resolve_overlap,
+                          barotropic_substeps, centered_momentum,
                           crop_ext, embed_ext, from_jax_arrays, make_model,
                           split_tendencies)
 from .split_explicit import SplitExplicitFreeSurface
@@ -609,7 +610,7 @@ def _linear_eos_buoyancy(model: LayeredModel, c):
 # Dynamics
 # --------------------------------------------------------------------------------------
 
-def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
+def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0, out=None):
     """(Gu, Gv, Gc, Gb) of halo-filled stacks, in the kernel-path assembly of the
     JAX package (``layered.py:670-873`` with the ``acc`` fold on): the vertical
     kernel first, then momentum (advection, ν_h and quadratic drag) plus dGu in the
@@ -622,8 +623,11 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
     are plain PyTorch and dGc is added after them (``layered.py:801-840``). ``b`` is
     ignored (and Gb is zeros) without a prognostic buoyancy; ``t`` is the model time
     handed to the forcing functions. The stacks may carry a leading member axis (an
-    ensemble; then ``t`` is (B, 1, 1, 1))."""
+    ensemble; then ``t`` is (B, 1, 1, 1)). ``out`` = (Gu, Gv, Gc, Gb) buffers (any
+    None) receives the tendencies: the kernels write them there, and a tendency that
+    a torch term replaced is copied in."""
     g, m = model.grid, model.baro
+    outs = (None,) * 4 if out is None else tuple(out)
     names = model.tracer_names
     eos = model.buoyancy == "linear_eos"
     explicit = not model.vert_impl
@@ -641,7 +645,8 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
             *layers[:2], model.mom_static, has_mask=False, lay=model.mom_lay,
             has_lap=m.nu_h > 0.0, has_drag=m.drag_type == "quadratic", acc=layers[2:],
             mask_out=(model.mask_u3, model.mask_v3) if fold_mask else None,
-            period=model.nz)
+            period=model.nz, out=None if outs[0] is None or outs[1] is None else
+            (outs[0].flatten(0, -3), outs[1].flatten(0, -3)))
         Gu, Gv = Gu.reshape(u.shape), Gv.reshape(v.shape)
     else:  # the centered vorticity, then dGu
         Gu, Gv = centered_momentum(m, u, v)
@@ -674,10 +679,10 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
     if not model.adv_kernel:
         inv_vol = model.mask_c3 * _inv(g.az_cc * model.dz3)
 
-    def tracer_tendency(q, dg):
+    def tracer_tendency(q, dg, out):
         if fold_acc:  # WENO-5 without κ4_h: dGc rides in the kernel
             return tracer_adv.tracer_adv(q, u, v, model.adv_pack, g_pack, model.dz_t,
-                                         acc=dg)
+                                         acc=dg, out=out)
         q4 = q.reshape(q.shape[:-3] + (-1, model.nz) + q.shape[-2:])  # (..., n, Nz, Yb, Xb)
         if model.adv_kernel:
             G = tracer_adv.tracer_adv(q, u, v, model.adv_pack, g_pack,
@@ -698,8 +703,9 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
         return G.reshape(q.shape) + dg
 
     ncp = c.shape[-3]
-    Gc = tracer_tendency(c, dgc[..., :ncp, :, :])
-    Gb = tracer_tendency(b, dgc[..., ncp:, :, :]) if model.has_b else torch.zeros_like(b)
+    Gc = tracer_tendency(c, dgc[..., :ncp, :, :], outs[2])
+    Gb = (tracer_tendency(b, dgc[..., ncp:, :, :], outs[3]) if model.has_b else
+          torch.zeros_like(b))
 
     if model.forcing:  # pointwise per layer; Gc and Gb are fresh tensors
         fields = ForcingFields(u=u, v=v, c=c, b=b if model.has_b else None)
@@ -715,7 +721,7 @@ def layered_tendencies(model: LayeredModel, u, v, c, b, t=0.0):
                 k = names.index(name)
                 Gc[..., k * nz:(k + 1) * nz, :, :] += fn(g.lam_cc, g.phi_cc, z3, t,
                                                          fields) * model.mask_c3
-    return Gu, Gv, Gc, Gb
+    return _place(outs, (Gu, Gv, Gc, Gb))
 
 
 def layered_tendencies_overlapped(model: LayeredModel, state: LayeredState, spmd, fill,
@@ -736,7 +742,7 @@ def layered_tendencies_overlapped(model: LayeredModel, state: LayeredState, spmd
 
 
 def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None,
-                 overlap=None) -> LayeredState:
+                 overlap=None, out=None) -> LayeredState:
     """One layered time step: halo fills, tendencies, quasi-AB2, the barotropic
     subcycle driven by the thickness-weighted baroclinic forcing, then the AB2
     predictor, the split-explicit corrector and the tracer update: one corrector
@@ -755,7 +761,11 @@ def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None,
     An ensemble's ``state`` (a leading member axis, ``models/ensemble.py``) steps
     every member at once, each with its own AB2 weights, at one ``dt``, serial or on
     a rank (``distribute_layered``'s shards of a member batch); the forcing reads
-    each member's time as (B, 1, 1, 1) on both routes of the tendencies."""
+    each member's time as (B, 1, 1, 1) on both routes of the tendencies.
+
+    ``out`` receives the new state, as in ``models/hydrostatic.py:step``; without a
+    prognostic b the step hands ``state``'s b and Gb on, so ``out`` may hold those
+    same tensors."""
     g, ge, m = model.grid, model.grid_ext, model.baro
     t = state.t.reshape(-1, 1, 1, 1) if state.t.dim() == 1 else state.t
     overlap = _resolve_overlap(m, g, spmd, overlap)
@@ -770,8 +780,10 @@ def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None,
             Gu, Gv, Gc, Gb = layered_tendencies_overlapped(model, state, spmd, fill, t)
         else:
             fill.fill()
-            Gu, Gv, Gc, Gb = layered_tendencies(model, state.u, state.v, state.c,
-                                                state.b, t=t)
+            Gu, Gv, Gc, Gb = layered_tendencies(
+                model, state.u, state.v, state.c, state.b, t=t,
+                out=None if out is None else (out.Gu, out.Gv, out.Gc,
+                                              out.Gb if model.has_b else None))
 
         first = state.iteration == 0
         w1 = torch.where(first, m.ab2[0], m.ab2[2])
@@ -785,7 +797,8 @@ def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None,
                               embed_ext(g, ge, torch.sum(Gv_s * model.dzv, dim=-3)), spmd)
         n_sub = m.weights.shape[0]
         eta_a, U_a, V_a = barotropic_substeps(m, state.eta, state.U, state.V, GU, GV, dt,
-                                              wrap_x_each_substep=ge.Hx < n_sub + 1)
+                                              wrap_x_each_substep=ge.Hx < n_sub + 1,
+                                              out=_averages(out))
     finally:
         fill.restore()
 
@@ -797,14 +810,17 @@ def layered_step(model: LayeredModel, state: LayeredState, dt, spmd=None,
             state.u, Gu, state.Gu, state.v, Gv, state.Gv, state.c, Gc, state.Gc,
             model.dzu, model.dzv, model.mask_c3, model.inv_h_u, model.inv_h_v,
             crop_ext(g, ge, U_a), crop_ext(g, ge, V_a), w1, w2, dt,
-            b=(state.b, Gb, state.Gb) if model.has_b else None)
+            b=(state.b, Gb, state.Gb) if model.has_b else None,
+            out=None if out is None else (out.u, out.v, out.c,
+                                          out.b if model.has_b else None))
         if not model.has_b:
             b_new = state.b
 
-    return LayeredState(
+    return _into(out, LayeredState(
         u=u_new, v=v_new, eta=eta_a, U=U_a, V=V_a, c=c_new, b=b_new, Gu=Gu, Gv=Gv, Gc=Gc,
-        Gb=Gb if model.has_b else state.Gb, t=state.t + dt,
-        iteration=state.iteration + 1)
+        Gb=Gb if model.has_b else state.Gb,
+        t=torch.add(state.t, dt, out=None if out is None else out.t),
+        iteration=torch.add(state.iteration, 1, out=None if out is None else out.iteration)))
 
 
 def _state_fields(model: LayeredModel, state: LayeredState):
@@ -854,10 +870,12 @@ def _implicit_update(model: LayeredModel, state: LayeredState, Gu, Gv, Gc, Gb, U
 
 def layered_multi_step(model: LayeredModel, state: LayeredState, dt,
                        n_steps: int) -> LayeredState:
-    """``n_steps`` layered steps at a fixed ``dt``."""
-    for _ in range(n_steps):
-        state = layered_step(model, state, dt)
-    return state
+    """``n_steps`` layered steps at a fixed ``dt`` (a number or a 0-d tensor): the
+    eager loop of ``layered_step`` on the CPU, replays of the model's captured CUDA
+    graphs of the step on a card (``utils/graph.py``), bitwise equal to the loop."""
+    from ..utils import graph
+
+    return graph.run(layered_step, model, state, dt, n_steps)
 
 
 def layered_cfl_dt(model: LayeredModel, state: LayeredState, cfl=0.3):

@@ -393,6 +393,8 @@ def spawn(n, fn, backend="gloo", init_file=None, args=(), timeout=600.0):
                 errors.append(f"rank {rank}:\n{err}")
     finally:
         for p in procs:
+            if p.pid is None:  # not started: a start before it raised
+                continue
             if errors and p.is_alive():
                 p.kill()
             p.join(timeout=60)

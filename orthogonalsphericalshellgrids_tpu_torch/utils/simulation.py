@@ -8,10 +8,20 @@ semantics.
 
 The loop keeps the iteration and the model time as host counters: ``sim.iteration``
 and ``sim.time`` never read the state, so the step chain stays queued on the card
-between callbacks. Δt reaches ``step`` as one device scalar, rebuilt only when
-``sim.dt`` changes (a fill launch, never a copy from the host). The card is waited
-for only where a callback fires and reads a value (the wizard's CFL, the NaN check,
-the progress line, an output's host copy, a checkpoint) and once when the run ends.
+between callbacks. Its blocks and its single steps (``steps_per_block = 1``, and the
+last step that does not overshoot ``stop_time``) are the blocks of ``multi_step`` /
+``layered_multi_step`` (``utils/graph.run``): on a card each replays the model's
+captured CUDA graphs of its step, as the JAX ``Simulation`` calls
+``jax.jit(multi_step)`` and ``jax.jit(step)``; on the CPU each is the eager loop. On a
+card the loop keeps its state in the graphs' own buffers from one block to the next,
+so a step copies no state; reading ``sim.state`` (a callback does) clones it out
+first, so what a callback holds or changes is a state of its own, and the next block
+starts from it. Δt reaches the blocks as one device scalar, rebuilt only when
+``sim.dt`` changes (a fill launch, never a copy from the host), which the graph copies
+into its static Δt on the card. The card is waited for only where a callback fires
+and reads a value (the wizard's CFL, the NaN check, the progress line, an output's
+host copy, a checkpoint), at the model's first block (its capture), and once when the
+run ends.
 """
 
 from __future__ import annotations
@@ -26,12 +36,18 @@ from typing import Any, Callable
 
 import torch
 
-from ..models.hydrostatic import compute_cfl_dt, multi_step, step
-from ..models.layered import LayeredModel, layered_cfl_dt, layered_multi_step, layered_step
+from ..models.hydrostatic import compute_cfl_dt, step
+from ..models.layered import LayeredModel, layered_cfl_dt, layered_step
+from . import graph
 from .profiling import device_sync
 
 __all__ = ["IterationInterval", "TimeInterval", "TimeStepWizard", "Simulation",
            "progress_callback", "NaNChecker", "Checkpointer"]
+
+
+def _versions(state):
+    """The version counters of ``state``'s tensors (an in-place change moves one)."""
+    return tuple(getattr(state, f.name)._version for f in dataclasses.fields(state))
 
 
 class IterationInterval:
@@ -162,7 +178,8 @@ class Checkpointer:
 
 
 class Simulation:
-    """The Python loop around ``step`` (``layered_step`` for a ``LayeredModel``).
+    """The Python loop around the blocks of ``step`` (``layered_step`` for a
+    ``LayeredModel``): ``steps_per_block`` steps a block, or one step.
 
     Callbacks are (schedule, fn) pairs: ``fn(sim)`` runs on the host after a step
     whose (iteration, time) the schedule accepts, and may read the state or set
@@ -176,20 +193,46 @@ class Simulation:
                  nan_checker: bool = True):
         self.model = model
         self.state = state
+        self._step = layered_step if isinstance(model, LayeredModel) else step
         self.dt = float(dt)
         self.stop_time = float(stop_time)
         self.stop_iteration = int(stop_iteration)
         self.callbacks: list[tuple[Any, Callable]] = []
         if nan_checker:
             self.add_callback(NaNChecker(), IterationInterval(100))
-        is_layered = isinstance(model, LayeredModel)
-        self._step = layered_step if is_layered else step
-        self._multi = layered_multi_step if is_layered else multi_step
         self.steps_per_block = int(steps_per_block)
         self._read_clock()
         self._dt_value = None
         self._dt_tensor = None
         self.wall_start = None
+
+    @property
+    def state(self):
+        """The model state after the last step, a state of its own (cloned out of the
+        graphs' buffers where the loop keeps it)."""
+        if self._kept:
+            kept, self._state, self._kept = self._state, graph._clone(self._state), False
+            # the loop goes on from the buffer if the clone is left as it is
+            self._origin = (kept, self._state, _versions(self._state))
+        return self._state
+
+    @state.setter
+    def state(self, state):
+        self._state, self._kept, self._origin = state, False, None
+
+    def _release(self):
+        """``utils/graph.run``'s keeper: the graphs' buffers are about to be
+        overwritten by another call, so the state leaves them."""
+        self.state = self.state
+
+    def _advance(self, n, dt):
+        """``n`` steps at ``dt``; on a card the state stays in the graphs' buffers."""
+        state, origin = self._state, self._origin
+        if origin is not None and origin[1] is state and _versions(state) == origin[2]:
+            state = origin[0]
+        self._state = graph.run(self._step, self.model, state, self._device_dt(dt), n,
+                                keeper=self._release)
+        self._kept, self._origin = self._state.u.is_cuda, None
 
     def _read_clock(self):
         """Host counters from the state (waits for the card once)."""
@@ -251,15 +294,14 @@ class Simulation:
                 nb = self.steps_per_block
                 remaining = self.stop_time - t
                 if nb > 1 and remaining >= nb * self.dt and it + nb <= self.stop_iteration:
-                    self.state = self._multi(self.model, self.state,
-                                             self._device_dt(self.dt), nb)
+                    self._advance(nb, self.dt)
                     it += nb
                     t += nb * self.dt
                 else:
                     # the last step does not overshoot stop_time
                     dt = (min(self.dt, max(remaining, 1e-12))
                           if self.stop_time < math.inf else self.dt)
-                    self.state = self._step(self.model, self.state, self._device_dt(dt))
+                    self._advance(1, dt)
                     it += 1
                     t += dt
                 self._iteration, self._time = it, t

@@ -320,6 +320,7 @@ def test_cuda_steps_match_cpu_float64():
 
     cpu_m, cpu_s = build(48, 40, dtype=torch.float64, substeps=30, device="cpu")
     gpu_m, gpu_s = build(48, 40, dtype=torch.float64, substeps=30, device="cuda")
+    TH.multi_step(gpu_m, gpu_s, 120.0, 5)  # captures the block after one eager step
     kernels.reset_launch_counts()
     gpu_out = TH.multi_step(gpu_m, gpu_s, 120.0, 5)
     want = {k: 0 for k in kernels.LAUNCHES}
@@ -438,6 +439,7 @@ def test_cuda_layered_steps_match_cpu_float64():
 
     cpu_m, cpu_s = build(48, 32, 3, dtype=torch.float64, substeps=12, device="cpu")
     gpu_m, gpu_s = build(48, 32, 3, dtype=torch.float64, substeps=12, device="cuda")
+    TL.layered_multi_step(gpu_m, gpu_s, 120.0, 3)  # captures the block
     kernels.reset_launch_counts()
     gpu_out = TL.layered_multi_step(gpu_m, gpu_s, 120.0, 3)
     want = {k: 0 for k in kernels.LAUNCHES}
@@ -697,6 +699,7 @@ def test_cuda_gyre_steps_match_cpu_float64():
 
     cpu_m, cpu_s = build_check(device="cpu")
     gpu_m, gpu_s = build_check(device="cuda")
+    TL.layered_multi_step(gpu_m, gpu_s, 60.0, 3)  # captures the block
     kernels.reset_launch_counts()
     gpu_out = TL.layered_multi_step(gpu_m, gpu_s, 60.0, 3)
     want = {k: 0 for k in kernels.LAUNCHES}
@@ -777,13 +780,16 @@ def test_cuda_stream_and_fma_ceilings(dtype):
 def test_cuda_simulation_through_the_kernels():
     """Ten iterations of the 48 x 32 x 3 check gyre through ``Simulation`` (the
     wizard every 5, the NaN checker every iteration) launch the gyre's kernels on
-    every step and agree with the same run on the CPU."""
+    every step and agree with the same run on the CPU. The first run on the card
+    captures the one-step block (after one eager step); the second is counted."""
     from examples.wind_driven_ts_gyre_torch import build_check
     from orthogonalsphericalshellgrids_tpu_torch.utils import (
         IterationInterval, NaNChecker, Simulation, TimeStepWizard)
 
+    built = {"cuda": build_check(device="cuda"), "cpu": build_check(device="cpu")}
+
     def run(device):
-        model, state = build_check(device=device)
+        model, state = built[device]
         sim = Simulation(model, state, dt=60.0, stop_iteration=10)
         wizard = TimeStepWizard(cfl=0.25, max_change=1.1, max_dt=600.0)
         sim.add_callback(lambda s: setattr(s, "dt", wizard.update(s.model, s.state, s.dt)),
@@ -791,6 +797,7 @@ def test_cuda_simulation_through_the_kernels():
         sim.add_callback(NaNChecker(("u", "v", "c")), IterationInterval(1))
         return sim.run(), sim
 
+    run("cuda")
     kernels.reset_launch_counts()
     gpu_out, gpu_sim = run("cuda")
     want = {k: 0 for k in kernels.LAUNCHES}
@@ -1939,3 +1946,152 @@ def test_cuda_blob_crosses_fold():
     from test_torch_behaviour import blob_crosses_fold
 
     blob_crosses_fold("cuda")
+
+
+# ------------------------------------------------------------------------------------
+# the compiled blocks (utils/graph.py): the captured CUDA graphs of a step against the
+# eager loop of the step
+# ------------------------------------------------------------------------------------
+
+def _graph_case(path, dtype):
+    """(block function, step function, model, state) of a small path on the card: the
+    48 x 40 jet (substeps 12), the 48 x 32 x 3 check gyre, or the jet as 4 members
+    (the state times 0.5, 0.75, 1.0 and 1.25)."""
+    from orthogonalsphericalshellgrids_tpu_torch.models import ensemble
+
+    if path == "gyre":
+        from examples.wind_driven_ts_gyre_torch import build_check
+
+        model, state = build_check(dtype=dtype, device="cuda")
+        return TL.layered_multi_step, TL.layered_step, model, state
+    from examples.bickley_jet_torch import build
+
+    model, state = build(48, 40, dtype=dtype, substeps=12, device="cuda")
+    if path == "bickley":
+        return TH.multi_step, TH.step, model, state
+    names = [f.name for f in dataclasses.fields(state)]
+    members = [TH.State(**{n: getattr(state, n) * s if n not in ("t", "iteration")
+                           else getattr(state, n) for n in names})
+               for s in (0.5, 0.75, 1.0, 1.25)]
+    return ensemble.ensemble_multi_step, TH.step, model, ensemble.stack_members(members)
+
+
+def _eager(step, model, state, dt, n):
+    for _ in range(n):
+        state = step(model, state, dt)
+    return state
+
+
+def _states_equal(a, b):
+    return all(torch.equal(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(a))
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("path", ["bickley", "gyre", "bickley_ensemble"])
+def test_cuda_graph_block_is_the_eager_loop(path, dtype):
+    """Blocks of 1, 2, 3 and 7 steps replayed from their captured graphs are bitwise
+    the eager loop of the step from the same state; the input is left as it was, and
+    the result shares no storage with the input or with the graphs' buffers."""
+    from orthogonalsphericalshellgrids_tpu_torch.utils import graph
+
+    block, step, model, state = _graph_case(path, dtype)
+    before = {f.name: getattr(state, f.name).clone() for f in dataclasses.fields(state)}
+    for n in (1, 2, 3, 7, 3):
+        got = block(model, state, 60.0, n)
+        want = _eager(step, model, state, 60.0, n)
+        torch.cuda.synchronize()
+        assert _states_equal(got, want), n
+        assert all(torch.equal(getattr(state, k), v) for k, v in before.items())
+        buffers = graph.blocks(model)[graph.layout(step, state)].buffers
+        for f in dataclasses.fields(got):
+            ptr = getattr(got, f.name).untyped_storage().data_ptr()
+            assert ptr != getattr(state, f.name).untyped_storage().data_ptr()
+            assert all(ptr != getattr(b, f.name).untyped_storage().data_ptr()
+                       for b in buffers)
+
+
+@needs_cuda
+@pytest.mark.parametrize("path", ["bickley", "gyre", "bickley_ensemble"])
+def test_cuda_graph_replay_counts_launches_and_never_waits(path):
+    """After the capture, a replayed block of 3 steps (and of 5: odd n) counts the
+    launches of 3 (5) eager steps, n times the captured step's record, and makes no
+    host synchronization; a dt changed between replays (a number, then a 0-d tensor on the
+    card) reaches the graph, each block bitwise the eager loop at that dt."""
+    from orthogonalsphericalshellgrids_tpu_torch.utils import graph
+    from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import host_syncs
+
+    block, step, model, state = _graph_case(path, torch.float32)
+    for n in (3, 5):
+        block(model, state, 60.0, n)  # captures the block
+        kernels.reset_launch_counts()
+        want = _eager(step, model, state, 60.0, n)
+        eager_counts = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        with host_syncs() as n_syncs:
+            got = block(model, state, 60.0, n)
+            waits = n_syncs()
+        assert waits == 0
+        assert kernels.launch_counts() == eager_counts
+        recorded = graph.blocks(model)[graph.layout(step, state)].launches
+        assert {k: n * v for k, v in recorded.items()} == eager_counts
+        assert _states_equal(got, want)
+    for dt in (45.0, torch.tensor(30.0, device="cuda"), 60.0):
+        with host_syncs() as n_syncs:
+            got = block(model, state, dt, 3)
+            waits = n_syncs()
+        assert waits == 0
+        assert _states_equal(got, _eager(step, model, state, dt, 3)), dt
+
+
+@needs_cuda
+def test_cuda_simulation_keeps_its_state_in_the_graphs():
+    """Through ``Simulation`` the state stays in the graphs' buffers between steps.
+    Eight steps with a callback that reads the state (iteration 2), one that halves c
+    in place (iteration 4) and one that runs a block of the same model from another
+    state (iteration 6) are bitwise the eager loop with c halved after step 4."""
+    from examples.bickley_jet_torch import build
+    from orthogonalsphericalshellgrids_tpu_torch.utils import IterationInterval, Simulation
+
+    model, state = build(48, 40, dtype=torch.float64, substeps=12, device="cuda")
+
+    def callback(sim):
+        if sim.iteration == 2:
+            float(sim.state.u.sum())
+        if sim.iteration == 4:
+            sim.state.c.mul_(0.5)
+        if sim.iteration == 6:
+            TH.multi_step(model, state, 30.0, 2)
+
+    sim = Simulation(model, state, dt=60.0, stop_iteration=8, nan_checker=False)
+    sim.add_callback(callback, IterationInterval(1))
+    got = sim.run()
+    want = state
+    for it in range(1, 9):
+        want = TH.step(model, want, 60.0)
+        if it == 4:
+            want = dataclasses.replace(want, c=want.c * 0.5)
+    torch.cuda.synchronize()
+    assert _states_equal(got, want)
+
+
+@needs_cuda
+def test_cuda_graph_capture_failure_raises():
+    """A step that waits for the card (a forcing that reads the time on the host) runs
+    eagerly but cannot be captured: the block raises and keeps no graph, and nothing
+    falls back to the eager loop."""
+    from orthogonalsphericalshellgrids_tpu_torch.utils import graph
+
+    block, step, model, state = _graph_case("bickley", torch.float64)
+
+    def reads_t(lam, phi, t, fields):
+        return 0.0 * fields.u + 0.0 * float(t)
+
+    model.forcing = (("u", reads_t),)
+    _eager(step, model, state, 60.0, 2)
+    with pytest.raises(RuntimeError):
+        block(model, state, 60.0, 2)
+    torch.cuda.synchronize()
+    assert graph.blocks(model)[graph.layout(step, state)].graphs is None
