@@ -15,7 +15,10 @@ formats, so that either package reads the other's output:
 Every output is copied to the host on the simulation thread before ``__call__``
 returns (``tensor.detach().cpu()``, a fresh copy also for CPU tensors): a later step
 may write into the same storage, and only host copies reach the writer thread. That
-copy is the one place a writer waits for the card. With ``with_halos=False`` a field
+copy is the one place a writer waits for the card (counted as ``wait.output.copy``
+under a profiler; ``OutputWriter`` records its copies and its writes as the spans
+``osg.output.copy`` and ``osg.output.write``, ``utils/profiling.py``). With
+``with_halos=False`` a field
 whose last two dims are the base or the widened grid's halo-inclusive shape is cropped
 to its interior; a leading layer dim is kept.
 """
@@ -30,6 +33,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from .profiling import count, span
 
 __all__ = ["OutputWriter", "NetCDFWriter", "ShardedOutputWriter", "FieldTimeSeries",
            "read_netcdf_series", "rank_filename"]
@@ -48,6 +53,7 @@ def rank_filename(filename: str, k: int) -> str:
 def _host(x) -> np.ndarray:
     """A host copy of ``x`` (tensor or array) that no later step can change."""
     if torch.is_tensor(x):
+        count("wait.output.copy")
         t = x.detach()
         return t.cpu().numpy() if t.is_cuda else t.numpy().copy()
     return np.array(x)
@@ -105,8 +111,9 @@ class OutputWriter:
             threading.Thread(target=self._drain, daemon=True).start()
 
     def __call__(self, sim) -> None:
-        arrs = {name: _crop(sim, _host(fn(sim)), self.with_halos)
-                for name, fn in self.outputs.items()}
+        with span("osg.output.copy", self._count):
+            arrs = {name: _crop(sim, _host(fn(sim)), self.with_halos)
+                    for name, fn in self.outputs.items()}
         self._raise_pending()
         job = (self._count, float(sim.time), arrs)
         self._count += 1
@@ -117,7 +124,8 @@ class OutputWriter:
 
     def _write(self, job) -> None:
         k, t, arrs = job
-        _append_snapshot(self.filename, k, t, arrs, self._compression)
+        with span("osg.output.write", k):
+            _append_snapshot(self.filename, k, t, arrs, self._compression)
 
     def _drain(self) -> None:
         while True:

@@ -1,7 +1,33 @@
 """Profiling and timing: a ``torch.profiler`` trace, CUDA-event step timing, the
 timer and the card line that every measurement script uses (``time_ms``,
-``smi_line``; ``cpu_line`` for a measurement on the host), and the card's measured
-ceilings (HBM stream rate, FMA rate).
+``smi_line``; ``cpu_line`` for a measurement on the host), the card's measured
+ceilings (HBM stream rate, FMA rate), and the program's own spans and counters.
+
+**Spans and counters** (``span``, ``count``; read with ``spans``, ``counters``;
+cleared by ``reset_spans``) record only while a ``torch.profiler`` runs
+(``trace`` or any other): with none running, a span is one flag test and a shared
+null context, and a count one flag test. A span is also a host range of the profiler
+(an operator's, as ``aten::`` operators have), so its name shows in the profiler's
+trace, on the thread that started the profiler, beside the kernels it launched and
+the idle gaps it leaves the card. The spans of the simulation loop and its writer:
+
+- ``osg.sim.wizard``: ``TimeStepWizard.update`` (the CFL reduction and its read);
+- ``osg.sim.progress``: ``progress_callback``'s line; ``osg.sim.nan_check``:
+  ``NaNChecker``;
+- ``osg.sim.clone``: ``Simulation.state`` cloning the state out of the graphs'
+  buffers when a callback first reads it after a block;
+- ``osg.output.copy``: ``OutputWriter``'s output functions, host copies and crops;
+- ``osg.output.write``: its zip append (deflate and disk), on the writer thread with
+  ``async_write=True``.
+
+Each carries a key: the ``Simulation`` iteration for a callback's span, the snapshot's
+number for the writer's (``update`` is handed no simulation, so the wizard's span has
+none). The counters ``wait.<site>`` count the places where the loop reads a value
+from the card and so waits for it: ``wait.sim.wizard`` (the CFL),
+``wait.sim.progress`` and ``wait.sim.nan_check`` (one host copy each),
+``wait.output.copy`` (one a field), ``wait.sim.read_clock`` (the state's iteration
+and time, two) and ``wait.sim.end`` (the run's final synchronization). On the CPU
+the same sites count, though nothing waits there.
 
 Counterpart: ``orthogonalsphericalshellgrids_tpu/utils/profiling.py`` (``trace``,
 ``device_sync``, ``time_steps``, ``stream_probe_gbps``) plus ``fma_ceiling`` of
@@ -22,15 +48,19 @@ import dataclasses
 import os
 import platform
 import subprocess
+import threading
 import time
 import warnings
+from typing import Any, NamedTuple
 
 import torch
+from torch.autograd import profiler as _torch_profiler
 
 from ..kernels import probes
 
 __all__ = ["trace", "device_sync", "time_steps", "stream_probe_gbps", "fma_ceiling",
-           "time_ms", "smi_line", "cpu_line", "host_syncs"]
+           "time_ms", "smi_line", "cpu_line", "host_syncs", "span", "count", "spans",
+           "counters", "reset_spans", "Span"]
 
 
 @contextlib.contextmanager
@@ -48,6 +78,91 @@ def trace(logdir: str = "osg_trace"):
             yield prof
     finally:
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+class Span(NamedTuple):
+    """One recorded span: its times in nanoseconds of ``time.time_ns`` (the clock of
+    the profiler's events), the index in ``spans()`` of the span that encloses it on
+    its thread (None at the top), its key and its thread's ident. ``end_ns`` is None
+    while it is open."""
+
+    name: str
+    start_ns: int
+    end_ns: int | None
+    parent: int | None
+    key: Any
+    thread: int
+
+
+_LOCK = threading.Lock()
+_SPANS: list[list] = []  # [name, start_ns, end_ns, parent, key, thread] each
+_COUNTS: dict[str, int] = {}
+_OPEN = threading.local()  # .stack: the indices of the thread's open spans
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "key", "entry", "range")
+
+    def __init__(self, name, key):
+        self.name, self.key = name, key
+
+    def __enter__(self):
+        stack = getattr(_OPEN, "stack", None)
+        if stack is None:
+            stack = _OPEN.stack = []
+        start = time.time_ns()  # before the range opens, so that the span holds it
+        # an operator's range, not record_function's user annotation: the profiler
+        # draws a user annotation again on the card's timeline, over the kernels
+        # launched inside it, where it reads as device work
+        self.range = torch._C._profiler._RecordFunctionFast(self.name)
+        self.range.__enter__()
+        self.entry = [self.name, start, None, stack[-1] if stack else None, self.key,
+                      threading.get_ident()]
+        with _LOCK:
+            stack.append(len(_SPANS))
+            _SPANS.append(self.entry)
+        return self
+
+    def __exit__(self, *exc):
+        self.range.__exit__(*exc)
+        self.entry[2] = time.time_ns()
+        _OPEN.stack.pop()
+        return False
+
+
+# ``span`` and ``count`` test torch's own flag, which a running profiler sets for the
+# whole process (a writer thread sees it too)
+def span(name: str, key=None):
+    """A context manager that records the block as the span ``name`` (with ``key``)
+    while a profiler runs, and does nothing otherwise."""
+    return _Span(name, key) if _torch_profiler._is_profiler_enabled else _OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler runs."""
+    if _torch_profiler._is_profiler_enabled:
+        with _LOCK:
+            _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def spans() -> list[Span]:
+    """The spans recorded since the last ``reset_spans``, in the order they opened."""
+    with _LOCK:
+        return [Span(*s) for s in _SPANS]
+
+
+def counters() -> dict[str, int]:
+    """The counters recorded since the last ``reset_spans``."""
+    with _LOCK:
+        return dict(_COUNTS)
+
+
+def reset_spans() -> None:
+    """Forget the recorded spans and counters (call it with no span open)."""
+    with _LOCK:
+        _SPANS.clear()
+        _COUNTS.clear()
 
 
 @contextlib.contextmanager

@@ -21,7 +21,8 @@ starts from it. Δt reaches the blocks as one device scalar, rebuilt only when
 into its static Δt on the card. The card is waited for only where a callback fires
 and reads a value (the wizard's CFL, the NaN check, the progress line, an output's
 host copy, a checkpoint), at the model's first block (its capture), and once when the
-run ends.
+run ends. Under a profiler the loop records its spans and counts those waits by site
+(``utils/profiling.py``: ``osg.sim.*`` spans, ``wait.sim.*`` counters).
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ import torch
 from ..models.hydrostatic import compute_cfl_dt, step
 from ..models.layered import LayeredModel, layered_cfl_dt, layered_step
 from . import graph
-from .profiling import device_sync
+from .profiling import count, device_sync, span
 
 __all__ = ["IterationInterval", "TimeInterval", "TimeStepWizard", "Simulation",
            "progress_callback", "NaNChecker", "Checkpointer"]
@@ -94,7 +95,9 @@ class TimeStepWizard:
 
     def update(self, model, state, old_dt: float) -> float:
         cfl_fn = layered_cfl_dt if isinstance(model, LayeredModel) else compute_cfl_dt
-        cfl_dt = float(cfl_fn(model, state, cfl=self.cfl))
+        with span("osg.sim.wizard"):
+            count("wait.sim.wizard")
+            cfl_dt = float(cfl_fn(model, state, cfl=self.cfl))
         new_dt = min(self.max_change * old_dt, cfl_dt)
         new_dt = max(new_dt, self.min_change * old_dt)
         return min(new_dt, self.max_dt)
@@ -105,13 +108,15 @@ def progress_callback(log=print):
     (examples/bickley_jet.jl:84-87)."""
 
     def cb(sim: "Simulation"):
-        s = sim.state
-        # max |u| in one reduction (the inf-norm), both in one copy to the host: the
-        # card idles while the host launches these, so they are few
-        umax, vmax = torch.stack([torch.linalg.vector_norm(s.u, math.inf),
-                                  torch.linalg.vector_norm(s.v, math.inf)]).tolist()
-        log(f"iter {sim.iteration:6d}  t={sim.time / 86400.0:9.3f} d  "
-            f"dt={sim.dt:8.1f} s  velocity: {umax:.2e} {vmax:.2e}")
+        with span("osg.sim.progress", sim.iteration):
+            s = sim.state
+            # max |u| in one reduction (the inf-norm), both in one copy to the host: the
+            # card idles while the host launches these, so they are few
+            count("wait.sim.progress")
+            umax, vmax = torch.stack([torch.linalg.vector_norm(s.u, math.inf),
+                                      torch.linalg.vector_norm(s.v, math.inf)]).tolist()
+            log(f"iter {sim.iteration:6d}  t={sim.time / 86400.0:9.3f} d  "
+                f"dt={sim.dt:8.1f} s  velocity: {umax:.2e} {vmax:.2e}")
 
     return cb
 
@@ -125,11 +130,14 @@ class NaNChecker:
         self.fields = tuple(fields)
 
     def __call__(self, sim: "Simulation"):
-        # the inf-norm (max |x|) is NaN or inf exactly when a value is, so one
-        # reduction a field decides; every verdict in one copy to the host
-        norms = torch.stack([torch.linalg.vector_norm(getattr(sim.state, name), math.inf)
-                             for name in self.fields])
-        finite = torch.isfinite(norms).tolist()
+        with span("osg.sim.nan_check", sim.iteration):
+            # the inf-norm (max |x|) is NaN or inf exactly when a value is, so one
+            # reduction a field decides; every verdict in one copy to the host
+            norms = torch.stack([torch.linalg.vector_norm(getattr(sim.state, name),
+                                                          math.inf)
+                                 for name in self.fields])
+            count("wait.sim.nan_check")
+            finite = torch.isfinite(norms).tolist()
         for name, ok in zip(self.fields, finite):
             if not ok:
                 raise RuntimeError(
@@ -211,7 +219,9 @@ class Simulation:
         """The model state after the last step, a state of its own (cloned out of the
         graphs' buffers where the loop keeps it)."""
         if self._kept:
-            kept, self._state, self._kept = self._state, graph._clone(self._state), False
+            with span("osg.sim.clone", self._iteration):
+                kept, self._state = self._state, graph._clone(self._state)
+            self._kept = False
             # the loop goes on from the buffer if the clone is left as it is
             self._origin = (kept, self._state, _versions(self._state))
         return self._state
@@ -236,6 +246,7 @@ class Simulation:
 
     def _read_clock(self):
         """Host counters from the state (waits for the card once)."""
+        count("wait.sim.read_clock", 2)
         self._iteration = int(self.state.iteration)
         self._time = float(self.state.t)
 
@@ -308,7 +319,9 @@ class Simulation:
                 for schedule, fn in self.callbacks:
                     if schedule(it, t):
                         fn(self)
-            device_sync(self.state)
+            state = self.state
+            count("wait.sim.end")
+            device_sync(state)
         finally:
             # drain async output writers even on an exception or KeyboardInterrupt,
             # so that queued snapshots reach disk

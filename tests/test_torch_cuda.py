@@ -860,6 +860,51 @@ def test_cuda_simulation_waits_only_where_a_callback_fires(which):
 
 
 @needs_cuda
+def test_cuda_simulation_counts_every_wait_where_it_happens(tmp_path):
+    """Under a profiler, over 200 iterations of a ``Simulation`` on the graphs (the
+    progress line and the wizard every 10, the NaN check every 100, u, v, c and ζ
+    written every 50), the program's ``wait.*`` counters sum to what torch's sync
+    debug mode counts, plus the run's final ``torch.cuda.synchronize``, which that
+    mode does not report: every wait is counted where it happens. The state is cloned
+    out of the graphs' buffers once a cycle of 10, inside the callback that reads it
+    first."""
+    from examples.bickley_jet_torch import build
+    from orthogonalsphericalshellgrids_tpu_torch.models.diagnostics import vertical_vorticity
+    from orthogonalsphericalshellgrids_tpu_torch.utils import (
+        IterationInterval, OutputWriter, Simulation, TimeStepWizard, profiling,
+        progress_callback)
+    from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import host_syncs
+
+    model, state = build(48, 32, dtype=torch.float32, substeps=10, device="cuda")
+    sim = Simulation(model, state, dt=60.0, stop_iteration=20)
+    wizard = TimeStepWizard(cfl=0.3, max_change=1.1, max_dt=60.0)
+    sim.add_callback(progress_callback(lambda line: None), IterationInterval(10))
+    sim.add_callback(lambda s: setattr(s, "dt", wizard.update(s.model, s.state, s.dt)),
+                     IterationInterval(10))
+    sim.add_callback(OutputWriter(str(tmp_path / "out.npz"), {
+        "u": lambda s: s.state.u, "v": lambda s: s.state.v, "c": lambda s: s.state.c,
+        "zeta": lambda s: vertical_vorticity(s.model, s.state)}), IterationInterval(50))
+    sim.run()  # the capture, the kernels and every callback once
+    sim.stop_iteration = 220
+    profiling.reset_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        with host_syncs() as n_syncs:
+            sim.run()
+            syncs = n_syncs()
+    counts, spans = profiling.counters(), profiling.spans()
+    assert counts == {"wait.sim.progress": 20, "wait.sim.wizard": 20,
+                      "wait.sim.nan_check": 2, "wait.output.copy": 16, "wait.sim.end": 1}
+    assert sum(counts.values()) == syncs + 1
+    clones = [s for s in spans if s.name == "osg.sim.clone"]
+    assert [s.key for s in clones] == list(range(30, 221, 10))
+    for s in clones:
+        assert spans[s.parent].name == ("osg.sim.nan_check" if s.key % 100 == 0
+                                        else "osg.sim.progress"), s
+        assert spans[s.parent].key == s.key
+
+
+@needs_cuda
 @pytest.mark.parametrize("bad", [float("nan"), float("inf"), -float("inf")])
 def test_cuda_nan_checker_and_progress(bad):
     """On the card the NaN checker sees a NaN or an infinity in a tracer stack, and
