@@ -5,8 +5,9 @@ Counterpart: ``orthogonalsphericalshellgrids_tpu/utils/output.py`` (``OutputWrit
 formats, so that either package reads the other's output:
 
 - ``OutputWriter``: a zip of ``.npy`` members, one per field and snapshot
-  (``c.000004.npy``) plus ``times.000004.npy``, appended in O(snapshot) time; with
-  ``async_write=True`` the compression and disk IO run on a writer thread.
+  (``c.000004.npy``) plus ``times.000004.npy``, appended in O(snapshot) time; by
+  default the compression and disk IO run on a writer thread while the steps go on
+  (``async_write=False``: on the simulation thread).
 - ``NetCDFWriter``: NetCDF3 (64-bit offset) through ``scipy.io.netcdf_file``;
 - ``ShardedOutputWriter``: the y-partitioned runs' output, one archive a rank
   (``<stem>.rank<k>.npz``) holding that rank's interior rows; ``FieldTimeSeries``
@@ -17,7 +18,8 @@ returns (``tensor.detach().cpu()``, a fresh copy also for CPU tensors): a later 
 may write into the same storage, and only host copies reach the writer thread. That
 copy is the one place a writer waits for the card (counted as ``wait.output.copy``
 under a profiler; ``OutputWriter`` records its copies and its writes as the spans
-``osg.output.copy`` and ``osg.output.write``, ``utils/profiling.py``). With
+``osg.output.copy`` and ``osg.output.write``, and a call that waits for its writer
+thread as ``osg.output.handoff``, ``utils/profiling.py``). With
 ``with_halos=False`` a field
 whose last two dims are the base or the widened grid's halo-inclusive shape is cropped
 to its interior; a leading layer dim is kept.
@@ -82,17 +84,29 @@ class OutputWriter:
     """Periodic field dumps: attach to a Simulation with a schedule.
 
     ``outputs`` maps name -> callable(sim) -> tensor or array. ``with_halos=False``
-    crops to the interior of the base (or widened) grid. ``async_write=True`` moves
-    compression and disk IO to a writer thread (a queue of at most 4 snapshots);
-    ``close()``, which the Simulation calls when its run ends, drains it.
+    crops to the interior of the base (or widened) grid.
+
+    The fields are copied to the host when the callback fires. By default (unlike the
+    JAX package's ``async_write=False``) the snapshot is then handed to a writer
+    thread, which deflates and appends it while the next steps run: zlib releases
+    the interpreter lock, so the simulation thread goes on launching. At most two
+    snapshots are held on the host, one being written and one waiting: a call that
+    finds the writer still busy with the previous snapshot waits for it (the span
+    ``osg.output.handoff``). ``close()``, which the Simulation calls when its run
+    ends or raises, writes what was handed over and stops the thread; the next
+    snapshot starts it again. A write that fails on the thread is raised as a
+    ``RuntimeError`` at the next call or at ``close()``, and no later snapshot is
+    written. ``async_write=False`` writes on the simulation thread before the call
+    returns, for a caller that reads the archive between callbacks.
     """
 
     def __init__(self, filename: str, outputs: dict[str, Callable], with_halos: bool = False,
-                 overwrite_existing: bool = True, async_write: bool = False,
+                 overwrite_existing: bool = True, async_write: bool = True,
                  compress: bool = True):
         self.filename = filename
         self.outputs = outputs
         self.with_halos = with_halos
+        self._async = async_write
         self._count = 0
         self._compression = zipfile.ZIP_DEFLATED if compress else zipfile.ZIP_STORED
         if overwrite_existing and os.path.exists(filename):
@@ -104,23 +118,36 @@ class OutputWriter:
                 idx = [int(n.split(".")[-2]) for n in z.namelist()
                        if n.startswith("times.") and n.endswith(".npy")]
             self._count = max(idx) + 1 if idx else 0
-        self._error: BaseException | None = None
-        self._queue: queue.Queue | None = None
-        if async_write:
-            self._queue = queue.Queue(maxsize=4)  # bounded: backpressure, not OOM
-            threading.Thread(target=self._drain, daemon=True).start()
+        self._error: BaseException | None = None  # the writer thread's first failure
+        self._reported = False
+        self._queue: queue.Queue = queue.Queue()
+        self._idle = threading.Event()  # the thread holds no snapshot
+        self._idle.set()
+        self._thread: threading.Thread | None = None
 
     def __call__(self, sim) -> None:
-        with span("osg.output.copy", self._count):
+        k = self._count
+        with span("osg.output.copy", k):
             arrs = {name: _crop(sim, _host(fn(sim)), self.with_halos)
                     for name, fn in self.outputs.items()}
-        self._raise_pending()
-        job = (self._count, float(sim.time), arrs)
+        if self._async and not self._idle.is_set():
+            with span("osg.output.handoff", k):
+                self._idle.wait()
+        if self._error is not None:
+            self._reported = True
+            raise RuntimeError(f"OutputWriter for {self.filename!r} failed; snapshot "
+                               f"{k} and later ones are not written") from self._error
+        job = (k, float(sim.time), arrs)
         self._count += 1
-        if self._queue is not None:
-            self._queue.put(job)
-        else:
+        if not self._async:
             self._write(job)
+            return
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._drain, daemon=True,
+                                            name=f"OutputWriter {self.filename}")
+            self._thread.start()
+        self._idle.clear()
+        self._queue.put(job)
 
     def _write(self, job) -> None:
         k, t, arrs = job
@@ -128,30 +155,26 @@ class OutputWriter:
             _append_snapshot(self.filename, k, t, arrs, self._compression)
 
     def _drain(self) -> None:
-        while True:
-            job = self._queue.get()
+        while (job := self._queue.get()) is not None:
             try:
-                if self._error is None:  # after a failure, drop (don't corrupt) jobs
-                    self._write(job)
-            except BaseException as e:  # noqa: BLE001 — surfaced via _raise_pending
-                if self._error is None:
-                    self._error = e
+                self._write(job)
+            except BaseException as e:  # noqa: BLE001 — raised on the simulation thread
+                self._error = e
             finally:
-                # unconditionally, so that a failed write cannot deadlock close()
-                self._queue.task_done()
-
-    def _raise_pending(self) -> None:
-        if self._error is not None:
-            err, self._error = self._error, None
-            raise RuntimeError(
-                f"async OutputWriter for {self.filename!r} failed") from err
+                # set also after a failure, so that the next call or close() sees it
+                self._idle.set()
 
     def close(self) -> None:
-        """Drain the async writer (a no-op for a synchronous one); re-raises the
-        first error the writer thread hit, if any."""
-        if self._queue is not None:
-            self._queue.join()
-        self._raise_pending()
+        """Write what was handed over and stop the writer thread (a no-op for a
+        synchronous writer); raises a failed write that no call has raised yet."""
+        if self._thread is not None:
+            self._queue.put(None)
+            self._thread.join()
+            self._thread = None
+        if self._error is not None and not self._reported:
+            self._reported = True
+            raise RuntimeError(
+                f"OutputWriter for {self.filename!r} failed") from self._error
 
 
 class ShardedOutputWriter:

@@ -17,8 +17,10 @@ the idle gaps it leaves the card. The spans of the simulation loop and its write
 - ``osg.sim.clone``: ``Simulation.state`` cloning the state out of the graphs'
   buffers when a callback first reads it after a block;
 - ``osg.output.copy``: ``OutputWriter``'s output functions, host copies and crops;
-- ``osg.output.write``: its zip append (deflate and disk), on the writer thread with
-  ``async_write=True``.
+- ``osg.output.write``: its zip append (deflate and disk), on the writer thread
+  (on the simulation thread with ``async_write=False``);
+- ``osg.output.handoff``: an ``OutputWriter`` call waiting for its writer thread to
+  finish the previous snapshot, opened only when the call has to wait.
 
 Each carries a key: the ``Simulation`` iteration for a callback's span, the snapshot's
 number for the writer's (``update`` is handed no simulation, so the wizard's span has

@@ -6,6 +6,9 @@ writers, profiling, the NaN checker, pickup, ``Checkpointer.latest``, schedule
 realignment) and adds what only a port has to show:
 
 - npz checkpoints and OutputWriter archives cross between the packages both ways;
+- the OutputWriter's thread: the same archive as a synchronous write, the snapshot
+  taken at the callback, every snapshot on disk when a run raises, a failed write
+  raised, at most two snapshots held, the thread stopped by ``close()``;
 - the diagnostics equal the JAX ones at float64 (rtol 1e-12);
 - the port's ``Simulation`` reproduces the JAX ``Simulation`` at float64 for the
   single-layer and the layered model: the same Δt sequence from the wizard and the
@@ -19,6 +22,9 @@ import dataclasses
 import inspect
 import os
 import sys
+import threading
+import time
+import zipfile
 
 import jax
 import jax.numpy as jnp
@@ -52,6 +58,7 @@ from orthogonalsphericalshellgrids_tpu_torch.utils import (  # noqa: E402
     Checkpointer, FieldTimeSeries, IterationInterval, NaNChecker, NetCDFWriter,
     OutputWriter, Simulation, TimeInterval, TimeStepWizard, load_checkpoint,
     progress_callback, read_netcdf_series, save_checkpoint)
+from orthogonalsphericalshellgrids_tpu_torch.utils import output as TO  # noqa: E402
 from orthogonalsphericalshellgrids_tpu_torch.utils import profiling, rotation  # noqa: E402
 
 torch.set_num_threads(1)
@@ -292,6 +299,227 @@ def test_output_writer_async(tmp_path):
     assert fts[0].shape == (3, model.grid.Ny, model.grid.Nx)
     for k in range(4):
         np.testing.assert_array_equal(fts[k], model.grid.interior(seen[k]).numpy())
+
+
+def _writer_threads(path):
+    """The live writer threads of the OutputWriter of ``path``."""
+    return [t for t in threading.enumerate() if t.name == f"OutputWriter {path}"]
+
+
+def _slowed(monkeypatch, delay, written=None):
+    """OutputWriter's append of snapshot k waits ``delay(k)`` seconds first; each
+    snapshot's number goes to ``written`` once it is on disk."""
+    real = TO._append_snapshot
+
+    def append(filename, k, t, arrs, compression):
+        time.sleep(delay(k))
+        real(filename, k, t, arrs, compression)
+        if written is not None:
+            written.append(k)
+
+    monkeypatch.setattr(TO, "_append_snapshot", append)
+
+
+def _members(path):
+    with zipfile.ZipFile(path) as z:
+        return [(i.filename, i.compress_type, z.read(i)) for i in z.infolist()]
+
+
+def test_output_writer_default_archive_equals_the_synchronous_one(tmp_path):
+    """The default writer (on its thread) and ``async_write=False`` write the same
+    members in the same order, deflated, with the same bytes; the JAX package's
+    FieldTimeSeries reads the default one."""
+    paths = {}
+    for kind, kw in (("default", {}), ("sync", {"async_write": False})):
+        model, state = make()
+        paths[kind] = str(tmp_path / f"{kind}.npz")
+        sim = Simulation(model, state, dt=60.0, stop_iteration=6)
+        sim.add_callback(OutputWriter(paths[kind], {"u": lambda s: s.state.u,
+                                                    "c": lambda s: s.state.c,
+                                                    "eta": lambda s: s.state.eta}, **kw),
+                         IterationInterval(2))
+        sim.run()
+    got = _members(paths["default"])
+    assert got == _members(paths["sync"])
+    assert [name for name, _, _ in got] == [f"{f}.{k:06d}.npy" for k in range(3)
+                                            for f in ("u", "c", "eta", "times")]
+    assert {ct for _, ct, _ in got} == {zipfile.ZIP_DEFLATED}
+    for name in ("u", "c", "eta"):
+        jfts, fts = JO.FieldTimeSeries(paths["default"], name), FieldTimeSeries(
+            paths["sync"], name)
+        np.testing.assert_array_equal(jfts.data, fts.data)
+        np.testing.assert_array_equal(jfts.times, [120.0, 240.0, 360.0])
+
+
+def test_output_writer_snapshot_is_the_state_at_the_callback(tmp_path, monkeypatch):
+    """A callback after the writer fills the state in place while its snapshot waits
+    for the (slowed) writer thread: the archive holds the state at the writer's
+    callback."""
+    events = []
+    _slowed(monkeypatch, lambda k: 0.2, events)
+    model, state = make()
+    path = str(tmp_path / "inplace.npz")
+    seen = []
+
+    def scribble(s):
+        seen.append(model.grid.interior(s.state.c).clone().numpy())
+        s.state.c.fill_(7.0)
+        events.append(f"filled {len(seen) - 1}")
+
+    sim = Simulation(model, state, dt=60.0, stop_iteration=3, nan_checker=False)
+    sim.add_callback(OutputWriter(path, {"c": lambda s: s.state.c}), IterationInterval(1))
+    sim.add_callback(scribble, IterationInterval(1))
+    sim.run()
+    assert events.index("filled 0") < events.index(0)  # filled before it was written
+    fts = FieldTimeSeries(path, "c")
+    assert len(fts) == 3
+    for k in range(3):
+        np.testing.assert_array_equal(fts[k], seen[k])
+    assert not np.any(fts[0] == 7.0)
+
+
+@pytest.mark.parametrize("cause", ["callback", "nan_check"])
+def test_output_writer_snapshots_reach_disk_when_a_run_raises(cause, tmp_path,
+                                                              monkeypatch):
+    """A run that raises at iteration 3, in a callback or in the NaN check, returns
+    with every snapshot taken before it on disk and its writer thread stopped."""
+    _slowed(monkeypatch, lambda k: 0.1)
+    model, state = make()
+    path = str(tmp_path / f"{cause}.npz")
+
+    def fail(s):
+        if s.iteration == 3:
+            if cause == "callback":
+                raise ValueError("a callback failed")
+            s.state.u[..., 3, 3] = float("nan")
+
+    sim = Simulation(model, state, dt=60.0, stop_iteration=10, nan_checker=False)
+    sim.add_callback(OutputWriter(path, {"c": lambda s: s.state.c}), IterationInterval(1))
+    sim.add_callback(fail, IterationInterval(1))
+    sim.add_callback(NaNChecker(), IterationInterval(1))
+    with pytest.raises(ValueError if cause == "callback" else RuntimeError,
+                       match="a callback failed" if cause == "callback" else "non-finite"):
+        sim.run()
+    assert sim.iteration == 3 and not _writer_threads(path)
+    np.testing.assert_array_equal(FieldTimeSeries(path, "c").times, [60.0, 120.0, 180.0])
+
+
+@pytest.mark.parametrize("where", ["next write", "close"])
+def test_output_writer_error_surfaces(where, tmp_path, monkeypatch):
+    """The writer thread fails on snapshot 1: the next call, or ``close()`` at the
+    run's end where there is none, raises a RuntimeError chained to the failure; no
+    later snapshot is written, and the thread is stopped."""
+    real = TO._append_snapshot
+
+    def append(filename, k, t, arrs, compression):
+        if k == 1:
+            raise OSError("no space left on device")
+        real(filename, k, t, arrs, compression)
+
+    monkeypatch.setattr(TO, "_append_snapshot", append)
+    model, state = make()
+    path = str(tmp_path / "fails.npz")
+    writer = OutputWriter(path, {"c": lambda s: s.state.c})
+    stop = 2 if where == "close" else 5
+    sim = Simulation(model, state, dt=60.0, stop_iteration=stop, nan_checker=False)
+    sim.add_callback(writer, IterationInterval(1))
+    with pytest.raises(RuntimeError, match="OutputWriter") as err:
+        sim.run()
+    assert isinstance(err.value.__cause__, OSError)
+    assert sim.iteration == (2 if where == "close" else 3)
+    assert not _writer_threads(path)
+    writer.close()  # raised once already
+    with pytest.raises(RuntimeError, match="not written"):
+        writer(sim)
+    np.testing.assert_array_equal(FieldTimeSeries(path, "c").times, [60.0])
+
+
+def test_output_writer_holds_two_snapshots_and_records_its_waits(tmp_path, monkeypatch):
+    """Under a profiler, with the odd snapshots' writes slowed past the time between
+    two calls: a call copies snapshot k only once 0 .. k-2 are on disk (two held at
+    most), the calls after a slow write block, and exactly those record
+    ``osg.output.handoff``, keyed by their snapshot, on the simulation thread."""
+    written = []
+    _slowed(monkeypatch, lambda k: 0.4 if k % 2 else 0.0, written)
+    model, state = make()
+    path = str(tmp_path / "held.npz")
+    on_disk_at_copy, took = [], []
+
+    def c_out(s):
+        on_disk_at_copy.append(set(written))
+        return s.state.c
+
+    writer = OutputWriter(path, {"c": c_out})
+
+    def timed(s):
+        t = time.perf_counter()
+        writer(s)
+        took.append(time.perf_counter() - t)
+
+    timed.close = writer.close
+    sim = Simulation(model, state, dt=60.0, stop_iteration=6, nan_checker=False)
+    sim.add_callback(lambda s: time.sleep(0.1), IterationInterval(1))
+    sim.add_callback(timed, IterationInterval(1))
+    profiling.reset_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        sim.run()
+    spans = profiling.spans()
+    for k, done in enumerate(on_disk_at_copy):
+        assert set(range(k - 1)) <= done, (k, done)
+    blocked = [k for k, dt in enumerate(took) if dt > 0.15]
+    assert blocked == [2, 4], took
+    handoffs = [s for s in spans if s.name == "osg.output.handoff"]
+    assert [s.key for s in handoffs] == blocked
+    assert {s.thread for s in handoffs} == {threading.get_ident()}
+    assert all(s.end_ns - s.start_ns > 0.1e9 for s in handoffs)
+    assert sorted(written) == list(range(6)) and not _writer_threads(path)
+
+
+def test_output_writer_thread_follows_the_run(tmp_path):
+    """The writer thread starts at a run's first write and is gone when ``run()``
+    returns; a second run on the same writer starts it again and appends with the
+    numbering continued."""
+    model, state = make()
+    path = str(tmp_path / "twice.npz")
+    alive = []
+    sim = Simulation(model, state, dt=60.0, stop_iteration=2, nan_checker=False)
+    sim.add_callback(OutputWriter(path, {"c": lambda s: s.state.c}), IterationInterval(1))
+    sim.add_callback(lambda s: alive.append(len(_writer_threads(path))), IterationInterval(1))
+    assert not _writer_threads(path)
+    sim.run()
+    assert not _writer_threads(path)
+    sim.stop_iteration = 4
+    sim.run()
+    assert not _writer_threads(path)
+    assert alive == [1, 1, 1, 1]
+    fts = FieldTimeSeries(path, "c")
+    np.testing.assert_array_equal(fts.times, [60.0, 120.0, 180.0, 240.0])
+    np.testing.assert_array_equal(fts[3], model.grid.interior(sim.state.c).numpy())
+    with zipfile.ZipFile(path) as z:
+        assert [n for n in z.namelist() if n.startswith("times.")] == [
+            f"times.{k:06d}.npy" for k in range(4)]
+
+
+@pytest.mark.parametrize("async_write", [None, False])
+def test_output_writer_overlaps_its_write_by_default(async_write, tmp_path, monkeypatch):
+    """With a write slowed to 0.3 s, the default writer's call returns before the
+    snapshot is on disk; ``async_write=False`` returns after it and starts no
+    thread."""
+    _slowed(monkeypatch, lambda k: 0.3)
+    model, state = make()
+    path = str(tmp_path / "overlap.npz")
+    kw = {} if async_write is None else {"async_write": async_write}
+    writer = OutputWriter(path, {"c": lambda s: s.state.c}, **kw)
+    sim = Simulation(model, state, dt=60.0, nan_checker=False)
+    t = time.perf_counter()
+    writer(sim)
+    took = time.perf_counter() - t
+    if async_write is None:
+        assert took < 0.2 and not os.path.exists(path) and _writer_threads(path)
+    else:
+        assert took >= 0.3 and os.path.exists(path) and not _writer_threads(path)
+    writer.close()
+    assert not _writer_threads(path) and len(FieldTimeSeries(path, "c")) == 1
 
 
 def test_netcdf_writer_round_trip(tmp_path):
