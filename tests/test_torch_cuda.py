@@ -2140,3 +2140,46 @@ def test_cuda_graph_capture_failure_raises():
         block(model, state, 60.0, 2)
     torch.cuda.synchronize()
     assert graph.blocks(model)[graph.layout(step, state)].graphs is None
+
+
+# ------------------------------------------------------------------------------------
+# the options of the benchmark's OM4p25 configuration (perfbench/configs/om4p25_l75.json:
+# T and S, implicit vertical mixing) on a 48 x 40 plane
+# ------------------------------------------------------------------------------------
+
+def _om4_case(nz):
+    """(configuration, inputs, model, state) of the OM4p25 options at 48 x 40 x ``nz``
+    in float32 on the card, from the scenario's seeded fields."""
+    import json
+
+    from perfbench.lib import program, scenario
+
+    with open(os.path.join(ROOT, "perfbench", "configs", "om4p25_l75.json")) as f:
+        cfg = json.load(f)
+    cfg.update(nx=48, ny=40, nz=nz)
+    inp = scenario.inputs(cfg, 2 ** 33 + 19)
+    model, state = program.build(cfg, inp, "cuda")
+    return cfg, inp, model, state
+
+
+@needs_cuda
+def test_cuda_om4_block_at_75_levels_is_the_eager_loop_and_the_reference():
+    """Three steps at Nz = 75 with implicit vertical mixing (the vertical kernel's
+    chunks of interfaces, the plain solve inside the graphs): the replayed block is
+    bitwise the eager loop of ``layered_step``, and within 1e-4 of each field's
+    largest value of the float64 reference (``perfbench/reference/layered.py``) at
+    the interior points; float32 on the CPU reads 1.4e-5 after three steps of 300 s (η)."""
+    from perfbench.reference import layered as ref
+
+    cfg, inp, model, state = _om4_case(75)
+    TL.layered_multi_step(model, state, cfg["dt"], 3)  # captures the block
+    got = TL.layered_multi_step(model, state, cfg["dt"], 3)
+    want = _eager(TL.layered_step, model, state, cfg["dt"], 3)
+    torch.cuda.synchronize()
+    assert _states_equal(got, want)
+    m = ref.build(cfg, inp, dtype=torch.float64, device="cuda", sample_dtype=torch.float32)
+    s = ref.run(m, ref.initial_state(m, inp["init"]), cfg["dt"], 3)
+    for name in ("u", "v", "eta", "U", "V", "c"):
+        h = m["He"] if name in ("eta", "U", "V") else m["H"]
+        g, r = (a[..., h:-h, h:-h].double() for a in (getattr(got, name), s[name]))
+        assert float((g - r).abs().max() / r.abs().max()) < 1e-4, name
