@@ -4,9 +4,9 @@
 (grid-points/s/chip).
 
 Counterpart: ``bench.py`` (the JAX package's), with its configuration
-(``examples/bickley_jet_torch.py:build(1440, 680, substeps=30)``, float32, the
-configuration ``chip_smoke.py`` phase 3 times), its block of 10 ``multi_step`` steps
-at dt = 60 s, and its metric string, unit and keys.
+(``examples/bickley_jet_torch.py:build(1440, 680, substeps=30)``, float32, the grid,
+scheme and step of ``perfbench/configs/bickley_jet_q.json``), its block of 10
+``multi_step`` steps at dt = 60 s, and its metric string, unit and keys.
 
 Prints ONE JSON line on stdout:
   {"metric": "...", "value": N, "unit": "grid-points/s/chip", "vs_baseline": N,

@@ -4,8 +4,8 @@
     python3 benchmarks/torch_baro_ab.py [--parent DIR] [--rounds 3] [--out FILE]
 
 At the main paths' shape ((724, 1484), 21 SM05 substeps, float32, no per-substep
-wrap), on seeded random inputs made as ``chip_smoke.py`` phase 2 makes them, it times
-with CUDA events (``utils/profiling.py:time_ms``), in turns:
+wrap), on seeded random inputs made as ``tests/test_torch_cuda.py`` makes them, it
+times with CUDA events (``utils/profiling.py:time_ms``), in turns:
 
 - A, the port's kernel: time tiles with trapezoidal halos, ``csrc/barotropic.cu`` run
   as ``kernels/barotropic.py:launch_plan`` says;

@@ -6,7 +6,7 @@ card.
     python3 benchmarks/torch_mom_ab.py [--parent DIR] [--rounds 3] [--out FILE]
 
 At the main paths' three shapes, float32, on seeded random inputs made as
-``chip_smoke.py`` phase 2 makes them (each fused term 1e-1 to 1 of the tendency):
+``tests/test_torch_cuda.py`` makes them (each fused term 1e-1 to 1 of the tendency):
 
 - ``one_layer``: one masked (690, 1450) layer, the Bickley jet's call;
 - ``layered``: (10, 690, 1450) with ``acc`` (the vertical kernel's dGu, dGv) and

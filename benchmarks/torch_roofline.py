@@ -4,7 +4,8 @@
     python3 benchmarks/torch_roofline.py
 
 Counterpart of the ceilings half of ``benchmarks/roofline.py`` (its components half,
-the step, tendencies and fill, is ``benchmarks/torch_profile_*.py``). It measures,
+the step, tendencies and fill, is a traced run of the benchmark:
+``perfbench/run.py --trace 1``). It measures,
 each as one hand-written kernel timed with CUDA events (``kernels/probes.py``):
 
 - the HBM stream rate (GB/s; ``utils/profiling.py:stream_probe_gbps``);
@@ -21,8 +22,7 @@ From those it derives, for the shapes of the 1/4-degree main paths (float32):
   (``MAIN_PATH``, counted from ``csrc/momentum.cu`` and ``csrc/tracer_adv.cu``) over
   the WENO rate;
 - given each kernel's bytes (every input read once, every output written once, as
-  ``chip_smoke.py`` phase 9 counts them from the kernel's real operands), its byte
-  bound over the measured stream rate.
+  ``perfbench/counts/`` counts them), its byte bound over the measured stream rate.
 
 Prints one line per number with the card's name and power limit, and as its last
 line one JSON object. Runs on a card only; imports nothing of JAX.
@@ -47,8 +47,8 @@ INNER = (690 - 6) * (1450 - 6)
 # per call on the main paths: (upwind WENO-5 reconstructions, barotropic
 # point-substeps). Momentum reconstructs q at the u and v points (2 a cell and
 # layer); tracer advection needs each face once, one x face and one y face a cell
-# (2 a cell and plane). The kernels' bytes are not kept here: chip_smoke.py counts
-# them from the real operands.
+# (2 a cell and plane). The kernels' bytes are not kept here: perfbench/counts/
+# counts them.
 MAIN_PATH = {
     "barotropic": (0, N_SUB * EXT),
     "momentum": (2 * INNER, 0),

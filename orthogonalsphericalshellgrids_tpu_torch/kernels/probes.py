@@ -19,8 +19,8 @@ can be set against a rate measured on the same card.
   ``n_iter`` times per element.
 
 Each wrapper takes the plain version for tensors on the CPU and launches its kernel
-for tensors on a CUDA device. The plain versions are the tests' oracle and
-``chip_smoke.py``'s; nothing on a card path calls them.
+for tensors on a CUDA device. The plain versions are the oracle of the card tests
+(``tests/test_torch_cuda.py``); nothing on a card path calls them.
 """
 
 from __future__ import annotations

@@ -215,7 +215,7 @@ def time_ms(fn, n=20, reps=5, warm=3, device="cuda", ahead=False):
     spins until the host has enqueued the whole window, so the window times the
     device work alone, and a window the host did not get ahead of is spun again
     longer); the host clock around a finished window on the CPU. The one timer of
-    ``chip_smoke.py`` and ``benchmarks/torch_*.py``."""
+    ``benchmarks/torch_*.py``."""
     on_card = torch.device(device).type == "cuda"
     for _ in range(warm):
         fn()

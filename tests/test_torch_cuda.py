@@ -69,23 +69,27 @@ def _adv_inputs(dtype, Yb=60, Xb=76, seed=3):
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("loc,sign", [(CC, 1), (FC, -1), (CF, -1), (FF, 1), (FC, 1)])
-def test_cuda_fill_bitwise(dtype, loc, sign):
+@pytest.mark.parametrize("Ny,Nx,K", [(40, 48, 3), (680, 1440, 10)], ids=["small", "quarter"])
+def test_cuda_fill_bitwise(dtype, loc, sign, Ny, Nx, K):
+    """In place and out of place, on a stack of K planes at halo 5 (the state's) and
+    22 (the free surface's); ``quarter``: the 1/4° jet's and front's planes."""
     for H in (5, 22):
         A = torch.as_tensor(np.random.default_rng(H).standard_normal(
-            (3, 40 + 2 * H, 48 + 2 * H)), dtype=dtype, device="cuda")
+            (K, Ny + 2 * H, Nx + 2 * H)), dtype=dtype, device="cuda")
         A0 = A.clone()
-        want = halo_fill.fill_halos_plain(A.clone(), loc, sign, 48, 40, H, H)
-        got = halo_fill.fill_halos(A.clone(), loc, sign, 48, 40, H, H)
-        copy = halo_fill.fill_halos(A, loc, sign, 48, 40, H, H, inplace=False)
+        want = halo_fill.fill_halos_plain(A.clone(), loc, sign, Nx, Ny, H, H)
+        got = halo_fill.fill_halos(A.clone(), loc, sign, Nx, Ny, H, H)
+        copy = halo_fill.fill_halos(A, loc, sign, Nx, Ny, H, H, inplace=False)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
         assert torch.equal(copy, want) and torch.equal(A, A0)
 
 
-def _fill_group(path, dtype):
-    """The fill group of a path at small geometry, on the card: the state's fields
-    on 48 x 40 planes at halo 5, and η, U, V as views of one (3, Ye, Xe) buffer at
-    halo 22; ``odd``: three fields on planes no block of 256 threads divides."""
+def _fill_group(path, dtype, Ny=40, Nx=48, nz=3):
+    """The fill group of a path on the card: the state's fields (stacks of ``nz``
+    layers) on Ny x Nx planes at halo 5, and η, U, V as views of one (3, Ye, Xe)
+    buffer at halo 22; ``odd``: three fields on planes no block of 256 threads
+    divides."""
     r = np.random.default_rng(len(path))
 
     def cu(shape):
@@ -96,22 +100,26 @@ def _fill_group(path, dtype):
                 (cu((14 + 2 * 2, 22 + 2 * 3)), CF, -1, 22, 14, 3, 2),
                 (cu((2, 9 + 2 * 1, 10 + 2 * 2)), FF, 1, 10, 9, 2, 1)]
     stacks = {"bickley": [(None, FC, -1), (None, CF, -1), (None, CC, 1)],
-              "front": [(3, FC, -1), (3, CF, -1), (3, CC, 1), (3, CC, 1)],
-              "gyre": [(3, FC, -1), (3, CF, -1), (6, CC, 1)]}[path]
-    fields = [(cu((50, 58) if K is None else (K, 50, 58)), loc, s, 48, 40, 5, 5)
+              "front": [(nz, FC, -1), (nz, CF, -1), (nz, CC, 1), (nz, CC, 1)],
+              "gyre": [(nz, FC, -1), (nz, CF, -1), (2 * nz, CC, 1)]}[path]
+    base = (Ny + 10, Nx + 10)
+    fields = [(cu(base if K is None else (K, *base)), loc, s, Nx, Ny, 5, 5)
               for K, loc, s in stacks]
-    ext = cu((3, 84, 92))
-    return fields + [(ext[0], CC, 1, 48, 40, 22, 22), (ext[1], FC, -1, 48, 40, 22, 22),
-                     (ext[2], CF, -1, 48, 40, 22, 22)]
+    ext = cu((3, Ny + 44, Nx + 44))
+    return fields + [(ext[0], CC, 1, Nx, Ny, 22, 22), (ext[1], FC, -1, Nx, Ny, 22, 22),
+                     (ext[2], CF, -1, Nx, Ny, 22, 22)]
 
 
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("path", ["bickley", "front", "gyre", "odd"])
-def test_cuda_group_fill_and_restore_bitwise(dtype, path):
+@pytest.mark.parametrize("path,size", [
+    ("bickley", "small"), ("front", "small"), ("gyre", "small"), ("odd", "small"),
+    ("bickley", "quarter"), ("front", "quarter"), ("gyre", "quarter")])
+def test_cuda_group_fill_and_restore_bitwise(dtype, path, size):
     """One launch fills the group, with and without the save, bitwise the plain
-    version's fields and strips; one launch restores every field bitwise."""
-    fields = _fill_group(path, dtype)
+    version's fields and strips; one launch restores every field bitwise. ``quarter``:
+    the 1/4° groups, 10 layers."""
+    fields = _fill_group(path, dtype, *((680, 1440, 10) if size == "quarter" else ()))
     before = [f[0].clone() for f in fields]
     plain = [(f[0].clone(),) + f[1:] for f in fields]
     want, want_saved = halo_fill.fill_halos_group_plain(plain, save=True)
@@ -201,8 +209,9 @@ def test_cuda_steps_leave_the_state_as_it_was(path):
 
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_momentum(dtype):
-    u, v, static = _mom_inputs(dtype)
+@pytest.mark.parametrize("Yb,Xb", [(60, 76), (690, 1450)])
+def test_cuda_momentum(dtype, Yb, Xb):
+    u, v, static = _mom_inputs(dtype, Yb, Xb)
     R = momentum.REACH
     got = momentum.momentum(u, v, static)
     for g, w in zip(got, momentum.momentum_plain(u, v, static)):
@@ -213,8 +222,9 @@ def test_cuda_momentum(dtype):
 
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_tracer_adv(dtype):
-    c, u, v, static = _adv_inputs(dtype)
+@pytest.mark.parametrize("Yb,Xb", [(60, 76), (690, 1450)])
+def test_cuda_tracer_adv(dtype, Yb, Xb):
+    c, u, v, static = _adv_inputs(dtype, Yb, Xb)
     R = tracer_adv.REACH
     got = tracer_adv.tracer_adv(c, u, v, static)
     want = tracer_adv.tracer_adv_plain(c, u, v, static)
@@ -225,26 +235,40 @@ def test_cuda_tracer_adv(dtype):
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("wrap", [False, True])
-def test_cuda_barotropic(dtype, wrap):
+@pytest.mark.parametrize("plane", ["model", "quarter"])
+def test_cuda_barotropic(dtype, wrap, plane):
+    """30 substeps (21 weights) on a 48 x 40 Bickley jet's own pack, or on random
+    planes of the 1/4° jet's extended plane (724 x 1484, halo 22): within the band
+    at the interior, finite, the inputs unchanged."""
     from examples.bickley_jet_torch import build
+    from orthogonalsphericalshellgrids_tpu_torch.models.split_explicit import (
+        averaging_weights)
 
-    model, _ = build(48, 40, dtype=dtype, substeps=30, device="cuda")
-    ge = model.grid_ext
-    ext = (ge.Ny + 2 * ge.Hy, ge.Nx + 2 * ge.Hx)
-    r = np.random.default_rng(9)
-    eta, U, V = (halo_fill.fill_halos_plain(
-        torch.as_tensor(0.01 * r.standard_normal(ext), dtype=dtype, device="cuda"),
-        loc, s, ge.Nx, ge.Ny, ge.Hx, ge.Hy) for loc, s in ((CC, 1), (FC, -1), (CF, -1)))
-    GU, GV = (1e-6 * torch.ones(ext, dtype=dtype, device="cuda") for _ in range(2))
-    dtau = model.fractional_dt * torch.as_tensor(120.0, dtype=dtype, device="cuda")
-    args = (model.baro_pack, eta, U, V, GU, GV, dtau, model.weights, ge.Nx, ge.Hx, wrap)
-    I = (slice(ge.Hy, ge.Hy + ge.Ny), slice(ge.Hx, ge.Hx + ge.Nx))
-    inputs = [a.clone() for a in (eta, U, V)]
+    if plane == "model":
+        model, _ = build(48, 40, dtype=dtype, substeps=30, device="cuda")
+        ge = model.grid_ext
+        Ny, Nx, H, Hy = ge.Ny, ge.Nx, ge.Hx, ge.Hy
+        ext = (Ny + 2 * Hy, Nx + 2 * H)
+        r = np.random.default_rng(9)
+        eta, U, V = (halo_fill.fill_halos_plain(
+            torch.as_tensor(0.01 * r.standard_normal(ext), dtype=dtype, device="cuda"),
+            loc, s, Nx, Ny, H, Hy) for loc, s in ((CC, 1), (FC, -1), (CF, -1)))
+        GU, GV = (1e-6 * torch.ones(ext, dtype=dtype, device="cuda") for _ in range(2))
+        dtau = model.fractional_dt * torch.as_tensor(120.0, dtype=dtype, device="cuda")
+        pack, weights = model.baro_pack, model.weights
+    else:
+        Ny, Nx, H, Hy = 680, 1440, 22, 22
+        pack, eta, U, V, GU, GV = _baro_inputs(Ny, Nx, H, dtype, seed=9)
+        dtau = torch.tensor(0.01, dtype=dtype, device="cuda")
+        weights = torch.as_tensor(averaging_weights(30)[1], dtype=dtype, device="cuda")
+    args = (pack, eta, U, V, GU, GV, dtau, weights, Nx, H, wrap)
+    I = (slice(Hy, Hy + Ny), slice(H, H + Nx))
+    inputs = [a.clone() for a in (pack, eta, U, V, GU, GV)]
     for got, want in zip(barotropic.barotropic_substeps(*args),
                          barotropic.barotropic_substeps_plain(*args)):
         assert _rel_err(got, want, I) <= BANDS[dtype]
         assert torch.isfinite(got).all()
-    for a, a0 in zip((eta, U, V), inputs):  # the kernel reads its inputs in place
+    for a, a0 in zip((pack, eta, U, V, GU, GV), inputs):  # read in place
         assert torch.equal(a, a0)
 
 
@@ -313,24 +337,73 @@ def test_cuda_barotropic_refuses_what_it_cannot_run():
         barotropic.barotropic_substeps(static, eta, U, V, GU, GV, dtau, w, 29, 8, True)
 
 
+# the schemes of the single-layer model that leave a kernel of the step to PyTorch
+JET_OPTIONS = {"weno5": {}, "weno7": dict(tracer_advection="weno7"),
+               "upwind3": dict(tracer_advection="upwind3"),
+               "centered": dict(tracer_advection="centered"),
+               "centered4": dict(tracer_advection="centered4"),
+               "vector_invariant": dict(momentum_advection="vector_invariant")}
+
+
+def _equatorial(p):
+    """The equatorial refinement of ``tests/test_tripolar_grid.py:238``."""
+    return 1.0 - 0.5 * torch.exp(-((p / 15.0) ** 2))
+
+
+def _refined_jet(device):
+    """The 48 x 40 float64 jet's model on the equatorially refined grid, with a
+    zonal jet and the example's tracer."""
+    from examples.bickley_jet_torch import bottom_height
+
+    from orthogonalsphericalshellgrids_tpu_torch import TripolarGrid
+    from orthogonalsphericalshellgrids_tpu_torch.models import SplitExplicitFreeSurface
+
+    grid = TripolarGrid.make((48, 40, 1), halo=(5, 5, 5), first_pole_longitude=45.0,
+                             north_poles_latitude=25.0, dtype=torch.float64, device=device,
+                             phi_spacing=_equatorial)
+    model = TH.make_model(grid, free_surface=SplitExplicitFreeSurface(substeps=30),
+                          bottom_height=bottom_height(), device=device)
+    return model, TH.initial_state(
+        model, u=lambda lam, phi: 1.0 / np.cosh(np.deg2rad(phi) * 8) ** 2,
+        c=lambda lam, phi: np.sin(2 * np.pi * np.deg2rad(phi) * 8 / 167.0))
+
+
 @needs_cuda
-def test_cuda_steps_match_cpu_float64():
-    """Five float64 steps through the kernels agree with the CPU plain path."""
+@pytest.mark.parametrize("case", list(JET_OPTIONS) + ["refined"])
+def test_cuda_steps_match_cpu_float64(case):
+    """Five float64 steps of the 48 x 40 jet through the kernels agree with the CPU
+    plain path (u, v, c, η), with each tracer and momentum scheme and on the
+    equatorially refined grid (whose extended grid carries the law); a step launches
+    momentum unless the momentum scheme is the plain vector-invariant one, and the
+    tracer kernel only for WENO-5."""
     from examples.bickley_jet_torch import build
 
-    cpu_m, cpu_s = build(48, 40, dtype=torch.float64, substeps=30, device="cpu")
-    gpu_m, gpu_s = build(48, 40, dtype=torch.float64, substeps=30, device="cuda")
+    if case == "refined":
+        cpu_m, cpu_s = _refined_jet("cpu")
+        gpu_m, gpu_s = _refined_jet("cuda")
+        assert gpu_m.grid.phi_spacing is _equatorial
+        assert gpu_m.grid_ext.phi_spacing is _equatorial
+        ge = gpu_m.grid_ext
+        assert torch.equal(ge.interior(ge.phi_cc), gpu_m.grid.interior(gpu_m.grid.phi_cc))
+        opts = {}
+    else:
+        opts = JET_OPTIONS[case]
+        cpu_m, cpu_s = build(48, 40, dtype=torch.float64, substeps=30, device="cpu", **opts)
+        gpu_m, gpu_s = build(48, 40, dtype=torch.float64, substeps=30, device="cuda",
+                             **opts)
     TH.multi_step(gpu_m, gpu_s, 120.0, 5)  # captures the block after one eager step
     kernels.reset_launch_counts()
     gpu_out = TH.multi_step(gpu_m, gpu_s, 120.0, 5)
     want = {k: 0 for k in kernels.LAUNCHES}
-    want.update(halo_fill=10, halo_restore=5, barotropic=5, momentum=5, tracer_adv=5)
+    want.update(halo_fill=10, halo_restore=5, barotropic=5,
+                momentum=5 * ("momentum_advection" not in opts),
+                tracer_adv=5 * ("tracer_advection" not in opts))
     assert kernels.launch_counts() == want
     cpu_out = TH.multi_step(cpu_m, cpu_s, 120.0, 5)
-    g = cpu_m.grid
-    for name in ("u", "v", "c"):
-        want = getattr(cpu_out, name)[g.interior2d]
-        got = getattr(gpu_out, name).cpu()[g.interior2d]
+    for name in ("u", "v", "c", "eta"):
+        grid = cpu_m.grid_ext if name == "eta" else cpu_m.grid
+        want = grid.interior(getattr(cpu_out, name))
+        got = grid.interior(getattr(gpu_out, name).cpu())
         assert float((got - want).abs().max()) <= 1e-11 * float(want.abs().max()), name
 
 
@@ -340,13 +413,22 @@ def test_cuda_steps_match_cpu_float64():
 
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("mode,nz,mixing", [("none", 4, False), ("tracer_b", 4, True),
-                                            ("linear_eos", 4, True), ("linear_eos", 4, False),
-                                            ("tracer_b", 50, True)])
-def test_cuda_vertical(dtype, mode, nz, mixing):
+@pytest.mark.parametrize("mode,nz,mixing,plane", [
+    ("none", 4, False, (40, 52)), ("tracer_b", 4, True, (40, 52)),
+    ("linear_eos", 4, True, (40, 52)), ("linear_eos", 4, False, (40, 52)),
+    ("tracer_b", 50, True, (40, 52))] + [
+    (mode, 4, mixing, plane) for plane in ((7, 9), (135, 171))
+    for mode in ("none", "tracer_b", "linear_eos") for mixing in (False, True)] + [
+    ("none", 10, False, (690, 1450)), ("tracer_b", 10, True, (690, 1450)),
+    ("linear_eos", 10, True, (690, 1450)), ("linear_eos", 75, True, (40, 1450)),
+    ("linear_eos", 75, False, (40, 1450))])
+def test_cuda_vertical(dtype, mode, nz, mixing, plane):
     """One launch against the plain version on the mask pack built from the same
-    wet-layer counts (drawn from 0 to Nz a column), on a plane no tile divides."""
-    _vertical_case(dtype, mode, nz, mixing, 2 if mode == "linear_eos" else 1)
+    wet-layer counts (drawn from 0 to Nz a column), on planes no tile divides, one
+    of them smaller than a tile: every mode with and without ν_v and κ_v; the 1/4°
+    front's and gyre's calls on their plane, and OM4p25's (T and S, 75 levels) on a
+    strip of its rows."""
+    _vertical_case(dtype, mode, nz, mixing, 2 if mode == "linear_eos" else 1, *plane)
 
 
 @needs_cuda
@@ -355,12 +437,11 @@ def test_cuda_vertical(dtype, mode, nz, mixing):
 def test_cuda_vertical_more_tracers(dtype, mode, n_c):
     """Three and four tracer blocks: the kernel carries the first two in registers and
     reads the others at each layer."""
-    _vertical_case(dtype, mode, 6, True, n_c)
+    _vertical_case(dtype, mode, 6, True, n_c, 40, 52)
 
 
-def _vertical_case(dtype, mode, nz, mixing, n_c):
+def _vertical_case(dtype, mode, nz, mixing, n_c, Yb, Xb):
     r = np.random.default_rng(nz)
-    Yb, Xb = 40, 52
     n_wet = np.minimum(r.integers(0, nz + 3, (Yb, Xb)), nz).astype(np.int32)
     _, mu, mv = vertical.wet_pack(torch.as_tensor(n_wet), nz, 3,
                                    torch.float64).reshape(nz, 3, Yb, Xb).transpose(0, 1)
@@ -396,12 +477,15 @@ def _vertical_case(dtype, mode, nz, mixing, n_c):
 
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_layered_momentum(dtype):
+@pytest.mark.parametrize("nz,Yb,Xb", [(3, 60, 76), (10, 690, 1450), (75, 40, 1450)])
+def test_cuda_layered_momentum(dtype, nz, Yb, Xb):
+    """Unmasked layers without operands: a small stack, the 1/4° front's and a strip
+    of OM4p25's rows at its 75 levels."""
     r = np.random.default_rng(1)
     u, v = (torch.as_tensor(a, dtype=dtype, device="cuda")
-            for a in r.standard_normal((2, 3, 60, 76)))
-    static = 1.0 + r.random((8, 60, 76))
-    static[3] = 0.1 * r.standard_normal((60, 76))
+            for a in r.standard_normal((2, nz, Yb, Xb)))
+    static = 1.0 + r.random((8, Yb, Xb))
+    static[3] = 0.1 * r.standard_normal((Yb, Xb))
     static = torch.as_tensor(static, dtype=dtype, device="cuda")
     R = momentum.REACH
     kernels.reset_launch_counts()
@@ -415,12 +499,17 @@ def test_cuda_layered_momentum(dtype):
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n_tr", [1, 2])
-def test_cuda_layered_tracer_adv(dtype, n_tr):
+@pytest.mark.parametrize("nz,Yb,Xb", [(3, 60, 76), (10, 690, 1450), (75, 40, 1450)])
+def test_cuda_layered_tracer_adv(dtype, n_tr, nz, Yb, Xb):
+    """A small stack, the 1/4° front's plane and a strip of OM4p25's rows at its 75
+    levels, over masked velocities."""
     r = np.random.default_rng(n_tr)
-    mask = (r.random((3, 60, 76)) > 0.2).astype(np.float64)
-    arrays = (r.standard_normal((3 * n_tr, 60, 76)), r.standard_normal((3, 60, 76)) * mask,
-              r.standard_normal((3, 60, 76)) * mask, mask * (0.5 + r.random((3, 60, 76))),
-              0.5 + r.random((2, 60, 76)), np.array([50.0, 120.0, 300.0]))
+    mask = (r.random((nz, Yb, Xb)) > 0.2).astype(np.float64)
+    dz = np.array([50.0, 120.0, 300.0]) if nz == 3 else 2.0 + 250.0 * (
+        np.arange(nz) / (nz - 1)) ** 2
+    arrays = (r.standard_normal((nz * n_tr, Yb, Xb)), r.standard_normal((nz, Yb, Xb)) * mask,
+              r.standard_normal((nz, Yb, Xb)) * mask, mask * (0.5 + r.random((nz, Yb, Xb))),
+              0.5 + r.random((2, Yb, Xb)), dz)
     args = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in arrays]
     R = tracer_adv.REACH
     kernels.reset_launch_counts()
@@ -460,12 +549,13 @@ def test_cuda_layered_steps_match_cpu_float64():
 
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("nz,has_lap,has_drag", [(1, True, True), (4, True, True),
-                                                 (4, False, True), (50, True, True)])
-def test_cuda_momentum_closures(dtype, nz, has_lap, has_drag):
-    """One masked layer (nz = 1, the single-layer model) or an unmasked stack."""
+@pytest.mark.parametrize("nz,has_lap,has_drag,Yb,Xb", [
+    (1, True, True, 40, 52), (4, True, True, 40, 52), (4, False, True, 40, 52),
+    (50, True, True, 40, 52), (75, True, True, 40, 1450)])
+def test_cuda_momentum_closures(dtype, nz, has_lap, has_drag, Yb, Xb):
+    """One masked layer (nz = 1, the single-layer model) or an unmasked stack; at 75
+    levels OM4p25's call (ν_h and quadratic drag) on a strip of its rows."""
     r = np.random.default_rng(nz + has_lap)
-    Yb, Xb = 40, 52
     masked = nz == 1
     shape = (Yb, Xb) if masked else (nz, Yb, Xb)
     static = 1.0 + r.random((10 if masked else 8, Yb, Xb))
@@ -492,14 +582,15 @@ def test_cuda_momentum_closures(dtype, nz, has_lap, has_drag):
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("nz,has_lap,has_drag,operands", [
-    (1, False, False, "acc"), (1, True, True, "both"), (4, False, False, "both"),
-    (4, False, False, "mask_out"), (4, True, True, "both"), (4, False, True, "acc"),
+    (1, False, False, "acc"), (1, False, False, "both"), (1, True, True, "acc"),
+    (1, True, True, "both"), (4, False, False, "both"), (4, False, False, "mask_out"),
+    (4, True, True, "both"), (4, False, True, "acc"), (4, True, False, "both"),
     (50, True, True, "both")])
-@pytest.mark.parametrize("Yb,Xb", [(40, 52), (7, 9), (37, 131)])
+@pytest.mark.parametrize("Yb,Xb", [(40, 52), (7, 9), (37, 131), (135, 171), (690, 1450)])
 def test_cuda_momentum_operands(dtype, nz, has_lap, has_drag, operands, Yb, Xb):
     """The tiled kernel with acc and/or mask_out in each mode, on planes smaller than
-    a tile and planes no tile divides: within the band, finite, the REACH cells 0,
-    the inputs unchanged, one launch."""
+    a tile, planes no tile divides and the 1/4° plane: within the band, finite, the
+    REACH cells 0, the inputs unchanged, one launch."""
     r = np.random.default_rng(nz + 3 * has_lap + Yb)
     masked = nz == 1
     shape = (Yb, Xb) if masked else (nz, Yb, Xb)
@@ -604,11 +695,17 @@ def test_cuda_tracer_adv_entry_refuses():
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("nz,n_tr,kappa", [(0, 1, False), (0, 1, True), (4, 1, False),
-                                           (4, 2, True), (50, 1, True)])
-def test_cuda_tracer_adv_acc(dtype, nz, n_tr, kappa):
-    """acc added after the advective tendency and κ_h, column (nz = 0) and layered."""
-    r = np.random.default_rng(nz + n_tr + kappa)
-    Yb, Xb = 40, 52
+                                           (4, 2, False), (4, 1, True), (4, 2, True),
+                                           (50, 1, True)])
+@pytest.mark.parametrize("with_acc", [False, True])
+@pytest.mark.parametrize("Yb,Xb", [(40, 52), (7, 9), (37, 131), (135, 171), (690, 1450)])
+def test_cuda_tracer_adv_acc(dtype, nz, n_tr, kappa, with_acc, Yb, Xb):
+    """Every mode of the tracer kernel, column (nz = 0: the 5- and 8-plane packs) and
+    layered (1 and 2 tracers, S = 1 and 4), with and without acc (added after the
+    advective tendency and κ_h), on planes smaller than a tile, planes no tile
+    divides and the 1/4° plane: within the band, finite, the REACH cells 0, the
+    inputs unchanged, one launch."""
+    r = np.random.default_rng(nz + n_tr + kappa + Yb)
     if nz == 0:
         arrays = (*r.standard_normal((3, Yb, Xb)), 1.0 + r.random((8 if kappa else 5, Yb, Xb)))
         layered = ()
@@ -621,24 +718,32 @@ def test_cuda_tracer_adv_acc(dtype, nz, n_tr, kappa):
                   r.standard_normal((nz, Yb, Xb)) * mask, pack)
         layered = (0.5 + r.random((2, Yb, Xb)), 50.0 * 1.1 ** np.arange(nz))
     args = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in arrays + layered]
-    acc = torch.as_tensor(0.5 * r.standard_normal(args[0].shape), dtype=dtype, device="cuda")
+    acc = (torch.as_tensor(0.5 * r.standard_normal(args[0].shape), dtype=dtype,
+                           device="cuda") if with_acc else None)
+    kept = [a.clone() for a in args]
     R = tracer_adv.REACH
     kernels.reset_launch_counts()
     got = tracer_adv.tracer_adv(*args, acc=acc)
     assert sum(kernels.launch_counts().values()) == 1
     want = tracer_adv.tracer_adv_plain(*args, acc=acc)
-    assert _rel_err(got, want, (slice(R, -R), slice(R, -R))) <= BANDS[dtype]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(kept, args))
     assert torch.isfinite(got).all()
     assert _edge_zero(got, R)
+    if Yb > 2 * R and Xb > 2 * R:
+        I = (slice(R, -R), slice(R, -R))
+        err = float((got[..., I[0], I[1]] - want[..., I[0], I[1]]).abs().max())
+        assert err <= BANDS[dtype] * max(float(want[..., I[0], I[1]].abs().max()), 1e-300)
 
 
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("nz,n_tr", [(0, 1), (4, 2), (50, 1)])
-def test_cuda_tracer_adv_kappa(dtype, nz, n_tr):
-    """Column mode (nz = 0: one plane, the 8-plane pack) and layered mode, S = 4."""
+@pytest.mark.parametrize("nz,n_tr,Yb,Xb", [(0, 1, 40, 52), (4, 2, 40, 52), (50, 1, 40, 52),
+                                           (75, 2, 40, 1450)])
+def test_cuda_tracer_adv_kappa(dtype, nz, n_tr, Yb, Xb):
+    """Column mode (nz = 0: one plane, the 8-plane pack) and layered mode, S = 4; at
+    75 levels OM4p25's T and S on a strip of its rows."""
     r = np.random.default_rng(nz + n_tr)
-    Yb, Xb = 40, 52
     if nz == 0:
         arrays = (*r.standard_normal((3, Yb, Xb)), 1.0 + r.random((8, Yb, Xb)))
         layered = ()
@@ -661,11 +766,15 @@ def test_cuda_tracer_adv_kappa(dtype, nz, n_tr):
 
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("nz,with_b", [(4, False), (4, True), (50, True)])
-def test_cuda_corrector(dtype, nz, with_b):
-    """U_a and V_a are views cropped out of wider arrays, as in the step."""
+@pytest.mark.parametrize("nz,with_b,Yb,Xb", [
+    (4, False, 40, 52), (4, True, 40, 52), (50, True, 40, 52), (10, False, 690, 1450),
+    (10, True, 690, 1450), (75, False, 40, 1450)])
+def test_cuda_corrector(dtype, nz, with_b, Yb, Xb):
+    """U_a and V_a are views cropped out of wider arrays, as in the step: small
+    stacks, the 1/4° gyre's (T and S) and front's (c and b) plane, and a strip of
+    OM4p25's rows at its 75 levels."""
     r = np.random.default_rng(nz + with_b)
-    Yb, Xb, d = 40, 52, 6
+    d = 6
     mu, mv, mc = (r.random((3, nz, Yb, Xb)) > 0.2)
     dz3 = (40.0 * 1.05 ** np.arange(nz)).reshape(-1, 1, 1)
 
@@ -694,7 +803,8 @@ def test_cuda_corrector(dtype, nz, with_b):
 @needs_cuda
 def test_cuda_gyre_steps_match_cpu_float64():
     """Three float64 steps of the 48 x 32 x 3 check gyre through the kernels agree
-    with the CPU plain path, and each step launches the gyre's kernels."""
+    with the CPU plain path (u, v, c, η), and each step launches the gyre's
+    kernels."""
     from examples.wind_driven_ts_gyre_torch import build_check
 
     cpu_m, cpu_s = build_check(device="cpu")
@@ -707,10 +817,10 @@ def test_cuda_gyre_steps_match_cpu_float64():
                 momentum_closures=3, tracer_adv_kappa=3, corrector=3)
     assert kernels.launch_counts() == want
     cpu_out = TL.layered_multi_step(cpu_m, cpu_s, 60.0, 3)
-    I3 = (slice(None),) + cpu_m.grid.interior2d
-    for name in ("u", "v", "c"):
-        w = getattr(cpu_out, name)[I3]
-        got = getattr(gpu_out, name).cpu()[I3]
+    for name in ("u", "v", "c", "eta"):
+        grid = cpu_m.grid_ext if name == "eta" else cpu_m.grid
+        w = grid.interior(getattr(cpu_out, name))
+        got = grid.interior(getattr(gpu_out, name).cpu())
         assert float((got - w).abs().max()) <= 1e-11 * float(w.abs().max()), name
 
 
@@ -952,7 +1062,9 @@ def _shard_group(path, dtype, ny):
 def test_cuda_shard_fill_and_restore_bitwise(dtype, ny, role, path):
     """In each shard role the pack, the fill with save (reading the received rows)
     and the restore are bitwise their plain versions, one launch each, also where
-    the rank holds only as many rows as the extended halo (ny = 22)."""
+    the rank holds only as many rows as the extended halo (ny = 22); so is the
+    split's order, the local x-wrap and then the rest of the fill into the same saved
+    buffer, against the one-launch plain fill and its strips."""
     role = {"bottom": halo_fill.BOTTOM, "middle": halo_fill.MIDDLE,
             "top": halo_fill.TOP}[role]
     fields = _shard_group(path, dtype, ny)
@@ -977,68 +1089,78 @@ def test_cuda_shard_fill_and_restore_bitwise(dtype, ny, role, path):
     halo_fill.restore_strips_group(fields, saved, role=role)
     torch.cuda.synchronize()
     assert all(torch.equal(f[0], b) for f, b in zip(fields, before))
+    saved = halo_fill.wrap_halos_group(fields, role)
+    halo_fill.fill_halos_group(fields, True, role, south=south, north=north,
+                               phase=halo_fill.NO_WRAP, saved=saved)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(saved, want_saved)
+    halo_fill.restore_strips_group(fields, saved, role=role)
+    torch.cuda.synchronize()
+    assert all(torch.equal(f[0], b) for f, b in zip(fields, before))
     want_counts = {k: 0 for k in kernels.LAUNCHES}
-    want_counts.update(halo_pack=1, halo_fill_shard=1, halo_restore=1)
+    want_counts.update(halo_pack=1, halo_fill_shard=2, halo_wrap=1, halo_restore=2)
     assert kernels.launch_counts() == want_counts
 
 
-@needs_cuda
-@pytest.mark.parametrize("which", ["bickley", "gyre"])
-def test_cuda_local_exchange_step_bitwise(which):
-    """Four shards stepped through LocalExchange on the card, 3 float64 steps: the
-    gathered state is bitwise the serial steps', each shard launches its kernels the
-    expected number of times a step (the tendency kernels three times: the split's
-    bulk pass and its two row strips), and the sharded steps make no host
-    synchronization."""
-    from orthogonalsphericalshellgrids_tpu_torch import parallel
-    from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import host_syncs
-
-    if which == "bickley":
-        from examples.bickley_jet_torch import build
-
-        model, state = build(48, 40, dtype=torch.float64, substeps=12, device="cuda")
-        serial, distribute, gather, step_fn = (
-            TH.multi_step, parallel.distribute, parallel.gather_state,
-            parallel.sharded_step_fn)
-        kernels_a_step = ("barotropic", "momentum", "tracer_adv")
-        split = ("momentum", "tracer_adv")
-        names = ("u", "v", "c", "eta", "U", "V", "Gu", "Gv", "Gc")
-    else:
+def _sharded_case(which, nx):
+    """(model, state, serial block, kernels a step, the split's tendency kernels) of
+    a float64 case on the card: the nx x 40 jet (substeps 12), with WENO-7 tracer
+    advection (radius 4, left to PyTorch) or with a second tracer, or the check
+    gyre."""
+    if which == "gyre":
         from examples.wind_driven_ts_gyre_torch import build_check
 
         model, state = build_check(device="cuda")
-        serial, distribute, gather, step_fn = (
-            TL.layered_multi_step, parallel.distribute_layered,
-            parallel.gather_layered_state, parallel.sharded_layered_step_fn)
-        kernels_a_step = ("barotropic", "vertical", "momentum_closures",
-                          "tracer_adv_kappa", "corrector")
         split = ("vertical", "momentum_closures", "tracer_adv_kappa")
-        names = ("u", "v", "c", "eta", "U", "V", "Gu", "Gv", "Gc")
-    n = 4
-    mesh = parallel.make_mesh(n)
-    dist_model, dist_state = distribute(model, state, mesh)
-    step_fn(mesh, dist_model)(dist_state, 60.0)  # loads the kernels
-    fn = step_fn(mesh, dist_model)
-    s = dist_state
-    with host_syncs() as n_syncs:
-        for _ in range(3):
-            s = fn(s, 60.0)
-        syncs = n_syncs()
+        return model, state, TL.layered_multi_step, ("barotropic", "corrector") + split, split
+    from examples.bickley_jet_torch import build
+
+    model, state = build(nx, 40, dtype=torch.float64, substeps=12, device="cuda",
+                         **JET_OPTIONS["weno7" if which == "bickley_weno7" else "weno5"])
+    if which == "bickley_two_tracers":
+        model, state = _two_tracers(model, state)
+    split = ("momentum",) + {"bickley": ("tracer_adv",), "bickley_weno7": (),
+                             "bickley_two_tracers": ("tracer_adv_planes",)}[which]
+    return model, state, TH.multi_step, ("barotropic",) + split, split
+
+
+@needs_cuda
+@pytest.mark.parametrize("which", ["bickley", "bickley_weno7", "bickley_two_tracers",
+                                   "gyre"])
+def test_cuda_local_exchange_step_bitwise(which):
+    """Four shards stepped through LocalExchange on the card, 3 float64 steps, split
+    (the default) and unsplit: the gathered state is bitwise the serial steps', each
+    shard launches its kernels the expected number of times a step (with the split
+    the tendency kernels three times: the bulk pass and its two row strips), and the
+    sharded steps make no host synchronization. WENO-7 takes the split at its radius
+    of 4; two tracers take the P-plane launch on every pass."""
+    from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import host_syncs
+
+    model, state, serial, kernels_a_step, split = _sharded_case(which, 48)
     want = serial(model, state, 60.0, 3)
-    got = gather(s, model, n)
-    for name in names:
-        grid = model.grid_ext if name in ("eta", "U", "V") else model.grid
-        assert torch.equal(grid.interior(getattr(got, name)),
-                           grid.interior(getattr(want, name))), name
-    assert syncs == 0
-    for counts in fn.launches:
-        # the split (on by default) runs the tendency kernels on the bulk and on two
-        # row strips
-        assert all(counts[k] == 3 * (1 + 2 * (k in split)) for k in kernels_a_step), \
-            counts
-        assert counts["halo_pack"] == counts["halo_fill_shard"] == 6, counts
-        assert counts["halo_wrap"] == counts["halo_restore"] == 3, counts
-        assert counts["halo_fill"] == 0, counts
+    for overlap in (None, False):
+        fn, s, gather = _sharded(model, state, 4, which == "gyre", overlap)
+        fn(s, 60.0)  # loads the kernels; s is left as it was
+        fn.launches = [dict.fromkeys(kernels.LAUNCHES, 0) for _ in fn.launches]
+        with host_syncs() as n_syncs:
+            for _ in range(3):
+                s = fn(s, 60.0)
+            syncs = n_syncs()
+        fn.close()
+        got = gather(s)
+        for name in ("u", "v", "c", "eta", "U", "V", "Gu", "Gv", "Gc"):
+            grid = model.grid_ext if name in ("eta", "U", "V") else model.grid
+            assert torch.equal(grid.interior(getattr(got, name)),
+                               grid.interior(getattr(want, name))), (name, overlap)
+        assert syncs == 0
+        passes = 3 if overlap is None else 1
+        for counts in fn.launches:
+            assert all(counts[k] == 3 * (passes if k in split else 1)
+                       for k in kernels_a_step), counts
+            assert counts["halo_pack"] == counts["halo_fill_shard"] == 6, counts
+            assert counts["halo_wrap"] == (3 if overlap is None else 0), counts
+            assert counts["halo_restore"] == 3 and counts["halo_fill"] == 0, counts
 
 
 @needs_cuda
@@ -1169,9 +1291,14 @@ def test_cuda_block_fill_pack_and_restore_bitwise(dtype, mesh, mode, path):
     fold's middle column) and 3 x 2 meshes of 24-column blocks: the 2-D route's
     launches bitwise their plain versions, at ny = 40 and at the least ny the
     extended grid takes (22, where the top blocks' strips reach a row of the blocks
-    below; 23 for one row of blocks)."""
+    below; 23 for one row of blocks); one launch a call."""
+    n = mesh[0] * mesh[1]
     for ny_b in (22 if mesh[1] > 1 else 23, 40):
-        check_block_fills(path, dtype, *mesh, 24, ny_b, mode)
+        kernels.reset_launch_counts()
+        held = check_block_fills(path, dtype, *mesh, 24, ny_b, mode)
+        want = {k: 0 for k in kernels.LAUNCHES}
+        want.update(halo_pack_block=2 * n, halo_fill_block=2 * n, halo_restore=n)
+        assert kernels.launch_counts() == want and held == 5 * n
 
 
 def _cells_equal(full, part, rows, cols, keep_rows, keep_cols):
@@ -1273,44 +1400,27 @@ def test_cuda_barotropic_columns_independent_of_the_plane(dtype):
 @needs_cuda
 @pytest.mark.parametrize("which,mesh,mode", [("bickley", (2, 2), "auto"),
                                              ("bickley", (4, 1), "mirror"),
+                                             ("bickley_weno7", (2, 2), "auto"),
                                              ("gyre", (2, 2), "auto")])
 def test_cuda_local_exchange_2d_step_bitwise(which, mesh, mode):
     """Blocks of a 2-D mesh stepped through LocalExchange on the card, 3 float64
     steps: bitwise the serial steps, split and unsplit alike, each block launching
     the 2-D route's kernels the expected number of times, with no host
-    synchronization."""
-    from orthogonalsphericalshellgrids_tpu_torch import parallel
+    synchronization. WENO-7 takes the split at its radius of 4."""
     from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import host_syncs
 
-    if which == "bickley":
-        from examples.bickley_jet_torch import build
-
-        model, state = build(96, 40, dtype=torch.float64, substeps=12, device="cuda")
-        serial, distribute, gather, step_fn = (
-            TH.multi_step, parallel.distribute2d, parallel.gather_state2d,
-            parallel.sharded_step_fn2d)
-        split = ("momentum", "tracer_adv")
-    else:
-        from examples.wind_driven_ts_gyre_torch import build_check
-
-        model, state = build_check(device="cuda")
-        serial, distribute, gather, step_fn = (
-            TL.layered_multi_step, parallel.distribute_layered2d,
-            parallel.gather_layered_state2d, parallel.sharded_layered_step_fn2d)
-        split = ("vertical", "momentum_closures", "tracer_adv_kappa")
-    m = parallel.make_mesh2d(*mesh)
-    dist_model, dist_state = distribute(model, state, m)
+    model, state, serial, _, split = _sharded_case(which, 96)
     want = serial(model, state, 60.0, 3)
     for overlap in (None, False):
-        fn = step_fn(m, dist_model, model.grid.Nx, overlap=overlap, fold_mode=mode)
-        fn(dist_state, 60.0)  # loads the kernels
-        fn = step_fn(m, dist_model, model.grid.Nx, overlap=overlap, fold_mode=mode)
-        s = dist_state
+        fn, s, gather = _sharded(model, state, mesh, which == "gyre", overlap, mode)
+        fn(s, 60.0)  # loads the kernels; s is left as it was
+        fn.launches = [dict.fromkeys(kernels.LAUNCHES, 0) for _ in fn.launches]
         with host_syncs() as n_syncs:
             for _ in range(3):
                 s = fn(s, 60.0)
             syncs = n_syncs()
-        got = gather(s, model, m)
+        fn.close()
+        got = gather(s)
         for name in ("u", "v", "c", "eta", "U", "V", "Gu", "Gv", "Gc"):
             grid = model.grid_ext if name in ("eta", "U", "V") else model.grid
             assert torch.equal(grid.interior(getattr(got, name)),
@@ -1461,28 +1571,44 @@ def test_cuda_momentum_members(dtype, closures):
         assert torch.equal(got[0][b], one[0]) and torch.equal(got[1][b], one[1]), b
 
 
+def _two_tracers(model, state):
+    """The 48 x 40 jet's ``model`` (substeps 12) with a second tracer, c², on its grid
+    and bottom, and ``state`` with it."""
+    from examples.bickley_jet_torch import bottom_height
+
+    from orthogonalsphericalshellgrids_tpu_torch.models import SplitExplicitFreeSurface
+
+    two = TH.make_model(model.grid, free_surface=SplitExplicitFreeSurface(substeps=12),
+                        bottom_height=bottom_height(), tracers=("c", "d"), device="cuda")
+    c = torch.stack([state.c, state.c * state.c])
+    return two, dataclasses.replace(state, c=c, Gc=torch.zeros_like(c))
+
+
+def _scaled(state, s):
+    """``state`` (one or a batch, of either model) with its fields times ``s`` (t and
+    iteration kept), as ``tests/test_ensemble.py`` makes its members."""
+    return type(state)(**{f.name: getattr(state, f.name) * s
+                          if f.name not in ("t", "iteration") else getattr(state, f.name)
+                          for f in dataclasses.fields(state)})
+
+
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n_tracers", [1, 2])
 def test_cuda_ensemble_step_bitwise(dtype, n_tracers):
     """Three members (at iterations 0, 1 and 0) stepped together on the card: each
     bitwise its own serial steps, and a step launching each kernel as often as one
-    serial step does."""
+    serial step does. With two tracers a serial step advects both in one P-plane
+    launch, and each member's flow and each of its tracer planes is bitwise the
+    one-tracer model's run on that plane."""
     from examples.bickley_jet_torch import build
 
     from orthogonalsphericalshellgrids_tpu_torch.models import ensemble
 
-    model, base = build(48, 40, dtype=dtype, substeps=12, device="cuda")
+    jet, base = build(48, 40, dtype=dtype, substeps=12, device="cuda")
+    model = jet
     if n_tracers > 1:  # a second tracer, c², on the same grid and bottom
-        from examples.bickley_jet_torch import bottom_height
-
-        from orthogonalsphericalshellgrids_tpu_torch.models import SplitExplicitFreeSurface
-
-        model = TH.make_model(model.grid, free_surface=SplitExplicitFreeSurface(substeps=12),
-                              bottom_height=bottom_height(), tracers=("c", "d"),
-                              device="cuda")
-        c = torch.stack([base.c, base.c * base.c])
-        base = dataclasses.replace(base, c=c, Gc=torch.zeros_like(c))
+        model, base = _two_tracers(jet, base)
     serial = [_scaled(base, s) for s in (0.5, 1.0, 1.5)]
     serial[1] = TH.step(model, serial[1], 60.0)
     batch = ensemble.stack_members(serial)
@@ -1495,21 +1621,20 @@ def test_cuda_ensemble_step_bitwise(dtype, n_tracers):
         "halo_fill": 2, "halo_restore": 1, "barotropic": 1, "momentum": 1,
         "tracer_adv_members": 1}, counts
     serial_counts = {k: v for k, v in kernels.launch_counts().items() if v}
-    assert sum(serial_counts.values()) == sum(counts.values()), serial_counts
+    assert serial_counts == {
+        "halo_fill": 2, "halo_restore": 1, "barotropic": 1, "momentum": 1,
+        "tracer_adv_planes" if n_tracers > 1 else "tracer_adv": 1}, serial_counts
     out = ensemble.ensemble_multi_step(model, batch, 60.0, 3)
+    flow = ("u", "v", "eta", "U", "V", "Gu", "Gv", "t", "iteration")
     for i, s in enumerate(serial):
         want = TH.multi_step(model, s, 60.0, 3)
         got = ensemble.member(out, i)
-        for name in ("u", "v", "eta", "U", "V", "c", "Gu", "Gv", "Gc", "t", "iteration"):
+        for name in flow + ("c", "Gc"):
             assert torch.equal(getattr(got, name), getattr(want, name)), (i, name)
-
-
-def _scaled(state, s):
-    """A state with its fields scaled by ``s`` (t and iteration kept), as
-    ``tests/test_ensemble.py`` makes its members."""
-    return TH.State(**{f.name: getattr(state, f.name) * s
-                       if f.name not in ("t", "iteration") else getattr(state, f.name)
-                       for f in dataclasses.fields(TH.State)})
+        for k in range(n_tracers if n_tracers > 1 else 0):
+            one = TH.multi_step(jet, dataclasses.replace(s, c=s.c[k], Gc=s.Gc[k]), 60.0, 3)
+            assert all(torch.equal(getattr(want, n), getattr(one, n)) for n in flow), (i, k)
+            assert torch.equal(want.c[k], one.c) and torch.equal(want.Gc[k], one.Gc), (i, k)
 
 
 # ------------------------------------------------------------------------------------
@@ -1765,12 +1890,7 @@ def test_cuda_layered_ensemble_step_bitwise(dtype, config):
     else:
         model, base = front(48, 40, 3, dtype=dtype, substeps=12, device="cuda")
     names = [f.name for f in dataclasses.fields(TL.LayeredState)]
-
-    def scaled(s, f):
-        return TL.LayeredState(**{n: getattr(s, n) * f if n not in ("t", "iteration")
-                                  else getattr(s, n) for n in names})
-
-    serial = [scaled(base, f) for f in (0.5, 1.0, 1.5)]
+    serial = [_scaled(base, f) for f in (0.5, 1.0, 1.5)]
     serial[1] = TL.layered_step(model, serial[1], 60.0)
     batch = ensemble.stack_members(serial)
     kernels.reset_launch_counts()
@@ -1825,20 +1945,118 @@ def _rnd(dtype, seed):
     return rnd
 
 
+def _member_cases(rnd, dtype, B, Yb, Xb, nz, bulk):
+    """The member launches of the sharded ensembles on a (Yb, Xb) plane of a rank or
+    of a split's strip, B members: the jet's (``tracer_adv_members``; ``momentum``
+    over the B members as layers, period 1, the masked pack) and the gyre's T and S
+    through the linear EOS with the closure planes (``vertical_members``,
+    ``momentum_members`` over B·Nz layers with period Nz, ``tracer_adv_layered_members``
+    with dGc a view), and on a rank's plane (``bulk``) the corrector over the members,
+    each member with its own weights (member 0 at its first step) and its crop of the
+    rank's widened U_a, V_a. Each case: the member launch, member m's one-member
+    launch and the part of the outputs it gives, the plain version, the valid
+    cells."""
+    R_adv = (slice(tracer_adv.REACH, Yb - tracer_adv.REACH),
+             slice(tracer_adv.REACH, Xb - tracer_adv.REACH))
+    R_mom = (slice(momentum.REACH, Yb - momentum.REACH),
+             slice(momentum.REACH, Xb - momentum.REACH))
+    cases = {}
+    uj, vj, cj = rnd((B, Yb, Xb)), rnd((B, Yb, Xb)), rnd((B, Yb, Xb))
+    cj[1:, : Yb // 3] = 0.0  # exact zeros, as on land
+    pack5 = rnd((5, Yb, Xb), lo=1.0)
+    st10 = rnd((10, Yb, Xb), lo=1.0)
+    st10[3] = 0.1 * rnd((Yb, Xb))
+    st10[8:] = (st10[8:] > 1.15).to(dtype)
+    cases["tracer_adv_members"] = dict(
+        run=lambda: tracer_adv.tracer_adv(cj, uj, vj, pack5),
+        one=lambda m: tracer_adv.tracer_adv(cj[m], uj[m], vj[m], pack5), part=lambda m: m,
+        plain=lambda: tracer_adv.tracer_adv_plain(cj, uj, vj, pack5), I=R_adv)
+    cases["momentum"] = dict(
+        run=lambda: momentum.momentum(uj, vj, st10, period=1),
+        one=lambda m: momentum.momentum(uj[m], vj[m], st10), part=lambda m: m,
+        plain=lambda: momentum.momentum_plain(uj, vj, st10, period=1), I=R_mom)
+    n_wet = torch.as_tensor(np.minimum(np.random.default_rng(Yb * Xb).integers(
+        0, nz + 3, (Yb, Xb)), nz), dtype=torch.int32, device="cuda")
+    mc, mu, mv = (m.contiguous() for m in vertical.wet_pack(n_wet, nz, 3, dtype).reshape(
+        nz, 3, Yb, Xb).transpose(0, 1))
+    u, v = rnd((B, nz, Yb, Xb)) * mu, rnd((B, nz, Yb, Xb)) * mv
+    c = rnd((B, 2 * nz, Yb, Xb))
+    c[:, :nz] += 10.0
+    c[:, nz:] = 35.0 + 0.1 * c[:, nz:]
+    dzs = [10.0 * 1.7 ** k for k in range(nz)]
+    vkw = dict(mode="linear_eos", eos=(9.80665, 1.67e-4, 7.8e-4, 0.0, 35.0), it_T=0,
+               it_S=1, viscous=True, diffusive=True)
+    g5 = rnd((5, Yb, Xb), lo=0.5)
+    coef = torch.as_tensor(vertical.coefficients(
+        dzs, [0.5 * (dzs[k] + dzs[k + 1]) for k in range(nz - 1)], 1e-3, 1e-5),
+        dtype=dtype, device="cuda")
+    s_pack = vertical.wet_pack(n_wet, nz, 3, dtype)
+    cases["vertical_members"] = dict(
+        run=lambda: vertical.vertical(u, v, c, None, n_wet, g5, coef, **vkw),
+        one=lambda m: vertical.vertical(u[m], v[m], c[m], None, n_wet, g5, coef, **vkw),
+        part=lambda m: m,
+        plain=lambda: vertical.vertical_plain(u, v, c, None, s_pack, g5, coef, **vkw),
+        I=(slice(1, Yb - 1), slice(1, Xb - 1)))
+    ul, vl = u.reshape(B * nz, Yb, Xb), v.reshape(B * nz, Yb, Xb)
+    st8 = rnd((8, Yb, Xb), lo=1.0)
+    st8[3] = 0.1 * rnd((Yb, Xb))
+    lay = rnd((nz, 8, Yb, Xb), lo=0.5)
+    lay[:, 6:] *= 0.1
+    mkw = dict(has_mask=False, lay=lay.reshape(8 * nz, Yb, Xb), has_lap=True,
+               has_drag=True, acc=(rnd((B * nz, Yb, Xb), 0.5), rnd((B * nz, Yb, Xb), 0.5)),
+               mask_out=(mu, mv))
+
+    def mom_one(m):
+        layers = slice(m * nz, (m + 1) * nz)
+        return momentum.momentum(ul[layers], vl[layers], st8, **dict(
+            mkw, acc=tuple(a[layers] for a in mkw["acc"])))
+
+    cases["momentum_members"] = dict(
+        run=lambda: momentum.momentum(ul, vl, st8, period=nz, **mkw), one=mom_one,
+        part=lambda m: slice(m * nz, (m + 1) * nz),
+        plain=lambda: momentum.momentum_plain(ul, vl, st8, period=nz, **mkw), I=R_mom)
+    pack = (mu[:, None] * rnd((nz, 4, Yb, Xb), lo=0.5)).reshape(4 * nz, Yb, Xb)
+    g2 = rnd((2, Yb, Xb), lo=0.5)
+    dz = torch.as_tensor(dzs, dtype=dtype, device="cuda")
+    acc = rnd((B, 2 * nz + 2, Yb, Xb), 0.5)[:, :2 * nz]
+    cases["tracer_adv_layered_members"] = dict(
+        run=lambda: tracer_adv.tracer_adv(c, u, v, pack, g2, dz, acc=acc),
+        one=lambda m: tracer_adv.tracer_adv(c[m], u[m], v[m], pack, g2, dz, acc=acc[m]),
+        part=lambda m: m,
+        plain=lambda: tracer_adv.tracer_adv_plain(c, u, v, pack, g2, dz, acc=acc), I=R_adv)
+    if bulk:
+        stacks = [rnd((B, nz, Yb, Xb)) for _ in range(6)]
+        tracers = [rnd((B, 2 * nz, Yb, Xb)) for _ in range(3)]
+        dz3 = dz.view(-1, 1, 1)
+        d = 22 - 5
+        ext = rnd((2, B, Yb + 2 * d, Xb + 2 * d))
+        w1 = torch.tensor([1.0] + [1.6] * (B - 1), dtype=dtype, device="cuda")
+        w2 = torch.tensor([0.0] + [0.6] * (B - 1), dtype=dtype, device="cuda")
+        step_dt = torch.tensor(40.0, dtype=dtype, device="cuda")
+        shared = (dz3 * mu, dz3 * mv, mc, rnd((Yb, Xb), lo=0.0), rnd((Yb, Xb), lo=0.0))
+        crops = (ext[0, :, d:d + Yb, d:d + Xb], ext[1, :, d:d + Yb, d:d + Xb])
+        cases["corrector_members"] = dict(
+            run=lambda: corrector.corrector(*stacks, *tracers, *shared, *crops, w1, w2,
+                                            step_dt),
+            one=lambda m: corrector.corrector(*(a[m] for a in stacks + tracers), *shared,
+                                              crops[0][m], crops[1][m], w1[m], w2[m],
+                                              step_dt),
+            part=lambda m: m,
+            plain=lambda: corrector.corrector_plain(*stacks, *tracers, *shared, *crops, w1,
+                                                    w2, step_dt),
+            I=(slice(None), slice(None)))
+    return cases
+
+
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("plane", [(40, 146), (15, 146), (60, 15), (12, 90)])
 def test_cuda_member_launches_at_shard_and_strip_shapes(dtype, plane):
-    """The member launches of a sharded ensemble (``chip_smoke.member_cases``: the
-    jet's ``tracer_adv_members`` and ``momentum`` over the members, the gyre's
-    ``vertical_members``, ``momentum_members``, ``tracer_adv_layered_members`` and, on
-    a rank's plane, ``corrector_members``) on a rank's plane and on the split's
-    strips of 3·H rows or columns: 15 rows are fewer than one tracer tile, and 15
-    columns narrower than one tile of every kernel."""
-    from chip_smoke import member_cases
-
+    """The member launches of a sharded ensemble (``_member_cases``) on a rank's plane
+    and on the split's strips of 3·H rows or columns: 15 rows are fewer than one
+    tracer tile, and 15 columns narrower than one tile of every kernel."""
     B, Yb, Xb = 3, *plane
-    cases = member_cases(_rnd(dtype, Yb * Xb), dtype, B, Yb, Xb, 4, bulk=min(plane) > 15)
+    cases = _member_cases(_rnd(dtype, Yb * Xb), dtype, B, Yb, Xb, 4, bulk=min(plane) > 15)
     for kname, case in cases.items():
         _hold_member_case(kname, case, B, dtype)
 
@@ -1846,47 +2064,120 @@ def test_cuda_member_launches_at_shard_and_strip_shapes(dtype, plane):
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_barotropic_members_on_a_rank(dtype):
-    """The barotropic member axis on a rank's extended plane (halo 22, the wrap off,
-    ``Nx`` the rank's columns; ``chip_smoke.baro_member_case``)."""
-    from chip_smoke import baro_member_case
+    """The barotropic member axis on a rank's extended (66, 90) plane (halo 22, 21
+    SM05 weights, the wrap off as the sharded steps run it, ``Nx`` the rank's 46
+    columns)."""
+    from orthogonalsphericalshellgrids_tpu_torch.models.split_explicit import (
+        averaging_weights)
 
-    _hold_member_case("barotropic", baro_member_case(_rnd(dtype, 22), dtype, 3, 66, 90, 46),
-                      3, dtype)
+    B, Ye, Xe, Nx = 3, 66, 90, 46
+    rnd = _rnd(dtype, 22)
+    static = rnd((9, Ye, Xe), lo=0.5)
+    static[7:] = (static[7:] > 0.6).to(dtype)
+    dyn = [rnd((B, Ye, Xe), 0.01) for _ in range(3)] + [rnd((B, Ye, Xe), 1e-3)
+                                                        for _ in range(2)]
+    tail = (torch.tensor(0.01, dtype=dtype, device="cuda"),
+            torch.as_tensor(averaging_weights(30)[1], dtype=dtype, device="cuda"))
+    case = dict(
+        run=lambda: barotropic.barotropic_substeps(static, *dyn, *tail, Nx, 22, False),
+        one=lambda m: barotropic.barotropic_substeps(static, *(x[m] for x in dyn), *tail,
+                                                     Nx, 22, False),
+        part=lambda m: m,
+        plain=lambda: barotropic.barotropic_substeps_plain(static, *dyn, *tail, Nx, 22,
+                                                           False),
+        I=(slice(22, Ye - 22), slice(22, Xe - 22)))
+    _hold_member_case("barotropic", case, B, dtype)
 
 
 def _forcing_c(lam, phi, t, fields):
     return 1e-7 * torch.sin(2e-4 * t) * torch.cos(torch.deg2rad(phi))
 
 
+def _forcing_T(lam, phi, z, t, fields):
+    return 1e-7 * torch.sin(2e-4 * t) * torch.cos(torch.deg2rad(phi))
+
+
+def _sharded(model, state, mesh_kind, layered, overlap=None, fold_mode="auto"):
+    """(step function, the ranks' states, gather) of ``state`` (one state or an
+    ensemble's batch) on ``mesh_kind`` ranks through LocalExchange: a number of
+    y-shards or an (n_x, n_y) mesh of blocks (its fold by ``fold_mode``)."""
+    from orthogonalsphericalshellgrids_tpu_torch import parallel as P
+
+    if isinstance(mesh_kind, int):
+        mesh, extra, kw, arg = P.make_mesh(mesh_kind), (), {}, mesh_kind
+        distribute, step_fn, gather = (
+            (P.distribute_layered, P.sharded_layered_step_fn, P.gather_layered_state)
+            if layered else (P.distribute, P.sharded_step_fn, P.gather_state))
+    else:
+        mesh = P.make_mesh2d(*mesh_kind)
+        extra, kw, arg = (model.grid.Nx,), dict(fold_mode=fold_mode), mesh
+        distribute, step_fn, gather = (
+            (P.distribute_layered2d, P.sharded_layered_step_fn2d, P.gather_layered_state2d)
+            if layered else (P.distribute2d, P.sharded_step_fn2d, P.gather_state2d))
+    dm, ds = distribute(model, state, mesh)
+    fn = step_fn(mesh, dm, *extra, overlap=overlap, **kw)
+    return fn, ds, lambda s: gather(s, model, arg)
+
+
+def _rank_launches(kind, layered, n_steps, split):
+    """The launches of one rank of a sharded ensemble in ``n_steps`` steps: a y-shard
+    (``kind`` 1) or a block of a 2-D mesh (2), with the split the tendency kernels on
+    the bulk and on two strips a direction, the member launches in place of the
+    one-member ones."""
+    tend = (("vertical_members", "momentum_members", "tracer_adv_layered_members")
+            if layered else ("momentum", "tracer_adv_members"))
+    once = ("barotropic", "corrector_members") if layered else ("barotropic",)
+    passes = 1 + 2 * kind if split else 1
+    want = {k: n_steps * passes for k in tend}
+    want.update({k: n_steps for k in once}, halo_restore=n_steps)
+    if kind == 1:
+        want.update(halo_pack=2 * n_steps, halo_fill_shard=2 * n_steps,
+                    halo_wrap=n_steps if split else 0)
+    else:
+        want.update(halo_pack_block=4 * n_steps, halo_fill_block=4 * n_steps)
+    return {k: n for k, n in want.items() if n}
+
+
 @needs_cuda
-@pytest.mark.parametrize("mesh_kind", [4, (2, 2)], ids=["y4", "2x2"])
-@pytest.mark.parametrize("which", ["bickley", "bickley_forcing", "gyre"])
-def test_cuda_sharded_ensemble_step_bitwise(which, mesh_kind):
+@pytest.mark.parametrize("mesh_kind,overlap", [(4, None), ((2, 2), None), (4, False)],
+                         ids=["y4", "2x2", "y4_unsplit"])
+@pytest.mark.parametrize("which", ["bickley", "bickley_forcing", "gyre", "gyre_forcing"])
+def test_cuda_sharded_ensemble_step_bitwise(which, mesh_kind, overlap):
     """Three members (the second one step ahead) of a float64 model on 4 y-shards and
-    on 2 x 2 blocks through LocalExchange on the card, the split on, 3 steps: every
-    field of every member bitwise its own sharded run; each rank launches the member
-    kernels as often as one member's rank launches the one-member kernels
-    (``chip_smoke.rank_launches``), and the steps make no host synchronization. The
-    forcing reads each member's time."""
-    from chip_smoke import rank_launches, scaled_layered, scaled_state, sharded
+    on 2 x 2 blocks through LocalExchange on the card, the split on (and unsplit on 4
+    y-shards), 3 steps: every field of every member bitwise its own sharded run; each
+    rank launches the member kernels as often as one member's rank launches the
+    one-member kernels, and the steps make no host synchronization. The forcing (of
+    c, of T) reads each member's time."""
     from orthogonalsphericalshellgrids_tpu_torch.models import ensemble
     from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import host_syncs
 
-    layered = which == "gyre"
-    if layered:
+    layered = which.startswith("gyre")
+    if which == "gyre_forcing":
+        from examples.wind_driven_ts_gyre_torch import (CHECK_INIT, CHECK_OPTIONS,
+                                                        build_check, check_bottom)
+        from orthogonalsphericalshellgrids_tpu_torch.models import (
+            SplitExplicitFreeSurface, layered_initial_state, make_layered_model)
+
+        model = make_layered_model(build_check(device="cuda")[0].grid,
+                                   free_surface=SplitExplicitFreeSurface(substeps=6),
+                                   bottom_height=check_bottom, device="cuda",
+                                   forcing={"T": _forcing_T}, **CHECK_OPTIONS)
+        base = layered_initial_state(model, **CHECK_INIT)
+    elif layered:
         from examples.wind_driven_ts_gyre_torch import build_check
 
         model, base = build_check(device="cuda")
-        step, scale = TL.layered_step, scaled_layered
     else:
         from examples.bickley_jet_torch import build
 
         kw = dict(forcing={"c": _forcing_c}) if which == "bickley_forcing" else {}
         model, base = build(48, 40, dtype=torch.float64, substeps=12, device="cuda", **kw)
-        step, scale = TH.step, scaled_state
-    serial = [scale(base, s) for s in (0.5, 1.0, 1.5)]
+    step = TL.layered_step if layered else TH.step
+    serial = [_scaled(base, s) for s in (0.5, 1.0, 1.5)]
     serial[1] = step(model, serial[1], 60.0)
-    fn, ds, gather = sharded(model, ensemble.stack_members(serial), mesh_kind, layered)
+    fn, ds, gather = _sharded(model, ensemble.stack_members(serial), mesh_kind, layered,
+                              overlap)
     fn(ds, 60.0)  # loads the kernels
     fn.launches = [dict.fromkeys(kernels.LAUNCHES, 0) for _ in fn.launches]
     with host_syncs() as n_syncs:
@@ -1896,11 +2187,12 @@ def test_cuda_sharded_ensemble_step_bitwise(which, mesh_kind):
     fn.close()
     assert syncs == 0
     kind = 1 if isinstance(mesh_kind, int) else 2
+    want = _rank_launches(kind, layered, 3, split=overlap is None)
     for own in fn.launches:
-        assert {k: n for k, n in own.items() if n} == rank_launches(kind, layered, 3), own
+        assert {k: n for k, n in own.items() if n} == want, own
     got = gather(ds)
     for i, s in enumerate(serial):
-        fn1, d1, gather1 = sharded(model, s, mesh_kind, layered)
+        fn1, d1, gather1 = _sharded(model, s, mesh_kind, layered, overlap)
         for _ in range(3):
             d1 = fn1(d1, 60.0)
         fn1.close()
@@ -1921,13 +2213,18 @@ def _assert_back_on_card(back, want):
         assert torch.equal(x, y), f.name
 
 
+def _zeroed(state):
+    """A state of ``state``'s class with every field zeros like its own."""
+    return type(state)(**{f.name: torch.zeros_like(getattr(state, f.name))
+                          for f in dataclasses.fields(state)})
+
+
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_directory_checkpoint_serial_ensemble(tmp_path, dtype):
     """A 3-member ensemble of the 48 x 32 x 3 check gyre, one step on, written to a
     checkpoint directory and read into zeroed card tensors: every field bitwise, on
     the card, in its dtype."""
-    from chip_smoke import scaled_layered, zeroed
     from examples.wind_driven_ts_gyre_torch import build_check
     from orthogonalsphericalshellgrids_tpu_torch.models import ensemble
     from orthogonalsphericalshellgrids_tpu_torch.utils import (
@@ -1935,10 +2232,10 @@ def test_cuda_directory_checkpoint_serial_ensemble(tmp_path, dtype):
 
     model, base = build_check(dtype=dtype, device="cuda")
     batch = TL.layered_step(model, ensemble.stack_members(
-        [scaled_layered(base, s) for s in (0.5, 1.0, 1.5)]), 60.0)
+        [_scaled(base, s) for s in (0.5, 1.0, 1.5)]), 60.0)
     path = str(tmp_path / "ck")
     save_checkpoint(path, batch)
-    _assert_back_on_card(load_checkpoint(path, zeroed(batch)), batch)
+    _assert_back_on_card(load_checkpoint(path, _zeroed(batch)), batch)
 
 
 @needs_cuda
@@ -1948,24 +2245,210 @@ def test_cuda_directory_checkpoint_sharded_ensemble(tmp_path, mesh_kind):
     through LocalExchange on the card: one checkpoint directory read into zeroed rank
     states, every field of every rank bitwise, on the card, in its dtype, and a step
     on from it bitwise."""
-    from chip_smoke import scaled_state, sharded, zeroed
     from examples.bickley_jet_torch import build
     from orthogonalsphericalshellgrids_tpu_torch.models import ensemble
     from orthogonalsphericalshellgrids_tpu_torch.utils import (
         load_sharded_checkpoint, save_sharded_checkpoint)
 
     model, base = build(48, 40, dtype=torch.float64, substeps=12, device="cuda")
-    batch = ensemble.stack_members([scaled_state(base, s) for s in (0.5, 1.0, 1.5)])
-    fn, ds, _ = sharded(model, batch, mesh_kind, False)
+    batch = ensemble.stack_members([_scaled(base, s) for s in (0.5, 1.0, 1.5)])
+    fn, ds, _ = _sharded(model, batch, mesh_kind, False)
     ds = fn(ds, 60.0)
     path = str(tmp_path / "ck")
     save_sharded_checkpoint(path, ds, fn.models)
-    back = load_sharded_checkpoint(path, [zeroed(s) for s in ds], fn.models)
+    back = load_sharded_checkpoint(path, [_zeroed(s) for s in ds], fn.models)
     for a, b in zip(back, ds):
         _assert_back_on_card(a, b)
     for a, b in zip(fn(back, 60.0), fn(ds, 60.0)):
         _assert_back_on_card(a, b)
     fn.close()
+
+
+@needs_cuda
+@pytest.mark.parametrize("npz", [True, False], ids=["npz", "directory"])
+def test_cuda_simulation_resumes_from_a_checkpoint_bitwise(tmp_path, npz):
+    """The 48 x 32 x 3 check gyre through ``Simulation`` on the graphs to iteration 12,
+    with a ``Checkpointer`` (an npz file or a directory) every 6 and T, S and u of the
+    top layer written every 4 by the overlapped ``OutputWriter``: each step launches
+    one step's kernels and makes no host synchronization at an iteration where no
+    callback fires. A second run picked up from the checkpoint at 6 ends bitwise the
+    first in every field, on the card, and writes the snapshots of 8 and 12 bitwise
+    the first run's."""
+    from examples.wind_driven_ts_gyre_torch import build_check
+    from orthogonalsphericalshellgrids_tpu_torch.utils import (
+        Checkpointer, FieldTimeSeries, IterationInterval, OutputWriter, Simulation)
+    from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import host_syncs
+
+    model, state = build_check(device="cuda")
+    TL.layered_multi_step(model, state, 60.0, 1)  # captures the block
+    nz = model.nz
+    surface = {"T": lambda s: s.state.c[0], "S": lambda s: s.state.c[nz],
+               "u": lambda s: s.state.u[0]}
+    ckpt = Checkpointer(str(tmp_path / "gyre"), npz=npz)
+    ends, paths = {}, {}
+    for run in ("once", "resumed"):
+        paths[run] = str(tmp_path / f"surface_{run}.npz")
+        sim = Simulation(model, state, dt=60.0, stop_iteration=12)
+        sim.add_callback(OutputWriter(paths[run], surface), IterationInterval(4))
+        if run == "once":
+            sim.add_callback(ckpt, IterationInterval(6))
+            marks = []
+            kernels.reset_launch_counts()
+            with host_syncs() as n_syncs:
+                sim.add_callback(lambda s: marks.append((s.iteration, n_syncs())),
+                                 IterationInterval(1))
+                ends[run] = sim.run()
+            counts = kernels.launch_counts()
+        else:
+            ends[run] = sim.run(pickup=ckpt.path_for(6))
+        assert sim.iteration == 12, run
+    syncs = {it: n - prev for (_, prev), (it, n) in zip(marks, marks[1:])}
+    assert all(syncs[it] == 0 for it in (2, 3, 5, 7, 9, 10, 11)), syncs
+    want = {k: 0 for k in kernels.LAUNCHES}
+    want.update(halo_fill=24, halo_restore=12, barotropic=12, vertical=12,
+                momentum_closures=12, tracer_adv_kappa=12, corrector=12)
+    assert counts == want
+    assert Checkpointer.latest(ckpt.prefix) == ckpt.path_for(12)
+    _assert_back_on_card(ends["resumed"], ends["once"])
+    for k in surface:
+        once, resumed = (FieldTimeSeries(paths[r], k) for r in ("once", "resumed"))
+        assert len(once) == 3 and len(resumed) == 2, k
+        assert (resumed.data == once.data[1:]).all(), k
+        assert (resumed.times == once.times[1:]).all(), k
+
+
+@needs_cuda
+@pytest.mark.parametrize("members", [1, 2])
+def test_cuda_one_rank_nccl_group(tmp_path, members, monkeypatch):
+    """The 48 x 40 float64 jet, one state or 2 members (the second one step ahead),
+    through the sharded step of a 1-rank NCCL process group (``ProcessGroupExchange``;
+    with one rank the step takes the serial route and makes no NCCL operation): 3
+    steps bitwise the serial ones, with the serial launches and no host
+    synchronization. The 2 members are written to a checkpoint directory over the
+    group (one rank's file), read back over it into zeroed card tensors bitwise, and
+    stepped on from it bitwise."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    from examples.bickley_jet_torch import build
+    from orthogonalsphericalshellgrids_tpu_torch import parallel
+    from orthogonalsphericalshellgrids_tpu_torch.models import ensemble
+    from orthogonalsphericalshellgrids_tpu_torch.utils import (
+        load_sharded_checkpoint, save_sharded_checkpoint)
+    from orthogonalsphericalshellgrids_tpu_torch.utils.profiling import host_syncs
+
+    model, state = build(48, 40, dtype=torch.float64, substeps=12, device="cuda")
+    if members > 1:
+        state = ensemble.stack_members([state, TH.step(model, _scaled(state, 0.5), 60.0)])
+    want = ensemble.ensemble_multi_step(model, state, 60.0, 4) if members > 1 else \
+        TH.multi_step(model, state, 60.0, 4)
+    loads = []
+    load = dcp.load
+    monkeypatch.setattr(dcp, "load", lambda sd, **kw: (
+        loads.append(kw.get("no_dist", False)), load(sd, **kw))[1])
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="file://" + str(tmp_path / "store"),
+                            rank=0, world_size=1)
+    try:
+        mesh = parallel.ProcessGroupExchange()
+        dm, ds = parallel.distribute(model, state, mesh)
+        fn = parallel.sharded_step_fn(mesh, dm)
+        s = fn(ds, 60.0)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with host_syncs() as n_syncs:
+            for _ in range(3):
+                s = fn(s, 60.0)
+            syncs = n_syncs()
+        counts = {k: n for k, n in kernels.launch_counts().items() if n}
+        if members > 1:
+            path = str(tmp_path / "ck")
+            save_sharded_checkpoint(path, s, dm)
+            files = sorted(os.listdir(path))
+            back = load_sharded_checkpoint(path, [_zeroed(s[0])], dm)
+            _assert_back_on_card(back[0], s[0])
+            _assert_back_on_card(fn(back, 60.0)[0], fn(s, 60.0)[0])
+    finally:
+        dist.destroy_process_group()
+    assert syncs == 0
+    for f in dataclasses.fields(want):
+        assert torch.equal(getattr(s[0], f.name), getattr(want, f.name)), f.name
+    assert counts == {"halo_fill": 6, "halo_restore": 3, "barotropic": 3, "momentum": 3,
+                      "tracer_adv_members" if members > 1 else "tracer_adv": 3}, counts
+    if members > 1:
+        assert files == [".metadata", "__0_0.distcp"], files
+        assert loads == [True, False], loads  # the decomposition alone, then the group
+
+
+# ------------------------------------------------------------------------------------
+# the committed trajectory oracles through the kernels
+# ------------------------------------------------------------------------------------
+
+@needs_cuda
+@pytest.mark.parametrize("which", ["bickley", "front", "front_member"])
+def test_cuda_oracles_through_the_kernels(which):
+    """The committed oracles of the JAX package at float64, with the tolerances of
+    ``tests/test_parity.py``, through the kernels: 20 steps of the 180 x 90 Bickley
+    jet (u, v, c, η at rtol 1e-9, atol 1e-12; kinetic energy, enstrophy and tracer
+    variance at rtol 1e-10), 15 of the 120 x 60 x 4 baroclinic front (u, v, b at rtol
+    1e-9, atol 1e-14; kinetic energy at rtol 1e-10), and the front as member 0 of a
+    2-member ensemble whose member 1 is its state times 0.9 one step ahead, through
+    the member launches."""
+    from orthogonalsphericalshellgrids_tpu_torch.models import ensemble
+
+    data = os.path.join(ROOT, "tests", "data")
+    kernels.reset_launch_counts()
+    if which == "bickley":
+        from examples.bickley_jet_torch import build, diagnostics
+
+        with np.load(os.path.join(data, "bickley_oracle_180x90.npz")) as d:
+            nx, ny, dt, _, _ = d["meta"]
+            ref = {k: d[k] for k in ("u.020", "v.020", "c.020", "eta.020")}
+            curves = {k: d[k][:20] for k in ("ke", "ens", "cvar")}
+        model, s = build(int(nx), int(ny), dtype=torch.float64, substeps=30, device="cuda")
+        got = {k: [] for k in curves}
+        for _ in range(20):
+            s = TH.step(model, s, float(dt))
+            for k, val in zip(("ke", "ens", "cvar"), diagnostics(model, s)):
+                got[k].append(val)
+        assert kernels.launch_counts()["barotropic"] == 20
+        g = model.grid
+        fields = {"u": g.interior(s.u), "v": g.interior(s.v), "c": g.interior(s.c),
+                  "eta": model.grid_ext.interior(s.eta)}
+        atol, n = 1e-12, 20
+    else:
+        from examples.baroclinic_front_torch import build, kinetic_energy
+
+        with np.load(os.path.join(data, "front_oracle_120x60x4.npz")) as d:
+            nx, ny, nz, dt, _, _ = d["meta"]
+            ref = {k: d[k] for k in ("u.015", "v.015", "b.015")}
+            curves = {"ke": d["ke"][:15]}
+        model, s = build(int(nx), int(ny), int(nz), dtype=torch.float64, device="cuda")
+        if which == "front_member":
+            s = ensemble.stack_members(
+                [s, TL.layered_step(model, _scaled(s, 0.9), float(dt))])
+            kernels.reset_launch_counts()
+        got = {"ke": []}
+        for _ in range(15):
+            s = TL.layered_step(model, s, float(dt))
+            one = ensemble.member(s, 0) if which == "front_member" else s
+            got["ke"].append(kinetic_energy(model, one))
+        counts = kernels.launch_counts()
+        if which == "front_member":
+            assert int(s.iteration[0]) == 15 and int(s.iteration[1]) == 16
+            assert all(counts[k] == 15 for k in ("vertical_members", "momentum_members",
+                                                 "corrector_members", "barotropic"))
+            assert counts["tracer_adv_layered_members"] == 30, counts
+        else:
+            assert all(counts[k] == 15 for k in ("vertical", "momentum_layered",
+                                                 "barotropic")), counts
+        fields = {k: model.grid.interior(getattr(one, k)) for k in ("u", "v", "b")}
+        atol, n = 1e-14, 15
+    for name, a in fields.items():
+        np.testing.assert_allclose(a.cpu().numpy(), ref[f"{name}.{n:03d}"], rtol=1e-9,
+                                   atol=atol, err_msg=name)
+    for k, curve in curves.items():
+        np.testing.assert_allclose(got[k], curve, rtol=1e-10, atol=0, err_msg=k)
 
 
 # ------------------------------------------------------------------------------------
@@ -2000,25 +2483,24 @@ def test_cuda_blob_crosses_fold():
 
 def _graph_case(path, dtype):
     """(block function, step function, model, state) of a small path on the card: the
-    48 x 40 jet (substeps 12), the 48 x 32 x 3 check gyre, or the jet as 4 members
+    48 x 40 jet (substeps 12), the 48 x 32 x 3 check gyre, or either as 4 members
     (the state times 0.5, 0.75, 1.0 and 1.25)."""
     from orthogonalsphericalshellgrids_tpu_torch.models import ensemble
 
-    if path == "gyre":
+    if path.startswith("gyre"):
         from examples.wind_driven_ts_gyre_torch import build_check
 
         model, state = build_check(dtype=dtype, device="cuda")
-        return TL.layered_multi_step, TL.layered_step, model, state
-    from examples.bickley_jet_torch import build
+        block, step = TL.layered_multi_step, TL.layered_step
+    else:
+        from examples.bickley_jet_torch import build
 
-    model, state = build(48, 40, dtype=dtype, substeps=12, device="cuda")
-    if path == "bickley":
-        return TH.multi_step, TH.step, model, state
-    names = [f.name for f in dataclasses.fields(state)]
-    members = [TH.State(**{n: getattr(state, n) * s if n not in ("t", "iteration")
-                           else getattr(state, n) for n in names})
-               for s in (0.5, 0.75, 1.0, 1.25)]
-    return ensemble.ensemble_multi_step, TH.step, model, ensemble.stack_members(members)
+        model, state = build(48, 40, dtype=dtype, substeps=12, device="cuda")
+        block, step = TH.multi_step, TH.step
+    if not path.endswith("_ensemble"):
+        return block, step, model, state
+    members = [_scaled(state, s) for s in (0.5, 0.75, 1.0, 1.25)]
+    return ensemble.ensemble_multi_step, step, model, ensemble.stack_members(members)
 
 
 def _eager(step, model, state, dt, n):
@@ -2034,7 +2516,7 @@ def _states_equal(a, b):
 
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("path", ["bickley", "gyre", "bickley_ensemble"])
+@pytest.mark.parametrize("path", ["bickley", "gyre", "bickley_ensemble", "gyre_ensemble"])
 def test_cuda_graph_block_is_the_eager_loop(path, dtype):
     """Blocks of 1, 2, 3 and 7 steps replayed from their captured graphs are bitwise
     the eager loop of the step from the same state; the input is left as it was, and
@@ -2058,7 +2540,7 @@ def test_cuda_graph_block_is_the_eager_loop(path, dtype):
 
 
 @needs_cuda
-@pytest.mark.parametrize("path", ["bickley", "gyre", "bickley_ensemble"])
+@pytest.mark.parametrize("path", ["bickley", "gyre", "bickley_ensemble", "gyre_ensemble"])
 def test_cuda_graph_replay_counts_launches_and_never_waits(path):
     """After the capture, a replayed block of 3 steps (and of 5: odd n) counts the
     launches of 3 (5) eager steps, n times the captured step's record, and makes no

@@ -19,7 +19,7 @@
 - the refusals.
 
 The kernels are held against these plain versions on a card by
-``tests/test_torch_cuda.py`` and ``chip_smoke.py`` phase 13.
+``tests/test_torch_cuda.py``.
 """
 
 import os

@@ -13,7 +13,7 @@
 - the refusals: buffers the role does not take, geometries per role.
 
 The kernels are held against these plain versions on a card by
-``tests/test_torch_cuda.py`` and ``chip_smoke.py`` phase 12.
+``tests/test_torch_cuda.py``.
 """
 
 import os

@@ -32,16 +32,16 @@ PORT = os.path.join(ROOT, "orthogonalsphericalshellgrids_tpu_torch")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
-    files += sorted(glob.glob(os.path.join(ROOT, "examples", "*_torch.py")))
+    files = sorted(glob.glob(os.path.join(ROOT, "examples", "*_torch.py")))
     files += sorted(glob.glob(os.path.join(ROOT, "benchmarks", "torch_*.py")))
+    files.append(os.path.join(ROOT, "tests", "test_torch_cuda.py"))
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return files
 
 
 def test_port_never_imports_jax():
-    """No module of the port, its examples, its benchmark scripts or chip_smoke.py
+    """No module of the port, its examples, its benchmark scripts or its card tests
     imports jax or the JAX package."""
     bad = []
     files = _port_files()
